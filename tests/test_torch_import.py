@@ -1,0 +1,108 @@
+"""The port imports no JAX and none of the JAX package.
+
+Every vaevar_tpu_torch module imports in a fresh interpreter where jax, flax
+and optax cannot be imported, and no vaevar_tpu module gets loaded; no
+source file of the port (or chip_smoke.py) names them. The few jax-free
+tables the port carries as copies (channel registry, model and DA configs,
+the synthetic ERA5 source, the relative-position index, the synthetic obs
+masks and R) are held equal to the reference here."""
+
+import dataclasses
+import json
+import re
+import subprocess
+import sys
+from datetime import datetime
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from vaevar_tpu import channels as jch
+from vaevar_tpu import config as jcfg
+from vaevar_tpu.da import obs as jobs
+from vaevar_tpu.data.era5 import SyntheticEra5 as JaxEra5
+from vaevar_tpu.ops.posenc import relative_position_index as j_rpi
+from vaevar_tpu_torch import channels as tch
+from vaevar_tpu_torch import config as tcfg
+from vaevar_tpu_torch.da import obs as tobs
+from vaevar_tpu_torch.data.era5 import SyntheticEra5 as TorchEra5
+from vaevar_tpu_torch.ops.posenc import relative_position_index as t_rpi
+
+REPO = Path(__file__).resolve().parent.parent
+PKG = REPO / "vaevar_tpu_torch"
+
+
+def _modules():
+    return sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
+        for p in PKG.rglob("*.py"))
+
+
+def test_every_module_imports_with_jax_blocked():
+    code = (
+        "import sys, importlib, json\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax'):\n"
+        "    sys.modules[m] = None\n"
+        f"mods = {_modules()!r}\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "print(json.dumps(sorted(k for k in sys.modules\n"
+        "                        if k == 'vaevar_tpu' or k.startswith('vaevar_tpu.'))))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+    assert len(_modules()) >= 20
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(REPO)) for p in [*PKG.rglob("*.py"), REPO / "chip_smoke.py"]))
+def test_sources_name_no_jax(path):
+    src = (REPO / path).read_text()
+    bad = re.findall(r"^\s*(?:import|from)\s+(jax|jaxlib|flax|optax|vaevar_tpu)\b(?!_torch)",
+                     src, flags=re.M)
+    assert not bad, (path, bad)
+
+
+def test_channel_tables_equal_reference():
+    for name in ("MEAN", "STD", "ERR_STD"):
+        np.testing.assert_array_equal(getattr(tch, name), getattr(jch, name))
+    assert tch.CHANNEL_NAMES == jch.CHANNEL_NAMES and tch.IDX == jch.IDX
+    assert (tch.N_CHANNELS, tch.N_SINGLE, tch.N_LEVELS) == (jch.N_CHANNELS, jch.N_SINGLE,
+                                                            jch.N_LEVELS)
+
+
+def test_configs_equal_reference():
+    assert [f.name for f in dataclasses.fields(tcfg.LGUnetConfig)] == \
+        [f.name for f in dataclasses.fields(jcfg.LGUnetConfig)]
+    for name in ("FORECAST_025", "FLOW_140", "VAE_ENCODER", "VAE_DECODER"):
+        assert dataclasses.asdict(getattr(tcfg, name)) == dataclasses.asdict(getattr(jcfg, name))
+    for a, b in ((tcfg.micro_config(), jcfg.micro_config()),
+                 (tcfg.micro_config(img_size=(32, 64), attn_type="relbias"),
+                  jcfg.micro_config(img_size=(32, 64), attn_type="relbias")),
+                 *zip(tcfg.micro_vae_configs((32, 64)), jcfg.micro_vae_configs((32, 64)))):
+        assert dataclasses.asdict(a) == dataclasses.asdict(b)
+    jda = dataclasses.asdict(jcfg.DAConfig())
+    for k, v in dataclasses.asdict(tcfg.DAConfig()).items():
+        assert jda[k] == v, k
+
+
+def test_synthetic_source_equals_reference():
+    t = datetime(2022, 1, 1, 6)
+    np.testing.assert_array_equal(TorchEra5(hw=(32, 64), seed=3).get_state(t),
+                                  JaxEra5(hw=(32, 64), seed=3).get_state(t))
+
+
+def test_obs_and_posenc_copies_equal_reference():
+    for tp in range(5):
+        np.testing.assert_array_equal(tobs.obs_error_variance(0.005, tp),
+                                      jobs.obs_error_variance(0.005, tp))
+    var = jobs.obs_error_variance(0.005, 2)
+    np.testing.assert_array_equal(tobs.build_R(var, 1), jobs.build_R(var, None, 1, (8, 8)))
+    for kind in ("free_0001", "column_random_0001"):
+        np.testing.assert_array_equal(
+            tobs.make_obs_mask(kind, 1, (64, 128), np.random.default_rng(4)),
+            jobs.make_obs_mask(kind, 1, (64, 128), np.random.default_rng(4)))
+    for win in ((4, 4), (6, 12)):
+        np.testing.assert_array_equal(t_rpi(win), j_rpi(win))

@@ -1,0 +1,252 @@
+"""Cycled data assimilation loop: background -> analysis -> 6 h forecast.
+
+Port of vaevar_tpu/da/cycler.py for vae4dvar at da_win = 1 with synthetic
+observations: spin-up (`get_initial_state`), per-cycle obs masks drawn from
+one seeded generator in cycle order, the reduced-obs 3D-Var solve through the
+VAE decoder, the forecast advance, per-cycle metrics appended to
+`metrics_log.jsonl` and consolidated into `<metric>.npy` dumps, and a
+restartable on-disk state (`xb.npy` + `current_time.txt`). Obs preparation
+runs serially (the reference's obs prefetch thread changes no number).
+The forecast model runs under torch.no_grad(): the 3D-Var cost never
+differentiates through it.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from dataclasses import dataclass, field
+from datetime import datetime, timedelta
+from typing import Callable
+
+import numpy as np
+import torch
+
+from vaevar_tpu_torch import channels
+from vaevar_tpu_torch.config import DAConfig
+from vaevar_tpu_torch.da import cost as cost_mod
+from vaevar_tpu_torch.da import obs as obs_mod
+from vaevar_tpu_torch.da.solver import VariationalSolver
+from vaevar_tpu_torch.utils import metrics as M
+
+CYCLE = timedelta(hours=6)
+
+_METRIC_KEYS = (
+    "bg_wrmse", "ana_wrmse", "bg_mse", "ana_mse", "bg_bias", "ana_bias",
+    "error_obs",
+)
+
+
+@torch.no_grad()
+def score(x, gt0):
+    """Physical-unit WRMSE (69,), bias (69,) and normalised MSE of a field
+    against truth (da_4dvar.py:946-957 semantics)."""
+    mean = torch.as_tensor(channels.MEAN, dtype=torch.float32,
+                           device=x.device).reshape(-1, 1, 1)
+    std = torch.as_tensor(channels.STD, dtype=torch.float32, device=x.device)
+    xn = (x - mean) / std.reshape(-1, 1, 1)
+    gn = (gt0 - mean) / std.reshape(-1, 1, 1)
+    wrmse = M.weighted_rmse(xn[None], gn[None]) * std
+    bias = M.weighted_bias((xn - gn)[None]) * std
+    mse = torch.mean((xn - gn) ** 2)
+    return wrmse.cpu().numpy(), bias.cpu().numpy(), float(mse)
+
+
+def parse_time(ts) -> datetime:
+    return ts if isinstance(ts, datetime) else datetime.fromisoformat(str(ts))
+
+
+@dataclass
+class CycledDA:
+    cfg: DAConfig
+    state_source: object  # .get_state(datetime) -> (69, H, W) physical
+    forecast_integrate: Callable  # integrate(x, steps, interpolation)
+    decoder: torch.nn.Module  # vae4dvar decoder: latent -> (1, 69, h, w)
+    work_dir: str = "da_cycle_results/run"
+    seed: int = 0
+    device: str = "cpu"
+    verbose: bool = True
+    metrics_list: dict = field(default_factory=lambda: {k: [] for k in _METRIC_KEYS})
+
+    def __post_init__(self):
+        cfg = self.cfg
+        if cfg.da_mode != "vae4dvar":
+            raise NotImplementedError(
+                f"da_mode {cfg.da_mode!r}: only vae4dvar is ported "
+                "(sc4dvar: ROADMAP A.10; free_run/interpolation: ROADMAP A.11)")
+        if cfg.da_win != 1:
+            raise NotImplementedError("da_win > 1 (4D-Var window): ROADMAP A.8")
+        if cfg.init_tp not in (0, 1):
+            raise NotImplementedError(f"init_tp {cfg.init_tp}: ROADMAP A.11")
+        os.makedirs(self.work_dir, exist_ok=True)
+        self._rng = np.random.default_rng(self.seed)
+        self.R = obs_mod.build_R(
+            obs_mod.obs_error_variance(cfg.obs_std, cfg.modify_tp), cfg.da_win)
+        self._load_metrics()
+        self.decoder.requires_grad_(False)
+        c, to_state, parts = cost_mod.make_vae4dvar_cost_reduced(
+            self.decoder, obs_coeff=cfg.obs_coeff)
+        self._solver = VariationalSolver(
+            c, to_state, parts, lbfgs_iters=cfg.lbfgs_iters,
+            history=cfg.lbfgs_history, max_segment_evals=cfg.lbfgs_max_evals,
+            linesearch=cfg.lbfgs_linesearch)
+        # per-run record: spin-up seconds and, per cycle, seconds and the
+        # solver's (Jb, Jo) trace
+        self.timings = {"spin_up_s": None, "cycle_s": []}
+        self.cycle_log: list[dict] = []
+
+    def _dev(self, a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float32, device=self.device)
+
+    # --- resume machinery -------------------------------------------------
+
+    def _load_metrics(self):
+        for k in self.metrics_list:
+            p = os.path.join(self.work_dir, f"{k}.npy")
+            if os.path.exists(p):
+                self.metrics_list[k] = list(np.load(p, allow_pickle=True))
+        # replay entries newer than the last consolidated snapshot
+        log = os.path.join(self.work_dir, "metrics_log.jsonl")
+        if os.path.exists(log):
+            with open(log) as f:
+                for line in f:
+                    if not line.strip():
+                        continue
+                    e = json.loads(line)
+                    lst = self.metrics_list.get(e["k"])
+                    if lst is not None and e["i"] == len(lst):
+                        v = e["v"]
+                        lst.append(np.asarray(v) if isinstance(v, list) else v)
+        self._flushed = {k: len(v) for k, v in self.metrics_list.items()}
+
+    def save_eval_result(self, consolidate: bool = False):
+        """Append new metric entries to metrics_log.jsonl; with
+        `consolidate`, write the reference-format .npy dumps and truncate
+        the log."""
+        new = []
+        for k, v in self.metrics_list.items():
+            for i in range(self._flushed.get(k, 0), len(v)):
+                val = v[i]
+                new.append({"k": k, "i": i,
+                            "v": val.tolist() if hasattr(val, "tolist") else val})
+            self._flushed[k] = len(v)
+        if new:
+            with open(os.path.join(self.work_dir, "metrics_log.jsonl"), "a") as f:
+                for e in new:
+                    f.write(json.dumps(e) + "\n")
+        if not consolidate:
+            return
+        for k, v in self.metrics_list.items():
+            np.save(os.path.join(self.work_dir, k), np.asarray(v))
+        open(os.path.join(self.work_dir, "metrics_log.jsonl"), "w").close()
+
+    def save_ckpt(self, current_time, xb):
+        np.save(os.path.join(self.work_dir, "xb.npy"), xb.detach().cpu().numpy())
+        with open(os.path.join(self.work_dir, "current_time.txt"), "w") as f:
+            f.write(str(current_time))
+
+    def get_current_states(self, start_time):
+        tpath = os.path.join(self.work_dir, "current_time.txt")
+        xpath = os.path.join(self.work_dir, "xb.npy")
+        current = start_time
+        if os.path.exists(tpath):
+            with open(tpath) as f:
+                current = parse_time(f.read().strip())
+        if os.path.exists(xpath):
+            return current, self._dev(np.load(xpath))
+        t0 = time.perf_counter()
+        xb = self.get_initial_state(start_time)
+        if self.device.startswith("cuda"):
+            torch.cuda.synchronize()
+        self.timings["spin_up_s"] = time.perf_counter() - t0
+        if self.verbose:
+            print(f"spin-up took {self.timings['spin_up_s']:.2f}s", flush=True)
+        return current, xb
+
+    @torch.no_grad()
+    def get_initial_state(self, start_time):
+        """Spin-up per init_tp (da_4dvar.py:649-664)."""
+        cfg = self.cfg
+        x0 = self._dev(self.state_source.get_state(start_time - cfg.init_lag * CYCLE))
+        if cfg.init_tp == 0:
+            return self.forecast_integrate(x0, cfg.init_lag, True)
+        return x0
+
+    @torch.no_grad()
+    def advance(self, xa):
+        return self.forecast_integrate(xa, 1, True)
+
+    # --- per-cycle pieces -------------------------------------------------
+
+    def get_obs_info(self, current_time):
+        """(yo, H, R, gt): noiseless synthetic obs = truth at mask points."""
+        cfg = self.cfg
+        gt = np.stack([self.state_source.get_state(current_time)])  # (1, 69, H, W)
+        H = obs_mod.make_obs_mask(cfg.obs_type, cfg.da_win, cfg.grid_hw, self._rng)
+        gt_d = self._dev(gt)
+        return gt_d, self._dev(H), self._dev(self.R), gt_d
+
+    def _score(self, prefix, x, gt0):
+        wrmse, bias, mse = score(x, gt0)
+        self.metrics_list[f"{prefix}_wrmse"].append(wrmse)
+        self.metrics_list[f"{prefix}_bias"].append(bias)
+        self.metrics_list[f"{prefix}_mse"].append(mse)
+        return wrmse
+
+    def one_step_da(self, gt, xb, yo, H, R):
+        cfg = self.cfg
+        w_bg = self._score("bg", xb, gt[0])
+        if self.verbose:
+            print(f"  bg: z500 {w_bg[11]:.4g} t850 {w_bg[66]:.4g} t2m {w_bg[2]:.4g}",
+                  flush=True)
+        bundle = cost_mod.reduce_obs(cost_mod.ObsBundle(xb=xb, yo=yo, H=H, R=R),
+                                     cfg.solver_hw)
+        z0 = torch.zeros(cfg.latent_shape, dtype=torch.float32, device=self.device)
+        _, xa, diag = self._solver.solve(z0, bundle, nit=cfg.nit, gt=gt,
+                                         verbose=self.verbose, name="vae4dvar")
+        self.last_diag = diag
+        w_ana = self._score("ana", xa, gt[0])
+        if self.verbose:
+            print(f"  ana: z500 {w_ana[11]:.4g} t850 {w_ana[66]:.4g} "
+                  f"t2m {w_ana[2]:.4g}", flush=True)
+        return xa
+
+    # --- main loop --------------------------------------------------------
+
+    def run_assimilation(self, start_time, end_time):
+        """The 6 h cycle loop (da_4dvar.py:1314-1342); returns the last xb."""
+        start_time, end_time = parse_time(start_time), parse_time(end_time)
+        current_time, xb = self.get_current_states(start_time)
+        epoch = 0
+        while current_time + CYCLE <= end_time:
+            if self.verbose:
+                print(f"cycle @ {current_time}", flush=True)
+            t0 = time.perf_counter()
+            yo, H, R, gt = self.get_obs_info(current_time)
+            xa = self.one_step_da(gt, xb, yo, H, R)
+            self.save_eval_result()
+            xb = self.advance(xa)
+            nxt = current_time + CYCLE
+            if epoch % self.cfg.save_interval == 0:
+                self.save_ckpt(nxt, xb)
+                self.save_eval_result(consolidate=True)
+            if self.device.startswith("cuda"):
+                torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            self.timings["cycle_s"].append(secs)
+            self.cycle_log.append({
+                "time": str(current_time), "seconds": secs,
+                "jb": list(self.last_diag.loss_reg), "jo": list(self.last_diag.loss_obs),
+                "n_iters": list(self.last_diag.n_iters),
+                "n_evals": list(self.last_diag.n_evals),
+                "xa_finite": bool(torch.isfinite(xa).all()),
+                "xb_next_finite": bool(torch.isfinite(xb).all()),
+            })
+            current_time = nxt
+            epoch += 1
+            if self.verbose:
+                print(f"  cycle took {secs:.2f}s", flush=True)
+        self.save_ckpt(current_time, xb)
+        self.save_eval_result(consolidate=True)
+        return xb

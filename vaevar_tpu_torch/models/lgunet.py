@@ -1,0 +1,416 @@
+"""LGUnet: Swin-transformer U-Net backbone (PyTorch, channel-last inside).
+
+Port of vaevar_tpu/models/lgunet.py:58-688 for the 2-D window paths: the
+old-gen relbias blocks (VAE decoder, 1.4 deg flow model) and the new-gen rope
+blocks with a full-grid first LG stage (0.25 deg forecast model). Macro
+topology: per-variable-group encoders -> linear fuse -> LG stack at the
+coarse grid -> linear split -> per-group decoders with U-Net skips -> conv
+heads; output (B, C_out, H, W) float32 laid out as mean || std.
+
+The state_dict uses the reference torch key names that
+vaevar_tpu/utils/port_torch.py reads (`enc.enc_list.{g}...`,
+`net.layers.{i}.blocks.{j}...`, `dec.dec_list.{g}...`,
+`dec.final_proj_list.{g}`), so the JAX package's weights cross over through
+utils/port_jax.py. The flax `nn.vmap` over groups becomes one module per
+group, `nn.scan` a ModuleList, `nn.remat` torch.utils.checkpoint.
+
+Mixed precision mirrors flax, not torch.autocast: params stay f32; layers
+with a compute dtype cast input and weights to it; `x + pos_embed` promotes
+the encoder and LG residual streams to f32; PatchMerging/PatchExpand and the
+last LayerNorm before a head run in f32; the output is cast to f32.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from vaevar_tpu_torch.ops import rope as rope_ops
+from vaevar_tpu_torch.ops import windows as win_ops
+from vaevar_tpu_torch.ops.attention import window_attention_core
+from vaevar_tpu_torch.ops.posenc import relative_position_index
+
+_GENERAL_PATH = ("dilated and 3-D windows (WindowAttention._call_general) are "
+                 "not ported yet: ROADMAP A.9")
+
+
+def torch_dtype(dt):
+    """A config's compute dtype as a torch dtype (accepts the numpy/JAX
+    dtype objects of the reference configs)."""
+    if dt is None or isinstance(dt, torch.dtype):
+        return dt
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32,
+            "float16": torch.float16}[np.dtype(dt).name]
+
+
+def dense(x, lin: nn.Linear, dtype=None):
+    """flax nn.Dense semantics: cast input and params to `dtype` (or to
+    their promoted type when None) and compute in it."""
+    dt = dtype or torch.promote_types(x.dtype, lin.weight.dtype)
+    b = None if lin.bias is None else lin.bias.to(dt)
+    return F.linear(x.to(dt), lin.weight.to(dt), b)
+
+
+def layer_norm(x, ln: nn.LayerNorm, dtype=None):
+    """flax nn.LayerNorm semantics: statistics and affine in f32, result in
+    `dtype` (or the promoted type of x and params when None)."""
+    dt = dtype or torch.promote_types(x.dtype, ln.weight.dtype)
+    y = F.layer_norm(x.float(), ln.normalized_shape, ln.weight.float(),
+                     ln.bias.float(), ln.eps)
+    return y.to(dt)
+
+
+def _promote_cat(xs, dim=-1):
+    dt = xs[0].dtype
+    for t in xs[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return torch.cat([t.to(dt) for t in xs], dim=dim)
+
+
+class WindowAttention(nn.Module):
+    """Shifted-window MHSA over (B, H, W, C) with rope or relative-position
+    bias (lgunet.py:58-278, 2-D windows)."""
+
+    def __init__(self, dim, num_heads, window_size, shift_size, resolution,
+                 attn_type="rope", lora_rank=0, dtype=None, flash_min_seq=4096):
+        super().__init__()
+        if len(window_size) != 2:
+            raise NotImplementedError(_GENERAL_PATH)
+        H, W = resolution
+        wh, ww = window_size
+        sh, sw = shift_size
+        if attn_type == "relbias" and min(H, W) <= min(wh, ww):
+            # old-gen clamp: the window cannot exceed the grid (lgunet.py:95-100)
+            wh = ww = min(H, W)
+            sh = sw = 0
+        self.win, self.shift = (wh, ww), (sh, sw)
+        self.resolution = (H, W)
+        self.num_heads = num_heads
+        self.attn_type = attn_type
+        self.lora_rank = lora_rank
+        self.dtype = dtype
+        self.flash_min_seq = flash_min_seq
+        head_dim = dim // num_heads
+        self.scale = head_dim ** -0.5
+        self.qkv = nn.Linear(dim, 3 * dim)
+        self.proj = nn.Linear(dim, dim)
+        if lora_rank > 0:
+            if attn_type != "relbias":
+                raise NotImplementedError("LoRA q exists only in old-gen blocks")
+            self.qA = nn.Linear(dim, lora_rank, bias=False)
+            self.qB = nn.Linear(lora_rank, dim, bias=False)
+        if attn_type == "rope":
+            for name, t in zip(("sin1", "cos1", "sin2", "cos2"),
+                               rope_ops.rope2_tables(self.win, head_dim)):
+                self.register_buffer(name, torch.from_numpy(t), persistent=False)
+            neg = -np.inf
+        elif attn_type == "relbias":
+            T = (2 * wh - 1) * (2 * ww - 1)
+            self.relative_position_bias_table = nn.Parameter(torch.zeros(T, num_heads))
+            self.register_buffer(
+                "rel_index",
+                torch.from_numpy(relative_position_index((wh, ww)).reshape(-1)),
+                persistent=False)
+            neg = -100.0  # old-gen fill (swinblock.py:258)
+        else:
+            raise ValueError(f"attn_type {attn_type!r}")
+        mask = win_ops.swin_attention_mask(H, W, self.win, self.shift, neg=neg)
+        self.register_buffer(
+            "mask", None if mask is None else torch.from_numpy(mask), persistent=False)
+
+    def forward(self, x):
+        B, H, W, C = x.shape
+        wh, ww = self.win
+        sh, sw = self.shift
+        N = wh * ww
+        h = self.num_heads
+        hd = C // h
+        if sh or sw:
+            x = win_ops.shift2d(x, -sh, -sw)
+        xw = win_ops.window_partition(x, self.win)
+        B_ = xw.shape[0]
+        qkv = dense(xw, self.qkv, self.dtype)
+        if self.lora_rank > 0:
+            q_lora = dense(dense(xw, self.qA, self.dtype), self.qB, self.dtype)
+            qkv = torch.cat([qkv[..., :C] + q_lora, qkv[..., C:]], dim=-1)
+        qkv = qkv.reshape(B_, N, 3, h, hd).permute(2, 0, 3, 1, 4)
+        q, k, v = qkv[0], qkv[1], qkv[2]  # (B_, h, N, hd)
+
+        if self.attn_type == "rope":
+            tables = (self.sin1, self.cos1, self.sin2, self.cos2)
+            q = rope_ops.apply_rope2(q, tables) * self.scale
+            k = rope_ops.apply_rope2(k, tables)
+            out = window_attention_core(q, k, v, self.mask, self.flash_min_seq)
+        else:
+            q = q * self.scale
+            logits = q.float() @ k.float().transpose(-1, -2)
+            bias = self.relative_position_bias_table.float()[self.rel_index]
+            logits = logits + bias.reshape(N, N, h).permute(2, 0, 1)[None]
+            if self.mask is not None:
+                nW = self.mask.shape[0]
+                logits = (logits.reshape(B_ // nW, nW, h, N, N)
+                          + self.mask[None, :, None]).reshape(B_, h, N, N)
+            w = torch.softmax(logits, dim=-1).to(v.dtype)
+            out = w @ v
+
+        out = out.transpose(1, 2).reshape(B_, N, C)
+        x = win_ops.window_reverse(out, self.win, H, W)
+        if sh or sw:
+            x = win_ops.shift2d(x, sh, sw)
+        return dense(x, self.proj, self.dtype)
+
+
+class Mlp(nn.Module):
+    def __init__(self, dim, hidden, dtype=None):
+        super().__init__()
+        self.fc1 = nn.Linear(dim, hidden)
+        self.fc2 = nn.Linear(hidden, dim)
+        self.dtype = dtype
+
+    def forward(self, x):
+        x = F.gelu(dense(x, self.fc1, self.dtype))  # exact erf GELU
+        return dense(x, self.fc2, self.dtype)
+
+
+class Block(nn.Module):
+    """Pre-norm window-attention block (lgunet.py:293-342). Old-gen blocks
+    name their first norm `norm1` with eps 1e-5, new-gen `norm` with 1e-6."""
+
+    def __init__(self, cfg, dim, num_heads, window, shift, resolution):
+        super().__init__()
+        self.dtype = cfg.dtype
+        eps = 1e-5 if cfg.attn_type == "relbias" else 1e-6
+        self.norm_name = "norm1" if cfg.attn_type == "relbias" else "norm"
+        setattr(self, self.norm_name, nn.LayerNorm(dim, eps=eps))
+        self.attn = WindowAttention(
+            dim, num_heads, window, shift, resolution, cfg.attn_type,
+            cfg.lora_rank, cfg.dtype, cfg.flash_min_seq)
+        self.norm2 = nn.LayerNorm(dim, eps=eps)
+        self.mlp = Mlp(dim, int(dim * cfg.mlp_ratio), cfg.dtype)
+
+    def forward(self, x):
+        x = x + self.attn(layer_norm(x, getattr(self, self.norm_name), self.dtype))
+        return x + self.mlp(layer_norm(x, self.norm2, self.dtype))
+
+
+class BasicLayer(nn.Module):
+    """One stage: `depth` blocks, with odd blocks shifted by half a window
+    when `shifted` (the flax scan over unshifted/shifted pairs,
+    lgunet.py:373-432), plus an optional `downsample` applied first or
+    `upsample` applied last (the reference's stage key layout)."""
+
+    def __init__(self, cfg, dim, num_heads, depth, resolution, window,
+                 shifted=True, downsample=None, upsample=None):
+        super().__init__()
+        if any(d > 1 for d in cfg.dilated_size) or len(window) != 2:
+            raise NotImplementedError(_GENERAL_PATH)
+        half = tuple(w // 2 for w in window)
+        self.blocks = nn.ModuleList(
+            Block(cfg, dim, num_heads, window,
+                  half if shifted and j % 2 else (0, 0), resolution)
+            for j in range(depth))
+        self.downsample = downsample
+        self.upsample = upsample
+        self.remat = cfg.remat
+
+    def forward(self, x):
+        if self.downsample is not None:
+            x = self.downsample(x)
+        for blk in self.blocks:
+            if self.remat and torch.is_grad_enabled():
+                x = checkpoint(blk, x, use_reentrant=False)
+            else:
+                x = blk(x)
+        if self.upsample is not None:
+            x = self.upsample(x)
+        return x
+
+
+class PatchMerging(nn.Module):
+    """2x2 space-to-depth + norm + linear 4C -> 2C, in f32 (lgunet.py:435-453)."""
+
+    def __init__(self, dim):
+        super().__init__()
+        self.norm = nn.LayerNorm(4 * dim, eps=1e-6)
+        self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
+
+    def forward(self, x):
+        x = torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2],
+                       x[:, 0::2, 1::2], x[:, 1::2, 1::2]], dim=-1)
+        return dense(layer_norm(x, self.norm), self.reduction)
+
+
+class PatchExpand(nn.Module):
+    """Linear C -> 2C + depth-to-space 2x2 + norm, in f32 (lgunet.py:456-467)."""
+
+    def __init__(self, dim):
+        super().__init__()
+        self.expand = nn.Linear(dim, 2 * dim, bias=False)
+        self.norm = nn.LayerNorm(dim // 2, eps=1e-6)
+
+    def forward(self, x):
+        x = dense(x, self.expand)
+        B, H, W, C = x.shape
+        x = x.reshape(B, H, W, 2, 2, C // 4).permute(0, 1, 3, 2, 4, 5)
+        return layer_norm(x.reshape(B, 2 * H, 2 * W, C // 4), self.norm)
+
+
+class _PatchEmbed(nn.Module):
+    def __init__(self, cfg, in_chans):
+        super().__init__()
+        self.proj = nn.Conv2d(in_chans, cfg.enc_dim, cfg.patch_size, cfg.stride)
+        self.dtype = cfg.dtype
+
+    def forward(self, x):  # (B, H, W, c) -> (B, h, w, C), VALID padding
+        dt = self.dtype or torch.promote_types(x.dtype, self.proj.weight.dtype)
+        y = F.conv2d(x.permute(0, 3, 1, 2).to(dt), self.proj.weight.to(dt),
+                     self.proj.bias.to(dt), self.proj.stride)
+        return y.permute(0, 2, 3, 1)
+
+
+class GroupEncoder(nn.Module):
+    """Per-variable-group hierarchical encoder (lgunet.py:470-504)."""
+
+    def __init__(self, cfg, in_chans):
+        super().__init__()
+        pr = cfg.patches_resolution
+        self.patch_embed = _PatchEmbed(cfg, in_chans)
+        self.absolute_pos_embed = nn.Parameter(torch.zeros(1, pr[0], pr[1], cfg.enc_dim))
+        self.layers = nn.ModuleList()
+        for i, depth in enumerate(cfg.enc_depths):
+            dim = cfg.enc_dim * 2 ** i
+            res = (pr[0] // 2 ** i, pr[1] // 2 ** i)
+            self.layers.append(BasicLayer(
+                cfg, dim, cfg.enc_heads[i], depth, res, cfg.window_size,
+                downsample=PatchMerging(dim // 2) if i > 0 else None))
+        self.norm = nn.LayerNorm(cfg.enc_dim * 2 ** (len(cfg.enc_depths) - 1), eps=1e-6)
+
+    def forward(self, x):
+        x = self.patch_embed(x) + self.absolute_pos_embed  # f32 stream
+        skips = []
+        for stage in self.layers:
+            x = stage(x)
+            skips.append(x)
+        return layer_norm(x, self.norm), skips
+
+
+class GroupDecoder(nn.Module):
+    """Per-variable-group decoder with U-Net skips (lgunet.py:507-538); the
+    conv head lives in `Decoder.final_proj_list`."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        pr = cfg.patches_resolution
+        L = len(cfg.enc_depths)
+        self.dtype = cfg.dtype
+        self.concat_back_dim = nn.ModuleList()
+        self.layers_up = nn.ModuleList()
+        for i in range(L):
+            dim = cfg.enc_dim * 2 ** (L - 1 - i)
+            res = (pr[0] // 2 ** (L - 1 - i), pr[1] // 2 ** (L - 1 - i))
+            self.concat_back_dim.append(nn.Linear(2 * dim, dim))
+            self.layers_up.append(BasicLayer(
+                cfg, dim, cfg.enc_heads[L - 1 - i], cfg.enc_depths[L - 1 - i],
+                res, cfg.window_size,
+                upsample=PatchExpand(dim) if i < L - 1 else None))
+        self.norm_up = nn.LayerNorm(cfg.enc_dim, eps=1e-6)
+
+    def forward(self, x, skips):
+        L = len(self.layers_up)
+        for i, stage in enumerate(self.layers_up):
+            x = _promote_cat([x, skips[L - 1 - i]])
+            x = dense(x, self.concat_back_dim[i], self.dtype)
+            x = stage(x)
+        return layer_norm(x, self.norm_up)
+
+
+def conv_transpose_valid(x, ct: nn.ConvTranspose2d, dtype=None):
+    """flax ConvTranspose(padding="VALID") on (B, H, W, C): output
+    in*stride + max(k - stride, 0) per axis, which torch's transposed
+    convolution gives for k >= stride (721 rows from 360 at k=3, s=2)."""
+    dt = dtype or torch.promote_types(x.dtype, ct.weight.dtype)
+    y = F.conv_transpose2d(x.permute(0, 3, 1, 2).to(dt), ct.weight.to(dt),
+                           ct.bias.to(dt), ct.stride)
+    return y.permute(0, 2, 3, 1)
+
+
+class Encoder(nn.Module):
+    def __init__(self, cfg):
+        super().__init__()
+        self.enc_list = nn.ModuleList(GroupEncoder(cfg, c) for c in cfg.inchans_list)
+        fused = cfg.enc_dim * 2 ** (len(cfg.enc_depths) - 1) * cfg.n_groups
+        self.proj = nn.Linear(fused, cfg.embed_dim)
+
+
+class LGStack(nn.Module):
+    """Coarse-grid transformer (lgunet.py:541-580): stage 0 attends the full
+    grid unshifted when `lg_full_attn_first`, later stages are windowed."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        if cfg.lg_window_size is not None and len(cfg.lg_window_size) != 2:
+            raise NotImplementedError(_GENERAL_PATH)
+        Hg, Wg = cfg.lg_resolution
+        self.pos_embed = nn.Parameter(torch.zeros(1, Hg, Wg, cfg.embed_dim))
+        self.layers = nn.ModuleList()
+        for i, (depth, heads) in enumerate(zip(cfg.lg_depths, cfg.lg_heads)):
+            full = i == 0 and cfg.lg_full_attn_first
+            self.layers.append(BasicLayer(
+                cfg, cfg.embed_dim, heads, depth, (Hg, Wg),
+                (Hg, Wg) if full else tuple(cfg.lg_window), shifted=not full))
+
+    def forward(self, x):
+        x = x + self.pos_embed
+        for stage in self.layers:
+            x = stage(x)
+        return x
+
+
+class Decoder(nn.Module):
+    def __init__(self, cfg):
+        super().__init__()
+        gdim = cfg.enc_dim * 2 ** (len(cfg.enc_depths) - 1)
+        self.proj = nn.Linear(cfg.embed_dim, gdim * cfg.n_groups)
+        self.dec_list = nn.ModuleList(GroupDecoder(cfg) for _ in cfg.outchans_list)
+        self.final_proj_list = nn.ModuleList(
+            nn.ConvTranspose2d(cfg.enc_dim, c, cfg.patch_size, cfg.stride)
+            for c in cfg.outchans_list)
+
+
+class LGUnet(nn.Module):
+    """(B, C_in, H, W) -> (B, C_out, H, W) float32, mean || std layout."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        cfg = cfg.replace(dtype=torch_dtype(cfg.dtype))
+        self.cfg = cfg
+        self.enc = Encoder(cfg)
+        self.net = LGStack(cfg)
+        self.dec = Decoder(cfg)
+
+    def forward(self, x):
+        cfg = self.cfg
+        x = x.permute(0, 2, 3, 1)  # NCHW -> NHWC
+        if cfg.dtype is not None:
+            x = x.to(cfg.dtype)
+        groups = torch.split(x, list(cfg.inchans_list), dim=-1)
+        feats, skips = [], []
+        for enc, g in zip(self.enc.enc_list, groups):
+            f, ds = enc(g)
+            feats.append(f)
+            skips.append(ds)
+        fused = dense(_promote_cat(feats), self.enc.proj, cfg.dtype)
+        out = self.net(fused)
+        out = dense(out, self.dec.proj, cfg.dtype)
+        parts = torch.chunk(out, cfg.n_groups, dim=-1)
+        means, stds = [], []
+        for gi, (dec, head) in enumerate(zip(self.dec.dec_list, self.dec.final_proj_list)):
+            y = conv_transpose_valid(dec(parts[gi], skips[gi]), head, cfg.dtype)
+            c = cfg.outchans_list[gi]
+            means.append(y[..., : c // 2])
+            stds.append(y[..., c // 2:])
+        y = torch.cat(means + stds, dim=-1)
+        return y.permute(0, 3, 1, 2).float()
