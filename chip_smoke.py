@@ -5,26 +5,46 @@
 Phases, each printing its own line(s); any failure raises, so the script
 exits nonzero without its last line:
 1. device: a CUDA device is required; prints its name and power limit;
-2. build: compiles the CUDA kernels from csrc/ (prints the seconds);
-3. kernel against its plain PyTorch version on the card: small f32 shapes
-   with ragged tiles (atol 1e-4 on O and lse), the production shape
+2. build: compiles the CUDA kernels from csrc/, one nvcc per source, all
+   started together (prints the seconds of each);
+3. forward kernel against its plain PyTorch version on the card: small f32
+   shapes with ragged tiles (atol 1e-4 on O and lse), the production shape
    (1, 6, 16200, 192) in bf16 and with f32 q/k and bf16 v, the dtypes the
    rope stage hands the kernel, against the plain version in f32 on the same
    inputs (atol 2e-2 on O, 1e-3 on lse); median times of both;
-4. the port's model on the card (kernel path) against the same model on the
-   CPU (plain path) at a micro size, f32, atol 1e-4;
-5. the main path: the README's vae4dvar cycle through
-   vaevar_tpu_torch.run_da at full width (0.25 deg FORECAST_025 advance at
-   721x1440, VAE decoder at 128x256, Nit 4), 2 cycles after the 8-step
-   spin-up, random weights from the seed. Checks the kernel launch count,
-   finite analyses, the cost decrease and the on-disk state.
-The second-to-last line is a JSON record of the kernels; the last line is
+4. backward kernels (dq, dkv) against their plain versions: the same small
+   f32 shapes, and the production shape with f32 q/k/dO and bf16 v (the
+   main path's) and in bf16, against the plain backward in f32 on the same
+   inputs; a tolerance per gradient, relative to its largest entry (see
+   BWD_TOL); two launches bitwise equal; median times of both;
+5. the port's model on the card (kernel path) against the same model on the
+   CPU (plain path) at a micro size, f32: the forward (atol 1e-4), then one
+   Possloss train step with remat (loss and gradients);
+6. the DA path: the README's vae4dvar cycle through vaevar_tpu_torch.run_da
+   at full width (0.25 deg FORECAST_025 advance at 721x1440, VAE decoder at
+   128x256, Nit 4), 2 cycles after the 8-step spin-up, random weights from
+   the seed. Checks the forward kernel's launch count, finite analyses, the
+   cost decrease and the on-disk state;
+7. the training path: FORECAST_025 at 721x1440, batch 1, bf16, remat,
+   Possloss, random weights from the seed, the trainer CLI's lr and AdamW:
+   3 train steps through make_forecast_train_step on one synthetic ERA5
+   pair, then one eval step. Checks finite and falling losses, a finite
+   nonzero gradient at every LG stage-0 qkv, and the launch counts (8
+   forward, 4 dq, 4 dkv per train step; 4 forward for the eval step);
+   prints seconds per step and peak device memory;
+8. the trainer CLI on the card (run_train_forecast --micro --grid 32x64):
+   2 steps with validation and a checkpoint, then a second run that resumes
+   at the saved step.
+The second-to-last line is a JSON record of the kernels (launches summed
+over the DA and training paths, each counted from 0); the last line is
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -39,6 +59,18 @@ MAIN_ARGS = ["--da_mode", "vae4dvar", "--fast_init", "--grid", "721x1440",
              "--start_time", START, "--end_time", END]
 SMALL_SHAPES = [(2, 2, 300, 64), (1, 2, 200, 32), (1, 1, 130, 32)]
 PROD_SHAPE = (1, 6, 16200, 192)
+# Backward tolerances, relative to the gradient's largest |entry|, keyed by
+# (q/k type, gradient type), against the plain backward in f32:
+# - an f32 gradient: the same f32 math summed in another order over up to
+#   16200 terms;
+# - a bf16 gradient of f32 q/k (dv on the main path): its rounding to bf16,
+#   half an ulp (2^-9) and one more where f32 noise crosses a boundary;
+# - all-bf16: dS and P^T are rounded to bf16 (2^-9 each) where the f32
+#   reference does not round, and cancel in the sums.
+BWD_TOL = {("float32", "float32"): 2e-5, ("float32", "bfloat16"): 2 ** -7,
+           ("bfloat16", "bfloat16"): 2 ** -6}
+LR = 5e-6  # run_train_forecast's default
+TOTAL_STEPS = 200  # run_train_forecast's --steps x --epochs defaults
 
 
 def phase(name, msg):
@@ -60,6 +92,15 @@ def median_ms(fn, reps=5):
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1))
     return statistics.median(times)
+
+
+def in_turns(kernel, plain):
+    """Median CUDA-event ms of each, in turns plain, kernel, kernel, plain;
+    returns (kernel mean, plain mean, the four readings)."""
+    runs = {"plain": [], "kernel": []}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        runs[which].append(median_ms(kernel if which == "kernel" else plain))
+    return statistics.mean(runs["kernel"]), statistics.mean(runs["plain"]), runs
 
 
 def rand(shape, seed, dtype, scale=1.0):
@@ -106,13 +147,8 @@ def check_kernel(fa):
         if not (eo <= 2e-2 and el <= 1e-3):
             raise AssertionError(f"kernel disagrees with plain version ({tag})")
         worst = max(worst, eo)
-        # in turns: plain, kernel, kernel, plain
-        runs = {"plain": [], "kernel": []}
-        for which in ("plain", "kernel", "kernel", "plain"):
-            fn = (fa.flash_fwd_cuda if which == "kernel"
-                  else lambda *a: fa.flash_attention_plain(*a, 1024, 1024))
-            runs[which].append(median_ms(lambda: fn(q, k, v)))
-        kern, plain = (statistics.mean(runs[w]) for w in ("kernel", "plain"))
+        kern, plain, runs = in_turns(lambda: fa.flash_fwd_cuda(q, k, v),
+                                     lambda: fa.flash_attention_plain(q, k, v, 1024, 1024))
         phase("kernel", f"{tag} {PROD_SHAPE}: kernel {kern:.3f} ms "
               f"({runs['kernel'][0]:.3f}/{runs['kernel'][1]:.3f}), plain {plain:.3f} ms "
               f"({runs['plain'][0]:.3f}/{runs['plain'][1]:.3f}); medians of 5, CUDA events")
@@ -121,18 +157,86 @@ def check_kernel(fa):
     return worst, timing[0], timing[1]
 
 
-def check_model():
-    """Phase 4: micro rope model with a flash stage, card against CPU."""
-    import numpy as np
+def check_bwd(fa):
+    """Phase 4: dq and dkv kernels against their plain versions; returns
+    {kernel: (max abs err at the production shape, ms, plain ms)}."""
     import torch
 
+    def grads_vs_plain(shape, qk_dt, v_dt, seed):
+        d = shape[-1]
+        q = rand(shape, seed, torch.float32, d ** -0.5).to(qk_dt)
+        k = rand(shape, seed + 1, torch.float32).to(qk_dt)
+        v = rand(shape, seed + 2, torch.float32).to(v_dt)
+        do = rand(shape, seed + 3, torch.float32).to(qk_dt)
+        o, lse = fa.flash_fwd_cuda(q, k, v)
+        delta = (do.float() * o.float()).sum(-1)
+        got = (fa.flash_dq_cuda(q, k, v, do, lse, delta),
+               *fa.flash_dkv_cuda(q, k, v, do, lse, delta))
+        again = (fa.flash_dq_cuda(q, k, v, do, lse, delta),
+                 *fa.flash_dkv_cuda(q, k, v, do, lse, delta))
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"two backward launches differ at {shape}")
+        want = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(), o.float(),
+                                            lse, do.float())
+        torch.cuda.synchronize()
+        tag = f"q/k {str(qk_dt)[6:]} v {str(v_dt)[6:]} {shape}"
+        errs = {}
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            err, scale = (a.float() - b).abs().max().item(), b.abs().max().item()
+            tol = BWD_TOL[(str(qk_dt)[6:], str(a.dtype)[6:])] * scale
+            phase("bwd", f"{tag}: {name} max|d| {err:.3g} <= {tol:.3g} "
+                  f"(tol x max|ref| {scale:.3g})")
+            if not err <= tol:
+                raise AssertionError(f"{name} kernel disagrees with plain version ({tag})")
+            errs[name] = err
+        phase("bwd", f"{tag}: two launches bitwise equal")
+        return (q, k, v, do, lse, delta), errs
+
+    for i, shape in enumerate(SMALL_SHAPES):
+        grads_vs_plain(shape, torch.float32, torch.float32, 20 + 10 * i)
+
+    out = {"flash_dq": [0.0], "flash_dkv": [0.0]}
+    for qk_dt, v_dt in ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16)):
+        args, errs = grads_vs_plain(PROD_SHAPE, qk_dt, v_dt, 5)
+        out["flash_dq"][0] = max(out["flash_dq"][0], errs["dq"])
+        out["flash_dkv"][0] = max(out["flash_dkv"][0], errs["dk"], errs["dv"])
+        tag = f"q/k {str(qk_dt)[6:]} v {str(v_dt)[6:]} {PROD_SHAPE}"
+        for name, kern_fn, plain_fn in (
+                ("flash_dq", fa.flash_dq_cuda, fa.flash_dq_plain),
+                ("flash_dkv", fa.flash_dkv_cuda, fa.flash_dkv_plain)):
+            kern, plain, runs = in_turns(lambda: kern_fn(*args), lambda: plain_fn(*args))
+            phase("bwd", f"{tag}: {name} kernel {kern:.3f} ms "
+                  f"({runs['kernel'][0]:.3f}/{runs['kernel'][1]:.3f}), plain {plain:.3f} ms "
+                  f"({runs['plain'][0]:.3f}/{runs['plain'][1]:.3f}); medians of 5, CUDA events")
+            if qk_dt == torch.float32:  # the dtypes the main path hands the kernels
+                out[name] += [kern, plain]
+        del args
+    return {name: tuple(v) for name, v in out.items()}
+
+
+def micro_model(seed=3, **kw):
+    """The micro rope LGUnet whose flash calls all have kernel head dims:
+    full-grid LG stage (128 tokens, head dim 32) and unshifted 4x4 encoder
+    and decoder windows (16 tokens, head dims 32 and 64)."""
     from vaevar_tpu_torch import config as cfgs
     from vaevar_tpu_torch.models.lgunet import LGUnet
     from vaevar_tpu_torch.utils.fast_init import fast_init
 
     cfg = cfgs.micro_config(img_size=(32, 64), flash_min_seq=16, enc_dim=32,
-                            embed_dim=64, lg_heads=(2,))  # LG head dim 32
-    model = fast_init(LGUnet(cfg), seed=3).eval()
+                            embed_dim=64, lg_heads=(2,), **kw)
+    return fast_init(LGUnet(cfg), seed=seed)
+
+
+def check_model(fa):
+    """Phase 5: micro rope model with a flash stage, card against CPU: the
+    forward, then one train step (f32, remat, Possloss)."""
+    import numpy as np
+    import torch
+
+    from vaevar_tpu_torch.train import forecast_trainer as ft
+
+    model = micro_model().eval()
     x = torch.from_numpy(np.random.default_rng(4).standard_normal(
         (1, 69, 32, 64), dtype=np.float32))
     with torch.no_grad():
@@ -143,6 +247,130 @@ def check_model():
           f"finite {bool(torch.isfinite(y_gpu).all())}")
     if not (err <= 1e-4 and torch.isfinite(y_gpu).all()):
         raise AssertionError("model on the card disagrees with the CPU path")
+
+    tar = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (1, 69, 32, 64), dtype=np.float32))
+    losses, grads = {}, {}
+    for dev in ("cpu", "cuda"):
+        model = micro_model(remat=True).to(dev).train()
+        init_fn, step = ft.make_forecast_train_step(model, "Possloss", lr=1e-4, total_steps=10,
+                                                    out_shape=(138, 32, 64))
+        trainable, opt_state = init_fn()
+        before = (fa.flash_dq_launches, fa.flash_dkv_launches)
+        _, _, loss = step(trainable, opt_state, x.to(dev), [tar.to(dev)])
+        launched = (fa.flash_dq_launches - before[0], fa.flash_dkv_launches - before[1])
+        losses[dev] = loss.item()
+        grads[dev] = torch.cat([p.grad.flatten().cpu() for p in model.parameters()]
+                               + [trainable[k].grad.flatten().cpu()
+                                  for k in ("max_logvar", "min_logvar")])
+    scale = grads["cpu"].abs().max().item()
+    gerr = (grads["cuda"] - grads["cpu"]).abs().max().item()
+    lerr = abs(losses["cuda"] - losses["cpu"])
+    # f32 through ~40 layers in another summation order: the forward's 1e-4
+    # and the gradients to 1e-3 of their largest entry
+    phase("model", f"micro train step card vs CPU: loss {losses['cuda']:.6g} vs "
+          f"{losses['cpu']:.6g} (|d| {lerr:.3g}, atol 1e-4); gradients max|d| {gerr:.3g} "
+          f"<= {1e-3 * scale:.3g} (1e-3 x max|grad|); dq/dkv launches {launched}")
+    if not (lerr <= 1e-4 and gerr <= 1e-3 * scale and min(launched) > 0):
+        raise AssertionError("the micro train step on the card disagrees with the CPU path")
+
+
+def check_forecast_training(fa):
+    """Phase 7: FORECAST_025 train steps at full width; returns the launch
+    counts of the phase."""
+    from datetime import datetime, timedelta
+
+    import numpy as np
+    import torch
+
+    from vaevar_tpu_torch import channels
+    from vaevar_tpu_torch import config as cfgs
+    from vaevar_tpu_torch.data.era5 import SyntheticEra5
+    from vaevar_tpu_torch.models.lgunet import LGUnet
+    from vaevar_tpu_torch.train import forecast_trainer as ft
+    from vaevar_tpu_torch.utils.fast_init import fast_init
+
+    t0 = time.perf_counter()
+    cfg = cfgs.FORECAST_025.replace(dtype=torch.bfloat16)  # remat on
+    model = fast_init(LGUnet(cfg), seed=0).cuda().train()
+    hw = cfg.img_size
+    src = SyntheticEra5(hw=hw, seed=0)
+    mean, std = channels.MEAN.reshape(-1, 1, 1), channels.STD.reshape(-1, 1, 1)
+    t = datetime(2022, 1, 1)
+    inp, tar = (torch.from_numpy(((src.get_state(ts) - mean) / std).astype(np.float32)[None])
+                .cuda() for ts in (t, t + timedelta(hours=6)))
+    init_fn, step = ft.make_forecast_train_step(model, "Possloss", lr=LR,
+                                                total_steps=TOTAL_STEPS,
+                                                out_shape=(2 * channels.N_CHANNELS, *hw))
+    trainable, opt_state = init_fn()
+    n_model = sum(p.numel() for p in model.parameters())
+    n_bounds = trainable["max_logvar"].numel()
+    torch.cuda.synchronize()
+    phase("train", f"FORECAST_025 {hw[0]}x{hw[1]} b1 bf16 remat: {n_model / 1e6:.1f} M model "
+          f"parameters + 2 x {n_bounds / 1e6:.1f} M logvar bounds; set-up "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    counts = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+    losses, secs = [], []
+    for _ in range(3):
+        fa.flash_fwd_launches = fa.flash_dq_launches = fa.flash_dkv_launches = 0
+        t0 = time.perf_counter()
+        trainable, opt_state, loss = step(trainable, opt_state, inp, [tar])
+        losses.append(loss.item())
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        got = (fa.flash_fwd_launches, fa.flash_dq_launches, fa.flash_dkv_launches)
+        if got != (8, 4, 4):
+            raise AssertionError(f"train step launched (fwd, dq, dkv) {got}; want (8, 4, 4)")
+        for name, n in zip(counts, got):
+            counts[name] += n
+    qkv = [blk.attn.qkv.weight.grad for blk in model.net.layers[0].blocks]
+    qkv_ok = all(g is not None and bool(torch.isfinite(g).all()) and g.abs().max().item() > 0
+                 for g in qkv)
+    peak = torch.cuda.max_memory_allocated()
+    phase("train", f"3 steps: losses " + ", ".join(f"{v:.6g}" for v in losses)
+          + f"; seconds {secs[0]:.3f} (first), " + ", ".join(f"{v:.3f}" for v in secs[1:])
+          + f"; peak memory {peak / 2**30:.2f} GiB; LG stage-0 qkv gradients finite and "
+          f"nonzero: {qkv_ok}; launches per step (fwd, dq, dkv) (8, 4, 4)")
+    if not (all(np.isfinite(losses)) and losses[2] < losses[0] and qkv_ok):
+        raise AssertionError(f"training went wrong: losses {losses}, qkv gradients ok {qkv_ok}")
+
+    fa.flash_fwd_launches = fa.flash_dq_launches = fa.flash_dkv_launches = 0
+    t0 = time.perf_counter()
+    loss, pred = ft.make_eval_step("Possloss")(trainable, inp, [tar])
+    loss = loss.item()
+    torch.cuda.synchronize()
+    got = (fa.flash_fwd_launches, fa.flash_dq_launches, fa.flash_dkv_launches)
+    phase("train", f"eval step: loss {loss:.6g} in {time.perf_counter() - t0:.3f} s; "
+          f"prediction {tuple(pred.shape)} finite {bool(torch.isfinite(pred).all())}; "
+          f"launches (fwd, dq, dkv) {got}")
+    if got != (4, 0, 0) or not (np.isfinite(loss) and torch.isfinite(pred).all()):
+        raise AssertionError(f"eval step: launches {got}, loss {loss}")
+    counts["flash_fwd"] += got[0]
+    return counts
+
+
+def check_cli():
+    """Phase 8: the trainer CLI at micro size on the card, then its resume."""
+    from vaevar_tpu_torch import run_train_forecast
+
+    with tempfile.TemporaryDirectory() as out:
+        argv = ["--micro", "--grid", "32x64", "--batch_size", "2", "--steps", "2",
+                "--end_time", "2022-01-04 00:00:00", "--out_dir", out, "--log_every", "1"]
+        _, first = run_train_forecast.main(argv)
+        _, second = run_train_forecast.main(argv + ["--epochs", "2"])
+        with open(os.path.join(out, "checkpoint_latest.meta.json")) as f:
+            meta = json.load(f)
+        with open(os.path.join(out, "run.log")) as f:
+            resumed = "resumed at epoch 1 step 2" in f.read()
+        files = set(os.listdir(out))
+    phase("cli", f"run 1 losses {first}; run 2 losses {second}; meta {meta}; "
+          f"resumed at epoch 1 step 2: {resumed}")
+    need = {"checkpoint_latest", "checkpoint_best", "params_latest", "scalars.jsonl"}
+    if not (len(first) == len(second) == 2 and resumed and meta["step"] == 4
+            and need <= files and all(map(math.isfinite, first + second))):
+        raise AssertionError("the trainer CLI did not train, validate, save and resume")
 
 
 def main():
@@ -164,21 +392,26 @@ def main():
     from vaevar_tpu_torch.ops import _build
     from vaevar_tpu_torch.ops import flash_attn as fa
 
-    path, secs = _build.build("flash_fwd")
-    phase("build", f"{path.name} in {secs:.2f} s" + (" (reused)" if secs == 0 else ""))
+    t0 = time.perf_counter()
+    built = _build.build_all(["flash_fwd", "flash_bwd"])
+    phase("build", ", ".join(f"{p.name} in {s:.2f} s" + (" (reused)" if s == 0 else "")
+                             for p, s in built.values())
+          + f"; {time.perf_counter() - t0:.2f} s in all")
 
-    max_err, ms, plain_ms = check_kernel(fa)
-    check_model()
+    fwd_err, fwd_ms, fwd_plain_ms = check_kernel(fa)
+    bwd = check_bwd(fa)
+    check_model(fa)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as work:
-        fa.flash_fwd_launches = 0
+        fa.flash_fwd_launches = fa.flash_dq_launches = fa.flash_dkv_launches = 0
         t0 = time.perf_counter()
         da = run_da.main(MAIN_ARGS + ["--work_dir", work])
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
-        launches = fa.flash_fwd_launches
+        da_counts = (fa.flash_fwd_launches, fa.flash_dq_launches, fa.flash_dkv_launches)
+        launches = da_counts[0]
         files = sorted(os.listdir(da.work_dir))
     peak = torch.cuda.max_memory_allocated()
 
@@ -187,9 +420,11 @@ def main():
     phase("main", f"{n_cycles} cycles in {total:.2f} s; spin-up "
           f"{da.timings['spin_up_s']:.2f} s; cycles "
           + ", ".join(f"{s:.2f}" for s in da.timings["cycle_s"])
-          + f" s; peak memory {peak / 2**30:.2f} GiB; flash launches {launches}")
-    if n_cycles != 2 or launches != want:
-        raise AssertionError(f"{n_cycles} cycles, {launches} flash launches; want 2, {want}")
+          + f" s; peak memory {peak / 2**30:.2f} GiB; flash launches (fwd, dq, dkv) "
+          f"{da_counts}")
+    if n_cycles != 2 or da_counts != (want, 0, 0):
+        raise AssertionError(f"{n_cycles} cycles, flash launches {da_counts}; "
+                             f"want 2, ({want}, 0, 0)")
     decreased = False
     for c in da.cycle_log:
         if not (c["xa_finite"] and c["xb_next_finite"]):
@@ -208,13 +443,24 @@ def main():
             "bg_bias.npy", "ana_bias.npy", "bg_mse.npy", "ana_mse.npy"}
     if not need <= set(files):
         raise AssertionError(f"missing from the work dir: {sorted(need - set(files))}")
+    del da
+    gc.collect()
+    torch.cuda.empty_cache()
 
+    train_counts = check_forecast_training(fa)
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_cli()
+
+    stats = {"flash_fwd": (fwd_err, fwd_ms, fwd_plain_ms), **bwd}
+    replaces = {"flash_fwd": ("flash_fwd.cu", "vaevar_tpu/ops/pallas_attn.py:47"),
+                "flash_dq": ("flash_bwd.cu", "vaevar_tpu/ops/pallas_attn.py:127"),
+                "flash_dkv": ("flash_bwd.cu", "vaevar_tpu/ops/pallas_attn.py:162")}
     print(json.dumps({"kernels": [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "vaevar_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "vaevar_tpu/ops/pallas_attn.py:47",
-        "launches": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-    }]}), flush=True)
+        "name": name, "route": "cuda", "source": f"vaevar_tpu_torch/csrc/{src}",
+        "replaces": tpu, "launches": train_counts[name] + (launches if name == "flash_fwd" else 0),
+        "max_abs_err": stats[name][0], "ms": stats[name][1], "plain_ms": stats[name][2],
+    } for name, (src, tpu) in replaces.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
         flush=True)

@@ -1,4 +1,5 @@
-"""The CUDA flash-forward kernel against its plain version, on the card.
+"""The CUDA flash kernels (forward, dq and dkv) against their plain
+versions, on the card.
 
 These tests need a CUDA device and skip without one. The file imports no JAX,
 so it also runs on a machine without it; tests/conftest.py imports JAX, so
@@ -11,6 +12,12 @@ another order). With bf16 v, 4e-3: P is rounded to bf16 before P.V, and a
 P entry whose f32 logit differs by round-off can round to the neighbouring
 bf16 value (2^-8 relative), which moves O by up to 2^-8 * p * |v|; a bf16
 O also rounds (half an ulp at |O| < 1 is 2e-3). lse is f32 on both sides.
+
+Backward, against flash_attention_bwd_plain on the same inputs, on the scale
+of each gradient (max |plain|): 2e-5 for an f32 gradient (the sums over up
+to 16200 terms run in another order); 2^-7 for a bf16 one (dv with bf16 v,
+and all three in bf16): a rounded dS or P entry, or the output, can land
+one bf16 ulp apart where f32 noise crosses a rounding boundary.
 """
 
 import numpy as np
@@ -58,19 +65,69 @@ def test_kernel_matches_plain(cuda, shape, dtypes):
 
 @pytest.mark.gpu
 def test_cuda_dispatch_launches_the_kernel(cuda):
-    """flash_attention on CUDA tensors launches the kernel once (never the
-    plain version), and its backward raises until the backward kernels
-    are ported."""
+    """flash_attention on CUDA tensors launches the forward kernel once
+    (never the plain version), and its backward the dq and dkv kernels once
+    each, with the gradients of flash_bwd_cuda."""
     q, k, v = _qkv((1, 2, 200, 64), 81, cuda)
-    before = fa.flash_fwd_launches
+    before = (fa.flash_fwd_launches, fa.flash_dq_launches, fa.flash_dkv_launches)
     out = fa.flash_attention(q, k, v)
     torch.cuda.synchronize()
-    assert fa.flash_fwd_launches == before + 1
+    assert fa.flash_fwd_launches == before[0] + 1
     np.testing.assert_allclose(out.cpu().numpy(),
                                fa.flash_fwd_cuda(q, k, v)[0].cpu().numpy(), atol=0)
-    q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="ROADMAP B"):
-        fa.flash_attention(q, k, v).sum().backward()
+    for t in (q, k, v):
+        t.requires_grad_(True)
+    g = torch.randn_like(q)
+    (fa.flash_attention(q, k, v) * g).sum().backward()
+    torch.cuda.synchronize()
+    assert (fa.flash_dq_launches, fa.flash_dkv_launches) == (before[1] + 1, before[2] + 1)
+    o, lse = fa.flash_fwd_cuda(q.detach(), k.detach(), v.detach())
+    want = fa.flash_bwd_cuda(q.detach(), k.detach(), v.detach(), o, lse, g)
+    for t, w in zip((q, k, v), want):
+        assert torch.equal(t.grad, w)
+
+
+BWD_CASES = [((2, 2, 300, 64), ("float32", "float32")),
+             ((1, 2, 200, 32), ("float32", "float32")),
+             ((1, 1, 130, 32), ("float32", "float32")),
+             ((1, 3, 257, 128), ("float32", "float32")),
+             ((1, 2, 300, 192), ("bfloat16", "bfloat16")),
+             ((1, 2, 300, 192), ("float32", "bfloat16")),
+             ((1, 6, 16200, 192), ("float32", "bfloat16")),
+             ((1, 6, 16200, 192), ("bfloat16", "bfloat16"))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtypes", BWD_CASES)
+def test_backward_kernels_match_plain(cuda, shape, dtypes):
+    qk_dt, v_dt = (getattr(torch, n) for n in dtypes)
+    q, k, v = _qkv(shape, 83, cuda, qk_dt, v_dt)
+    do = torch.from_numpy(np.random.default_rng(84).standard_normal(
+        shape, dtype=np.float32)).to(cuda, qk_dt)
+    o, lse = fa.flash_fwd_cuda(q, k, v)
+    before = (fa.flash_dq_launches, fa.flash_dkv_launches)
+    got = fa.flash_bwd_cuda(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert (fa.flash_dq_launches, fa.flash_dkv_launches) == (before[0] + 1, before[1] + 1)
+    assert [t.dtype for t in got] == [qk_dt, qk_dt, v_dt]
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
+    for name, a, b in zip("qkv", got, want):
+        tol = 2 ** -7 if a.dtype == torch.bfloat16 else 2e-5
+        b = b.float()
+        err = (a.float() - b).abs().max().item()
+        assert err <= tol * b.abs().max().item(), (name, err)
+
+
+@pytest.mark.gpu
+def test_backward_kernels_repeat_bitwise(cuda):
+    """No atomics: two launches on the same inputs give the same bits."""
+    shape = (1, 6, 2000, 192)
+    q, k, v = _qkv(shape, 85, cuda, torch.float32, torch.bfloat16)
+    o, lse = fa.flash_fwd_cuda(q, k, v)
+    do = torch.randn_like(q)
+    first = fa.flash_bwd_cuda(q, k, v, o, lse, do)
+    second = fa.flash_bwd_cuda(q, k, v, o, lse, do)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.gpu
@@ -83,3 +140,12 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         fa.flash_fwd_cuda(q.half(), k.half(), v.half())
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_fwd_cuda(q.transpose(2, 3), k.transpose(2, 3), v.transpose(2, 3))
+    lse = torch.zeros(1, 1, 64, device=cuda)
+    q, k, v = _qkv((1, 1, 64, 48), 82, cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_bwd_cuda(q, k, v, q, lse, q)
+    q, k, v = _qkv((1, 1, 64, 64), 82, cuda)
+    with pytest.raises(ValueError, match="dtypes"):
+        fa.flash_bwd_cuda(q, k, v, q, lse, q.bfloat16())
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_bwd_cuda(q, k, v, q, lse.double(), q)

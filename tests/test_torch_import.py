@@ -5,9 +5,10 @@ and optax cannot be imported, and no vaevar_tpu module gets loaded; no
 source file of the port (or chip_smoke.py) names them. The few jax-free
 tables the port carries as copies (channel registry, model and DA configs,
 the synthetic ERA5 source, the relative-position index, the synthetic obs
-masks and R) are held equal to the reference here."""
+masks and R, the batch prefetcher) are held equal to the reference here."""
 
 import dataclasses
+import inspect
 import json
 import re
 import subprocess
@@ -21,11 +22,13 @@ import pytest
 from vaevar_tpu import channels as jch
 from vaevar_tpu import config as jcfg
 from vaevar_tpu.da import obs as jobs
+from vaevar_tpu.data import prefetch as jprefetch
 from vaevar_tpu.data.era5 import SyntheticEra5 as JaxEra5
 from vaevar_tpu.ops.posenc import relative_position_index as j_rpi
 from vaevar_tpu_torch import channels as tch
 from vaevar_tpu_torch import config as tcfg
 from vaevar_tpu_torch.da import obs as tobs
+from vaevar_tpu_torch.data import prefetch as tprefetch
 from vaevar_tpu_torch.data.era5 import SyntheticEra5 as TorchEra5
 from vaevar_tpu_torch.ops.posenc import relative_position_index as t_rpi
 
@@ -106,3 +109,8 @@ def test_obs_and_posenc_copies_equal_reference():
             jobs.make_obs_mask(kind, 1, (64, 128), np.random.default_rng(4)))
     for win in ((4, 4), (6, 12)):
         np.testing.assert_array_equal(t_rpi(win), j_rpi(win))
+
+
+def test_prefetch_copy_equals_reference():
+    assert inspect.getsource(tprefetch.prefetched) == inspect.getsource(jprefetch.prefetched)
+    assert list(tprefetch.prefetched(range(50), depth=3)) == list(range(50))

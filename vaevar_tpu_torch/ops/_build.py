@@ -66,6 +66,15 @@ def build(name: str) -> tuple[Path, float]:
     return out, secs
 
 
+def build_all(names) -> dict[str, tuple[Path, float]]:
+    """`build` each source, all nvcc processes started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        futures = {name: pool.submit(build, name) for name in names}
+    return {name: f.result() for name, f in futures.items()}
+
+
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
     path, _ = build(name)

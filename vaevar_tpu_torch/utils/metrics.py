@@ -1,8 +1,10 @@
 """Latitude-weighted evaluation metrics (torch).
 
-Port of vaevar_tpu/utils/metrics.py:19-70, keeping the reference's
-degree->radian constant 3.1416 and its regional weighting. Functions take
-(B, C, H, W) tensors and return per-channel values (C,) averaged over B.
+Port of vaevar_tpu/utils/metrics.py, keeping the reference's degree->radian
+constant 3.1416, its regional weighting and its quirks. Functions take
+(B, C, H, W) tensors and return per-channel values (C,) averaged over B;
+`Metrics` and `MetricsRecorder` are the reference's facade by metric name
+(normalized fields in, physical units out for WRMSE, Bias and Activity).
 """
 
 from __future__ import annotations
@@ -53,3 +55,121 @@ def weighted_bias(diff, region: str = "all"):
     """Latitude-weighted mean of `diff` per channel. (B,C,H,W) -> (C,)."""
     w, sl = _weights(diff.shape[2], region, diff)
     return (w * diff[:, :, sl]).mean(dim=(-1, -2)).mean(0)
+
+
+def weighted_acc(pred, target, region: str = "all"):
+    """Latitude-weighted anomaly correlation per channel. (B,C,H,W) -> (C,)."""
+    w, sl = _weights(pred.shape[2], region, pred)
+    p, t = pred[:, :, sl], target[:, :, sl]
+    num = (w * p * t).sum(dim=(-1, -2))
+    den = torch.sqrt((w * p * p).sum(dim=(-1, -2)) * (w * t * t).sum(dim=(-1, -2)))
+    return (num / den).mean(0)
+
+
+def weighted_activity(pred, region: str = "all"):
+    """Lat-weighted std of `pred` about its weighted mean. (B,C,H,W) -> (C,)."""
+    w, sl = _weights(pred.shape[2], region, pred)
+    p = pred[:, :, sl]
+    mean = (w * p).mean(dim=(-1, -2), keepdim=True)
+    return torch.sqrt((w * (p - mean) ** 2).mean(dim=(-1, -2))).mean(0)
+
+
+def weighted_anomaly(pred, target, region: str = "all"):
+    """Lat-weighted anomaly pattern correlation. (B,C,H,W) -> (C,), with the
+    reference's quirk of a scalar numerator over all dims and a per-channel
+    denominator (utils/metrics.py:118-133)."""
+    w, sl = _weights(pred.shape[2], region, pred)
+    p, t = pred[:, :, sl], target[:, :, sl]
+    pa = p - (w * p).mean(dim=(-1, -2), keepdim=True)
+    ta = t - (w * t).mean(dim=(-1, -2), keepdim=True)
+    nume = (w * pa * ta).mean()
+    deno = torch.sqrt((w * pa ** 2).mean(dim=(-1, -2))) * torch.sqrt(
+        (w * ta ** 2).mean(dim=(-1, -2)))
+    return (nume / deno).mean(0)
+
+
+_REGIONS = {"": "all", "N": "northern", "S": "southern", "T": "tropics"}
+
+
+class Metrics:
+    """Reference-compatible facade (utils/metrics.py:363-600): one method per
+    metric name with signature (pred, gt, data_mask, clim, data_std). N, S
+    and T prefixes select the northern, southern and tropics bands."""
+
+    def __init__(self, epsilon: float = 1e-8, **kwargs):
+        self.epsilon = epsilon
+
+    def MSE(self, pred, gt, data_mask=None, clim=None, data_std=None):
+        return float(((pred - gt) ** 2).mean())
+
+    def Channel_MSE(self, pred, gt, data_mask=None, clim=None, data_std=None):
+        return ((pred - gt) ** 2).mean(dim=(0, 2, 3))
+
+    def Position_MSE(self, pred, gt, data_mask=None, clim=None, data_std=None):
+        return ((pred - gt) ** 2).mean(dim=(0, 1)).reshape(-1)
+
+    def RMSE(self, pred, gt, data_mask=None, clim=None, data_std=None):
+        # reference quirk: mean over dims (1, 2) then sqrt (metrics.py:416)
+        return float(torch.sqrt(((pred - gt) ** 2).mean(dim=(1, 2))).mean())
+
+    def MAE(self, pred, gt, data_mask=None, clim=None, data_std=None):
+        return float((pred - gt).abs().mean())
+
+    def __getattr__(self, name):
+        """The regional families: {,N,S,T} x {WRMSE, Bias, Activity, WACC,
+        Anomaly}."""
+        for family in ("WRMSE", "Bias", "Activity", "WACC", "Anomaly"):
+            prefix = name[:-len(family)] if name.endswith(family) else None
+            if prefix in _REGIONS:
+                return lambda pred, gt, data_mask=None, clim=None, data_std=None: \
+                    self._regional(family, _REGIONS[prefix], pred, gt, clim, data_std)
+        raise AttributeError(name)
+
+    @staticmethod
+    def _regional(family, region, pred, gt, clim, data_std):
+        s = 1.0 if data_std is None else torch.as_tensor(
+            np.asarray(data_std, np.float32), device=pred.device)
+        if family == "WRMSE":
+            return weighted_rmse(pred, gt, region) * s
+        if family == "Bias":
+            return weighted_bias(pred - gt, region) * s
+        if family == "Activity":
+            return weighted_activity(pred - clim, region) * s
+        if family == "WACC":
+            return weighted_acc(pred - clim, gt - clim, region)
+        return weighted_anomaly(pred - clim, gt - clim, region)
+
+
+class MetricsRecorder:
+    """Reference MetricsRecorder (utils/metrics.py:602-663): configured with
+    metric names; `evaluate_batch` expands per-channel values into
+    `{name + str(channel): scalar}` entries. Fields may be tensors or numpy
+    arrays."""
+
+    def __init__(self, metrics_list, epsilon: float = 1e-7, **kwargs):
+        self.epsilon = epsilon
+        self.metrics = Metrics(epsilon=epsilon)
+        self.metric_str_list = list(metrics_list)
+        self.metrics_list = []
+        for name in metrics_list:
+            try:
+                fn = getattr(self.metrics, name)
+            except AttributeError:
+                raise NotImplementedError("Invalid metric type.") from None
+            self.metrics_list.append((name, fn))
+
+    def evaluate_batch(self, data_dict):
+        pred = torch.as_tensor(data_dict["pred"]).float()
+        gt = torch.as_tensor(data_dict["gt"]).float().to(pred.device)
+        clim = data_dict.get("clim_mean")
+        if clim is not None:
+            clim = torch.as_tensor(clim).float().to(pred.device)
+        losses = {}
+        for name, fn in self.metrics_list:
+            val = fn(pred, gt, None, clim, data_dict.get("std"))
+            if isinstance(val, (float, int)):
+                losses[name] = float(val)
+            else:
+                for i, v in enumerate(val.reshape(-1).tolist()):
+                    losses[name + str(i)] = float(v)
+        return losses

@@ -128,5 +128,18 @@ def lgunet_state_dict_from_flax(flax_params, cfg) -> dict[str, torch.Tensor]:
             enc, dec = _index(params["enc_gs"], g - 1), _index(params["dec_gs"], g - 1)
         _group_encoder(sd, g, enc, cfg, gen)
         _group_decoder(sd, g, dec, cfg, gen)
-    return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32))
             for k, v in sd.items()}
+
+
+def forecast_trainable_from_flax(trainable, cfg) -> dict:
+    """The JAX forecast trainer's trainable ({"model": flax LGUnet params,
+    and "max_logvar"/"min_logvar" (1, n) with Possloss}, as numpy) -> the
+    port's: {"model": state_dict, and the bounds as float32 tensors}. Load
+    the state_dict into the port's LGUnet and hand the bounds to the
+    trainable that forecast_trainer's init_fn builds."""
+    out = {"model": lgunet_state_dict_from_flax(trainable["model"], cfg)}
+    for k in ("max_logvar", "min_logvar"):
+        if k in trainable:
+            out[k] = torch.from_numpy(np.array(trainable[k], dtype=np.float32))
+    return out
