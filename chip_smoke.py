@@ -11,12 +11,16 @@ exits nonzero without its last line:
    shapes with ragged tiles (atol 1e-4 on O and lse), the production shape
    (1, 6, 16200, 192) in bf16 and with f32 q/k and bf16 v, the dtypes the
    rope stage hands the kernel, against the plain version in f32 on the same
-   inputs (atol 2e-2 on O, 1e-3 on lse); median times of both;
+   inputs (atol 2e-2 on O, 1e-3 on lse); two launches bitwise equal; median
+   times of the kernel, the plain version and the library call that
+   computes the same function (`library_fwd`), in turns;
 4. backward kernels (dq, dkv) against their plain versions: the same small
    f32 shapes, and the production shape with f32 q/k/dO and bf16 v (the
    main path's) and in bf16, against the plain backward in f32 on the same
    inputs; a tolerance per gradient, relative to its largest entry (see
-   BWD_TOL); two launches bitwise equal; median times of both;
+   BWD_TOL); two launches bitwise equal; median times of both, and of the
+   whole backward (D, dq and dkv) beside the library's backward, which
+   computes the pair's function in one call (`library_bwd_fn`);
 5. the port's model on the card (kernel path) against the same model on the
    CPU (plain path) at a micro size, f32: the forward (atol 1e-4), then one
    Possloss train step with remat (loss and gradients);
@@ -36,8 +40,9 @@ exits nonzero without its last line:
    2 steps with validation and a checkpoint, then a second run that resumes
    at the saved step.
 The second-to-last line is a JSON record of the kernels (launches summed
-over the DA and training paths, each counted from 0); the last line is
-{"ok": true, "device": {...}}.
+over the DA and training paths, each counted from 0; times with the main
+path's dtypes, and under "bf16" the all-bf16 ones; each bound from the
+function `bound_ms` below); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -69,6 +74,10 @@ PROD_SHAPE = (1, 6, 16200, 192)
 #   reference does not round, and cancel in the sums.
 BWD_TOL = {("float32", "float32"): 2e-5, ("float32", "bfloat16"): 2 ** -7,
            ("bfloat16", "bfloat16"): 2 ** -6}
+# The card's published peaks (H100 SXM data sheet, dense, at 700 W): tensor
+# cores in TF32 and bf16, and device memory.
+PEAK_FLOPS = {"tf32": 495e12, "bf16": 989e12}
+PEAK_BYTES = 3.35e12
 LR = 5e-6  # run_train_forecast's default
 TOTAL_STEPS = 200  # run_train_forecast's --steps x --epochs defaults
 
@@ -94,13 +103,73 @@ def median_ms(fn, reps=5):
     return statistics.median(times)
 
 
-def in_turns(kernel, plain):
-    """Median CUDA-event ms of each, in turns plain, kernel, kernel, plain;
-    returns (kernel mean, plain mean, the four readings)."""
-    runs = {"plain": [], "kernel": []}
-    for which in ("plain", "kernel", "kernel", "plain"):
-        runs[which].append(median_ms(kernel if which == "kernel" else plain))
-    return statistics.mean(runs["kernel"]), statistics.mean(runs["plain"]), runs
+def in_turns(**fns):
+    """Median CUDA-event ms of each function, in turns: the given order,
+    then the reverse (plain, kernel, library, library, kernel, plain);
+    returns ({name: mean of its two medians}, {name: the two medians})."""
+    runs = {name: [] for name in fns}
+    for name in [*fns, *reversed(fns)]:
+        runs[name].append(median_ms(fns[name]))
+    return {name: statistics.mean(r) for name, r in runs.items()}, runs
+
+
+def turns_line(means, runs):
+    return ", ".join(f"{name} {means[name]:.3f} ms ({r[0]:.3f}/{r[1]:.3f})"
+                     for name, r in runs.items()) + "; medians of 5, CUDA events"
+
+
+def product_kind(*dtypes):
+    """The tensor-core rate a product of these operand types needs: bf16
+    when every operand is bf16, else TF32 (an f32-accurate product takes at
+    least one TF32 pass)."""
+    import torch
+
+    return "bf16" if all(t == torch.bfloat16 for t in dtypes) else "tf32"
+
+
+def bound_ms(shape, products, tensors):
+    """The least time the card could take for a kernel's work: the larger of
+    its (N x N x d) products over the tensor-core rate of their types and
+    the bytes of its inputs and outputs, each moved once, over the memory
+    rate. Returns (ms, "operations" or "bytes")."""
+    B, h, N, d = shape
+    ops_s = sum(2 * N * N * d * B * h / PEAK_FLOPS[kind] for kind in products)
+    bytes_s = sum(t.numel() * t.element_size() for t in tensors) / PEAK_BYTES
+    return 1e3 * max(ops_s, bytes_s), "operations" if ops_s >= bytes_s else "bytes"
+
+
+def library_fwd(q, k, v):
+    """One PyTorch call that computes the forward kernel's function on
+    (B, h, N, d) CUDA tensors with q pre-scaled -> (O, lse): efficient
+    attention for f32 (v in q's type), flash attention for bf16; scale 1.
+    A yardstick timed beside the kernel; the port never calls it."""
+    import torch
+
+    aten = torch.ops.aten
+    if q.dtype == torch.float32:
+        out = aten._scaled_dot_product_efficient_attention(q, k, v, None, True, scale=1.0)
+    else:
+        out = aten._scaled_dot_product_flash_attention(q, k, v, scale=1.0)
+    return out[0], out[1][..., :q.shape[2]]
+
+
+def library_bwd_fn(q, k, v, do):
+    """The library's backward of the same attention (dq, dk and dv in one
+    call: a yardstick for the dq and dkv kernels together), set up by one
+    library forward; returns a function of no arguments that runs it."""
+    import torch
+
+    aten = torch.ops.aten
+    if q.dtype == torch.float32:
+        o, lse, seed, offset = aten._scaled_dot_product_efficient_attention(
+            q, k, v, None, True, scale=1.0)
+        return lambda: aten._scaled_dot_product_efficient_attention_backward(
+            do, q, k, v, None, o, lse, seed, offset, 0.0, [True, True, True, False], False,
+            scale=1.0)
+    o, lse, cum_q, cum_k, max_q, max_k, rng, unused, _ = aten._scaled_dot_product_flash_attention(
+        q, k, v, scale=1.0)
+    return lambda: aten._scaled_dot_product_flash_attention_backward(
+        do, q, k, v, o, lse, cum_q, cum_k, max_q, max_k, 0.0, False, rng, unused, scale=1.0)
 
 
 def rand(shape, seed, dtype, scale=1.0):
@@ -112,7 +181,9 @@ def rand(shape, seed, dtype, scale=1.0):
 
 
 def check_kernel(fa):
-    """Phase 3: kernel against plain version; returns (max err, ms, plain ms)."""
+    """Phase 3: kernel against plain version; returns {"max_abs_err": worst
+    max|dO| at the production shape, "main" and "bf16": {"ms", "plain_ms",
+    "library_ms", "bound_ms", "bound_by"}}."""
     import torch
 
     for i, shape in enumerate(SMALL_SHAPES):
@@ -130,36 +201,52 @@ def check_kernel(fa):
             raise AssertionError(f"kernel disagrees with plain version at {shape}")
 
     d = PROD_SHAPE[-1]
-    worst, timing = 0.0, None
-    for qk_dt, v_dt in ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16)):
+    out = {"max_abs_err": 0.0}
+    for key, (qk_dt, v_dt) in (("bf16", (torch.bfloat16, torch.bfloat16)),
+                               ("main", (torch.float32, torch.bfloat16))):
         q = rand(PROD_SHAPE, 1, torch.float32, d ** -0.5).to(qk_dt)
         k = rand(PROD_SHAPE, 2, torch.float32).to(qk_dt)
         v = rand(PROD_SHAPE, 3, torch.float32).to(v_dt)
         o, lse = fa.flash_fwd_cuda(q, k, v)
+        o2, lse2 = fa.flash_fwd_cuda(q, k, v)
         torch.cuda.synchronize()
+        tag = f"q/k {str(qk_dt)[6:]} v {str(v_dt)[6:]} {PROD_SHAPE}"
+        if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+            raise AssertionError(f"two forward launches differ ({tag})")
         o_ref, lse_ref = fa.flash_attention_plain(q.float(), k.float(), v.float(), 1024, 1024)
         torch.cuda.synchronize()
         eo = (o.float() - o_ref).abs().max().item()
         el = (lse - lse_ref).abs().max().item()
-        tag = f"q/k {str(qk_dt)[6:]} v {str(v_dt)[6:]}"
-        phase("kernel", f"{tag} {PROD_SHAPE}: max|dO| {eo:.3g} (atol 2e-2) "
-              f"max|dlse| {el:.3g} (atol 1e-3)")
+        phase("kernel", f"{tag}: max|dO| {eo:.3g} (atol 2e-2) max|dlse| {el:.3g} (atol 1e-3); "
+              "two launches bitwise equal")
         if not (eo <= 2e-2 and el <= 1e-3):
             raise AssertionError(f"kernel disagrees with plain version ({tag})")
-        worst = max(worst, eo)
-        kern, plain, runs = in_turns(lambda: fa.flash_fwd_cuda(q, k, v),
-                                     lambda: fa.flash_attention_plain(q, k, v, 1024, 1024))
-        phase("kernel", f"{tag} {PROD_SHAPE}: kernel {kern:.3f} ms "
-              f"({runs['kernel'][0]:.3f}/{runs['kernel'][1]:.3f}), plain {plain:.3f} ms "
-              f"({runs['plain'][0]:.3f}/{runs['plain'][1]:.3f}); medians of 5, CUDA events")
-        if qk_dt == torch.float32:  # the dtypes the main path hands the kernel
-            timing = (kern, plain)
-    return worst, timing[0], timing[1]
+        out["max_abs_err"] = max(out["max_abs_err"], eo)
+        del o_ref, lse_ref, o2, lse2
+        v_lib = v.to(qk_dt)  # the library takes one type; cast outside the timing
+        o_lib, lse_lib = library_fwd(q, k, v_lib)
+        phase("kernel", f"{tag}: library call vs kernel max|dO| "
+              f"{(o_lib.float() - o.float()).abs().max().item():.3g} max|dlse| "
+              f"{(lse_lib - lse).abs().max().item():.3g}")
+        del o_lib, lse_lib
+        means, runs = in_turns(plain=lambda: fa.flash_attention_plain(q, k, v, 1024, 1024),
+                               kernel=lambda: fa.flash_fwd_cuda(q, k, v),
+                               library=lambda: library_fwd(q, k, v_lib))
+        bound, by = bound_ms(PROD_SHAPE, [product_kind(qk_dt, qk_dt), product_kind(v_dt, v_dt)],
+                             [q, k, v, o, lse])
+        phase("kernel", f"{tag}: {turns_line(means, runs)}; bound {bound:.3f} ms ({by}), "
+              f"kernel at {bound / means['kernel']:.1%} of it")
+        out[key] = {"ms": means["kernel"], "plain_ms": means["plain"],
+                    "library_ms": means["library"], "bound_ms": bound, "bound_by": by}
+    return out
 
 
 def check_bwd(fa):
     """Phase 4: dq and dkv kernels against their plain versions; returns
-    {kernel: (max abs err at the production shape, ms, plain ms)}."""
+    {kernel: {"max_abs_err": at the production shape, "main" and "bf16":
+    {"ms", "plain_ms", "library_ms" (None: no one call computes one kernel's
+    function), "bound_ms", "bound_by"}}, "pair": {"main", "bf16": {"ms" of
+    the whole backward, "library_ms" of the library's backward}}}."""
     import torch
 
     def grads_vs_plain(shape, qk_dt, v_dt, seed):
@@ -191,28 +278,42 @@ def check_bwd(fa):
                 raise AssertionError(f"{name} kernel disagrees with plain version ({tag})")
             errs[name] = err
         phase("bwd", f"{tag}: two launches bitwise equal")
-        return (q, k, v, do, lse, delta), errs
+        return (q, k, v, do, lse, delta), o, errs
 
     for i, shape in enumerate(SMALL_SHAPES):
         grads_vs_plain(shape, torch.float32, torch.float32, 20 + 10 * i)
 
-    out = {"flash_dq": [0.0], "flash_dkv": [0.0]}
-    for qk_dt, v_dt in ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16)):
-        args, errs = grads_vs_plain(PROD_SHAPE, qk_dt, v_dt, 5)
-        out["flash_dq"][0] = max(out["flash_dq"][0], errs["dq"])
-        out["flash_dkv"][0] = max(out["flash_dkv"][0], errs["dk"], errs["dv"])
+    out = {"flash_dq": {"max_abs_err": 0.0}, "flash_dkv": {"max_abs_err": 0.0}, "pair": {}}
+    for key, (qk_dt, v_dt) in (("bf16", (torch.bfloat16, torch.bfloat16)),
+                               ("main", (torch.float32, torch.bfloat16))):
+        args, o, errs = grads_vs_plain(PROD_SHAPE, qk_dt, v_dt, 5)
+        q, k, v, do, lse, delta = args
+        out["flash_dq"]["max_abs_err"] = max(out["flash_dq"]["max_abs_err"], errs["dq"])
+        out["flash_dkv"]["max_abs_err"] = max(out["flash_dkv"]["max_abs_err"], errs["dk"],
+                                              errs["dv"])
         tag = f"q/k {str(qk_dt)[6:]} v {str(v_dt)[6:]} {PROD_SHAPE}"
-        for name, kern_fn, plain_fn in (
-                ("flash_dq", fa.flash_dq_cuda, fa.flash_dq_plain),
-                ("flash_dkv", fa.flash_dkv_cuda, fa.flash_dkv_plain)):
-            kern, plain, runs = in_turns(lambda: kern_fn(*args), lambda: plain_fn(*args))
-            phase("bwd", f"{tag}: {name} kernel {kern:.3f} ms "
-                  f"({runs['kernel'][0]:.3f}/{runs['kernel'][1]:.3f}), plain {plain:.3f} ms "
-                  f"({runs['plain'][0]:.3f}/{runs['plain'][1]:.3f}); medians of 5, CUDA events")
-            if qk_dt == torch.float32:  # the dtypes the main path hands the kernels
-                out[name] += [kern, plain]
-        del args
-    return {name: tuple(v) for name, v in out.items()}
+        kind = product_kind
+        for name, kern_fn, plain_fn, products, outs in (
+                ("flash_dq", fa.flash_dq_cuda, fa.flash_dq_plain,
+                 [kind(qk_dt, qk_dt), kind(qk_dt, v_dt), kind(qk_dt, qk_dt)], [q]),
+                ("flash_dkv", fa.flash_dkv_cuda, fa.flash_dkv_plain,
+                 [kind(qk_dt, qk_dt), kind(v_dt, qk_dt), kind(qk_dt, qk_dt),
+                  kind(qk_dt, qk_dt)], [k, v])):
+            means, runs = in_turns(plain=lambda: plain_fn(*args), kernel=lambda: kern_fn(*args))
+            bound, by = bound_ms(PROD_SHAPE, products, [*args, *outs])
+            phase("bwd", f"{tag}: {name} {turns_line(means, runs)}; bound {bound:.3f} ms "
+                  f"({by}), kernel at {bound / means['kernel']:.1%} of it")
+            out[name][key] = {"ms": means["kernel"], "plain_ms": means["plain"],
+                              "library_ms": None, "bound_ms": bound, "bound_by": by}
+        v_lib = v.to(qk_dt)  # the library takes one type; cast outside the timing
+        library = library_bwd_fn(q, k, v_lib, do)
+        means, runs = in_turns(kernels=lambda: fa.flash_bwd_cuda(q, k, v, o, lse, do),
+                               library=library)
+        phase("bwd", f"{tag}: the whole backward (D, dq and dkv) against the library's "
+              f"backward, a yardstick for the pair: {turns_line(means, runs)}")
+        out["pair"][key] = {"ms": means["kernels"], "library_ms": means["library"]}
+        del args, o, q, k, v, do, lse, delta, v_lib, library
+    return out
 
 
 def micro_model(seed=3, **kw):
@@ -398,7 +499,7 @@ def main():
                              for p, s in built.values())
           + f"; {time.perf_counter() - t0:.2f} s in all")
 
-    fwd_err, fwd_ms, fwd_plain_ms = check_kernel(fa)
+    fwd = check_kernel(fa)
     bwd = check_bwd(fa)
     check_model(fa)
 
@@ -452,15 +553,24 @@ def main():
     torch.cuda.empty_cache()
     check_cli()
 
-    stats = {"flash_fwd": (fwd_err, fwd_ms, fwd_plain_ms), **bwd}
+    stats = {"flash_fwd": fwd, "flash_dq": bwd["flash_dq"], "flash_dkv": bwd["flash_dkv"]}
     replaces = {"flash_fwd": ("flash_fwd.cu", "vaevar_tpu/ops/pallas_attn.py:47"),
                 "flash_dq": ("flash_bwd.cu", "vaevar_tpu/ops/pallas_attn.py:127"),
                 "flash_dkv": ("flash_bwd.cu", "vaevar_tpu/ops/pallas_attn.py:162")}
-    print(json.dumps({"kernels": [{
-        "name": name, "route": "cuda", "source": f"vaevar_tpu_torch/csrc/{src}",
-        "replaces": tpu, "launches": train_counts[name] + (launches if name == "flash_fwd" else 0),
-        "max_abs_err": stats[name][0], "ms": stats[name][1], "plain_ms": stats[name][2],
-    } for name, (src, tpu) in replaces.items()]}), flush=True)
+    kernels = []
+    for name, (src, tpu) in replaces.items():
+        main, rec = stats[name]["main"], {
+            "name": name, "route": "cuda", "source": f"vaevar_tpu_torch/csrc/{src}",
+            "replaces": tpu,
+            "launches": train_counts[name] + (launches if name == "flash_fwd" else 0),
+            "max_abs_err": stats[name]["max_abs_err"]}
+        rec.update(main)
+        rec["share_of_bound"] = main["bound_ms"] / main["ms"]
+        rec["bf16"] = stats[name]["bf16"]
+        if name != "flash_fwd":  # dq + dkv + D together against the library's backward
+            rec["pair"] = bwd["pair"]
+        kernels.append(rec)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
         flush=True)

@@ -42,13 +42,16 @@ def _qkv(shape, seed, device, qk_dtype=torch.float32, v_dtype=torch.float32):
             torch.from_numpy(v).to(device, v_dtype))
 
 
+# Every head dim the kernels take, each (q/k, v) type pair, and ragged N:
+# the last 64-row tile holds 2, 1 and 44 rows (dkv's 32-row q tiles 2, 1, 12).
+TYPE_PAIRS = [("float32", "float32"), ("bfloat16", "bfloat16"), ("float32", "bfloat16")]
+SMALL_SHAPES = [(1, 1, 130), (1, 3, 257), (2, 2, 300)]
+CASES = [((*bhn, d), dtypes) for d in fa.HEAD_DIMS for bhn in SMALL_SHAPES
+         for dtypes in TYPE_PAIRS]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape,dtypes", [
-    ((2, 2, 300, 64), ("float32", "float32")),
-    ((1, 1, 130, 32), ("float32", "float32")),
-    ((1, 3, 257, 128), ("float32", "float32")),
-    ((1, 2, 300, 192), ("bfloat16", "bfloat16")),
-    ((1, 2, 300, 192), ("float32", "bfloat16"))])
+@pytest.mark.parametrize("shape,dtypes", CASES)
 def test_kernel_matches_plain(cuda, shape, dtypes):
     qk_dt, v_dt = (getattr(torch, n) for n in dtypes)
     q, k, v = _qkv(shape, 80, cuda, qk_dt, v_dt)
@@ -87,14 +90,9 @@ def test_cuda_dispatch_launches_the_kernel(cuda):
         assert torch.equal(t.grad, w)
 
 
-BWD_CASES = [((2, 2, 300, 64), ("float32", "float32")),
-             ((1, 2, 200, 32), ("float32", "float32")),
-             ((1, 1, 130, 32), ("float32", "float32")),
-             ((1, 3, 257, 128), ("float32", "float32")),
-             ((1, 2, 300, 192), ("bfloat16", "bfloat16")),
-             ((1, 2, 300, 192), ("float32", "bfloat16")),
-             ((1, 6, 16200, 192), ("float32", "bfloat16")),
-             ((1, 6, 16200, 192), ("bfloat16", "bfloat16"))]
+BWD_CASES = CASES + [((1, 2, 200, 32), ("float32", "float32")),
+                     ((1, 6, 16200, 192), ("float32", "bfloat16")),
+                     ((1, 6, 16200, 192), ("bfloat16", "bfloat16"))]
 
 
 @pytest.mark.gpu
@@ -119,15 +117,37 @@ def test_backward_kernels_match_plain(cuda, shape, dtypes):
 
 
 @pytest.mark.gpu
-def test_backward_kernels_repeat_bitwise(cuda):
-    """No atomics: two launches on the same inputs give the same bits."""
+@pytest.mark.parametrize("dtypes", TYPE_PAIRS)
+def test_backward_kernels_repeat_bitwise(cuda, dtypes):
+    """No atomics: two launches of the forward (a block recomputed under
+    remat) and of the backward on the same inputs give the same bits."""
     shape = (1, 6, 2000, 192)
-    q, k, v = _qkv(shape, 85, cuda, torch.float32, torch.bfloat16)
+    q, k, v = _qkv(shape, 85, cuda, *(getattr(torch, n) for n in dtypes))
     o, lse = fa.flash_fwd_cuda(q, k, v)
+    o2, lse2 = fa.flash_fwd_cuda(q, k, v)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
     do = torch.randn_like(q)
     first = fa.flash_bwd_cuda(q, k, v, o, lse, do)
     second = fa.flash_bwd_cuda(q, k, v, o, lse, do)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,atol", [("float32", 1e-4), ("bfloat16", 4e-3)])
+def test_library_yardstick_computes_the_kernels_function(cuda, dtype, atol):
+    """The one PyTorch call that chip_smoke.py times beside the forward
+    kernel (efficient attention in f32, flash attention in bf16) gives the
+    kernel's O and lse: O within the file's atol for the type, lse 1e-4 in
+    f32 and 4e-3 in bf16 (the library rounds its bf16 logits otherwise)."""
+    import chip_smoke
+
+    dt = getattr(torch, dtype)
+    q, k, v = _qkv((1, 2, 300, 192), 86, cuda, dt, dt)
+    o, lse = fa.flash_fwd_cuda(q, k, v)
+    o_lib, lse_lib = chip_smoke.library_fwd(q, k, v)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(o_lib.float().cpu().numpy(), o.float().cpu().numpy(), atol=atol)
+    np.testing.assert_allclose(lse_lib.cpu().numpy(), lse.cpu().numpy(), atol=atol)
 
 
 @pytest.mark.gpu
@@ -140,6 +160,9 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         fa.flash_fwd_cuda(q.half(), k.half(), v.half())
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_fwd_cuda(q.transpose(2, 3), k.transpose(2, 3), v.transpose(2, 3))
+    flat = torch.zeros(64 * 64 + 1, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_fwd_cuda(*(flat[1:].view(1, 1, 64, 64) for _ in range(3)))
     lse = torch.zeros(1, 1, 64, device=cuda)
     q, k, v = _qkv((1, 1, 64, 48), 82, cuda)
     with pytest.raises(ValueError, match="head dim"):

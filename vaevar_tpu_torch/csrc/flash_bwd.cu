@@ -5,21 +5,32 @@
 // the 0.25 deg forecast model: B*h = 6, N = 16200 tokens, head dim 192),
 // which training the forecast model reaches once per flash block and step.
 //
-// What bounds them on this card: compute. At N = 16200, d = 192, B*h = 6 the
-// dq kernel does 6*N^2*d*B*h ~ 1.8 TFLOP and the dkv kernel 8*N^2*d*B*h
-// ~ 2.4 TFLOP, while together they read and write ~0.3 GB, far above the
-// H100's ~295 FLOP/byte ridge. What the design does about it: as on the TPU,
-// two kernels, so that each gradient is summed inside one CTA and written
-// once, with no atomics (two launches give bitwise-equal gradients):
+// What bounds them on this card: tensor-core operations. At N = 16200,
+// d = 192, B*h = 6 the dq kernel does three (N x N x d) products per head
+// (1.8 TFLOP) and the dkv kernel four (2.4 TFLOP), while together they read
+// and write ~0.3 GB, far above the H100's ~295 FLOP/byte ridge. A product
+// with an f32 operand needs the TF32 rate (495 TFLOP/s), an all-bf16 one the
+// bf16 rate (989 TFLOP/s): with the main path's types (f32 q, k, dO; bf16 v)
+// every product has an f32 operand, so dq is bound at 3.66 ms and dkv at
+// 4.89 ms; all-bf16 at 1.83 and 2.45 ms. What the design does about it: as
+// on the TPU, two kernels, so that each gradient is summed inside one CTA
+// and written once, with no atomics (two launches give bitwise-equal
+// gradients):
 //   - dq: one CTA per (b*h, 64-row q tile) keeps q, dO, lse, D and an f32 dQ
-//     accumulator on chip and loops over 64-row k/v tiles;
-//   - dkv: one CTA per (b*h, 64-row k tile) keeps k, v and f32 dK, dV
-//     accumulators on chip and loops over 32-row q/dO tiles (32 rows keep the
-//     six tiles inside the 227 KB of shared memory at d = 192).
+//     accumulator on chip and loops over 64-row k/v tiles. It still
+//     multiplies with scalar f32 FMAs (float4 shared-memory reads);
+//   - dkv: one CTA of 8 warps per (b*h, 64-row k tile) keeps k and v in
+//     shared memory in their storage types and loops over 32-row q/dO tiles
+//     (with lse and D) in a two-stage cp.async ring. Products run on
+//     mma.sync (mma_sm90.cuh): 3xTF32 where an operand is f32 (V.dO^T with
+//     bf16 v in two passes, since bf16 is exact in TF32), bf16 m16n8k16 in
+//     all-bf16. Warp w = (key group w % 4, half w / 4): first it computes
+//     S^T and dP^T for its 16 keys and 16 q columns and writes the rounded
+//     P^T and dS^T tiles to shared memory; after a barrier it accumulates
+//     dV and dK for its 16 keys and half of the head columns, so the two
+//     f32 accumulators take 96 registers a thread at d = 192.
 // The N x N probabilities are recomputed from the forward's lse and never
-// leave the SM. This first version multiplies with scalar f32 FMAs (float4
-// shared-memory reads along the head dim), like csrc/flash_fwd.cu;
-// tensor-core MMA and TMA staging are later work.
+// leave the SM.
 //
 // Semantics (those of _dq_kernel, _dkv_kernel and _bwd_call):
 //   q is pre-scaled by 1/sqrt(d); no mask except positions >= n;
@@ -39,34 +50,18 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_sm90.cuh"
+
 namespace {
+
+using namespace mma_sm90;
 
 constexpr int BQ = 64;   // dq kernel: q rows per CTA
 constexpr int BK = 64;   // k/v rows per tile (dq) and per CTA (dkv)
 constexpr int BQ2 = 32;  // dkv kernel: q rows per tile of the q loop
-constexpr int NT = 256;  // threads per CTA, a 16 x 16 grid (tx, ty)
-constexpr int PAD = 4;   // row padding (floats): conflict-free float4 reads
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<T>(x));
-}
+constexpr int NT = 256;  // threads per CTA (dq: a 16 x 16 grid (tx, ty); dkv: 8 warps)
+constexpr int PAD = 4;   // dq: row padding (floats), conflict-free float4 reads
+constexpr int LDP = BQ2 + 8;  // dkv: row stride of the P^T and dS^T tiles
 
 __device__ __forceinline__ float dot4(float4 a, float4 b, float t) {
   t = fmaf(a.x, b.x, t);
@@ -92,10 +87,13 @@ constexpr size_t dq_smem_bytes() {
   return sizeof(float) * ((size_t)(2 * BQ + 2 * BK) * (D + PAD) + (size_t)BQ * (BK + PAD));
 }
 
-template <int D>
-constexpr size_t dkv_smem_bytes() {
-  return sizeof(float) * ((size_t)(2 * BK + 2 * BQ2) * (D + PAD) +
-                          (size_t)2 * BK * (BQ2 + PAD) + 2 * BQ2);
+// dkv shared memory: k and v tiles, two stages of q and dO tiles, the P^T
+// and dS^T tiles (q's type) and two stages of lse and D.
+template <typename TQK, typename TV, int D>
+constexpr int dkv_smem_bytes() {
+  return (int)(sizeof(TQK) * (BK * tile_ld<TQK>(D) + 4 * BQ2 * tile_ld<TQK>(D) +
+                              2 * BK * LDP) +
+               sizeof(TV) * BK * tile_ld<TV>(D) + sizeof(float) * 4 * BQ2);
 }
 
 template <typename TQK, typename TV, int D>
@@ -207,128 +205,217 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
+// dS^T and P^T of this warp's 16 keys and 16 q columns, from S^T = K.Q^T
+// and dP^T = V.dO^T summed over the head dim (sk, sv: the warp's key rows;
+// sq, sdo: its q rows).
 template <typename TQK, typename TV, int D>
-__global__ void __launch_bounds__(NT)
+__device__ __forceinline__ void dkv_scores(float (&st)[2][4], float (&dpt)[2][4],
+                                           const TQK* sk, const TV* sv, const TQK* sq,
+                                           const TQK* sdo) {
+  constexpr int LDQ = tile_ld<TQK>(D), LDV = tile_ld<TV>(D);
+  if constexpr (is_f32<TQK>) {
+#pragma unroll 4
+    for (int c = 0; c < D; c += 8) {
+      float xk[4], xv[4];
+      load_a_rows<LDQ>(xk, sk + c);
+      load_a_rows<LDV>(xv, sv + c);
+      const Tf32Split<4> a = split_tf32(xk);
+      const Tf32Split<4> av = split_tf32<!is_f32<TV>>(xv);  // bf16 v: exact in TF32
+      Tf32Split<2> bq[2], bo[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float xq[2], xo[2];
+        load_b_rows<LDQ>(xq, sq + 8 * j * LDQ + c);
+        load_b_rows<LDQ>(xo, sdo + 8 * j * LDQ + c);
+        bq[j] = split_tf32(xq);
+        bo[j] = split_tf32(xo);
+      }
+      mma_3xtf32(st, a, bq);
+      mma_3xtf32<!is_f32<TV>>(dpt, av, bo);
+    }
+  } else {
+#pragma unroll 2
+    for (int c = 0; c < D; c += 16) {
+      uint32_t a[4], av[4], b[4], bo[4];
+      load_a_bf16<LDQ>(a, sk + c);
+      load_a_bf16<LDV>(av, sv + c);
+      load_b_bf16_rows<LDQ>(b, sq + c);
+      load_b_bf16_rows<LDQ>(bo, sdo + c);
+      mma_bf16(st[0], a, b[0], b[1]);
+      mma_bf16(st[1], a, b[2], b[3]);
+      mma_bf16(dpt[0], av, bo[0], bo[1]);
+      mma_bf16(dpt[1], av, bo[2], bo[3]);
+    }
+  }
+}
+
+// dv[d] += P^T . dO and dk[d] += dS^T . Q for this warp's 16 keys (spt, sdst
+// at its rows) and D/2 head columns (sdo, sq at its first column), over the
+// BQ2 q rows of the tile; each fragment's products go to a fresh
+// accumulator (add_tile), so the sums over N keep f32 accuracy.
+template <typename TQK, int D>
+__device__ __forceinline__ void dkv_accumulate(float (&dv)[D / 16][4], float (&dk)[D / 16][4],
+                                               const TQK* spt, const TQK* sdst,
+                                               const TQK* sdo, const TQK* sq) {
+  constexpr int LDQ = tile_ld<TQK>(D), NH = D / 16;
+  if constexpr (is_f32<TQK>) {
+    constexpr int KS = BQ2 / 8;
+    Tf32Split<4> ap[KS], ad[KS];
+#pragma unroll
+    for (int c = 0; c < KS; ++c) {
+      float xp[4], xd[4];
+      load_a_paired<LDP>(xp, spt + 8 * c);
+      load_a_paired<LDP>(xd, sdst + 8 * c);
+      ap[c] = split_tf32(xp);
+      ad[c] = split_tf32(xd);
+    }
+#pragma unroll
+    for (int d = 0; d < NH; d += 2) {
+      float tv[2][4] = {}, tk[2][4] = {};
+#pragma unroll
+      for (int c = 0; c < KS; ++c) {
+        Tf32Split<2> bo[2], bq[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float xo[2], xq[2];
+          load_b_cols_paired<LDQ>(xo, sdo + 8 * c * LDQ + 8 * (d + h));
+          load_b_cols_paired<LDQ>(xq, sq + 8 * c * LDQ + 8 * (d + h));
+          bo[h] = split_tf32(xo);
+          bq[h] = split_tf32(xq);
+        }
+        mma_3xtf32(tv, ap[c], bo);
+        mma_3xtf32(tk, ad[c], bq);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        add_tile(dv[d + h], tv[h]);
+        add_tile(dk[d + h], tk[h]);
+      }
+    }
+  } else {
+    constexpr int KS = BQ2 / 16;
+    uint32_t ap[KS][4], ad[KS][4];
+#pragma unroll
+    for (int c = 0; c < KS; ++c) {
+      load_a_bf16<LDP>(ap[c], spt + 16 * c);
+      load_a_bf16<LDP>(ad[c], sdst + 16 * c);
+    }
+#pragma unroll
+    for (int d = 0; d < NH; d += 2) {
+      float tv[2][4] = {}, tk[2][4] = {};
+#pragma unroll
+      for (int c = 0; c < KS; ++c) {
+        uint32_t bo[4], bq[4];
+        load_b_bf16_cols<LDQ>(bo, sdo + 16 * c * LDQ + 8 * d);
+        load_b_bf16_cols<LDQ>(bq, sq + 16 * c * LDQ + 8 * d);
+        mma_bf16(tv[0], ap[c], bo[0], bo[1]);
+        mma_bf16(tv[1], ap[c], bo[2], bo[3]);
+        mma_bf16(tk[0], ad[c], bq[0], bq[1]);
+        mma_bf16(tk[1], ad[c], bq[2], bq[3]);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        add_tile(dv[d + h], tv[h]);
+        add_tile(dk[d + h], tk[h]);
+      }
+    }
+  }
+}
+
+template <typename TQK, typename TV, int D>
+__global__ void __launch_bounds__(NT, 1)
     flash_dkv_kernel(const TQK* __restrict__ q, const TQK* __restrict__ k,
                      const TV* __restrict__ v, const TQK* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      TQK* __restrict__ dk, TV* __restrict__ dv, int n) {
-  constexpr int LD = D + PAD;    // row stride of the k, v, q and dO tiles
-  constexpr int LP = BQ2 + PAD;  // row stride of the P^T and dS^T tiles
-  constexpr int DC = D / 16;     // dK / dV columns per thread
-  extern __shared__ float4 smem4[];
-  float* sk = reinterpret_cast<float*>(smem4);
-  float* sv = sk + BK * LD;
-  float* sq = sv + BK * LD;
-  float* sdo = sq + BQ2 * LD;
-  float* spt = sdo + BQ2 * LD;
-  float* sdst = spt + BK * LP;
-  float* slse = sdst + BK * LP;
-  float* sdel = slse + BQ2;
+  constexpr int LDQ = tile_ld<TQK>(D), LDV = tile_ld<TV>(D), NH = D / 16;
+  extern __shared__ __align__(16) unsigned char smem[];
+  TQK* sk = reinterpret_cast<TQK*>(smem);
+  TQK* sq = sk + BK * LDQ;         // 2 stages of BQ2 rows
+  TQK* sdo = sq + 2 * BQ2 * LDQ;   // 2 stages of BQ2 rows
+  TQK* spt = sdo + 2 * BQ2 * LDQ;  // P^T (BK x BQ2), rounded to dO's type
+  TQK* sdst = spt + BK * LDP;      // dS^T (BK x BQ2), rounded to q's type
+  TV* sv = reinterpret_cast<TV*>(sdst + BK * LDP);
+  float* slse = reinterpret_cast<float*>(sv + BK * LDV);  // 2 stages of BQ2
+  float* sdel = slse + 2 * BQ2;                            // 2 stages of BQ2
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // q column / head column lane
-  const int ty = tid / 16;  // key-row lane: this thread owns rows ty + 16 i
+  const int warp = threadIdx.x >> 5, g = lane_id() >> 2, t = lane_id() & 3;
+  const int kg = warp & 3, half = warp >> 2;  // key rows 16 kg.., q / head half
   const int k0 = blockIdx.x * BK;
   const size_t base = (size_t)blockIdx.y * n * D;
   const size_t rbase = (size_t)blockIdx.y * n;
+  const int nq = (n + BQ2 - 1) / BQ2;
 
-  load_tile<TQK, D>(sk, k + base, k0, BK, n);
-  load_tile<TV, D>(sv, v + base, k0, BK, n);
-  float dk_acc[4][DC], dv_acc[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int d = 0; d < DC; ++d) dk_acc[i][d] = dv_acc[i][d] = 0.f;
-
-  for (int q0 = 0; q0 < n; q0 += BQ2) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<TQK, D>(sq, q + base, q0, BQ2, n);
-    load_tile<TQK, D>(sdo, dout + base, q0, BQ2, n);
-    if (tid < BQ2) {
-      const int r = q0 + tid;
-      slse[tid] = r < n ? lse[rbase + r] : 0.f;
-      sdel[tid] = r < n ? delta[rbase + r] : 0.f;
+  auto load_q = [&](int i) {
+    const int st = i & 1, r0 = i * BQ2;
+    copy_rows_async<TQK, BQ2, D, LDQ, NT>(sq + st * BQ2 * LDQ, q + base, r0, n);
+    copy_rows_async<TQK, BQ2, D, LDQ, NT>(sdo + st * BQ2 * LDQ, dout + base, r0, n);
+    const int tid = threadIdx.x;
+    if (tid < 2 * BQ2) {
+      const int r = r0 + (tid % BQ2);
+      const bool ok = r < n;
+      const float* src = (tid < BQ2 ? lse : delta) + rbase + (ok ? r : 0);
+      cp_async_4((tid < BQ2 ? slse : sdel) + st * BQ2 + tid % BQ2, src, ok);
     }
+  };
+  copy_rows_async<TQK, BK, D, LDQ, NT>(sk, k + base, k0, n);
+  copy_rows_async<TV, BK, D, LDV, NT>(sv, v + base, k0, n);
+  load_q(0);
+  cp_async_commit();
+
+  float dk_acc[NH][4], dv_acc[NH][4];
+#pragma unroll
+  for (int d = 0; d < NH; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[d][e] = dv_acc[d][e] = 0.f;
+
+  for (int i = 0; i < nq; ++i) {
+    if (i + 1 < nq) load_q(i + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile i (and k, v) landed
+    __syncthreads();
+    const int st = i & 1, q0 = i * BQ2;
+    const TQK* sqi = sq + st * BQ2 * LDQ;
+    const TQK* sdoi = sdo + st * BQ2 * LDQ;
+
+    // S^T and dP^T for keys 16 kg.. and q columns 16 half..; element e of a
+    // fragment is key row g + 8 (e >> 1), q column 2t + (e & 1).
+    float st4[2][4] = {}, dpt[2][4] = {};
+    dkv_scores<TQK, TV, D>(st4, dpt, sk + 16 * kg * LDQ, sv + 16 * kg * LDV,
+                           sqi + 16 * half * LDQ, sdoi + 16 * half * LDQ);
+    // P^T = exp(S^T - lse), 0 for q rows >= n; dS^T = P^T (dP^T - D) from
+    // the unrounded P^T; P^T rounded to dO's type and dS^T to q's type.
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int col = 16 * half + 8 * j + 2 * t, row = 16 * kg + g + 8 * r;
+        float p[2], ds[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int qc = col + e;
+          p[e] = q0 + qc < n ? expf(st4[j][2 * r + e] - slse[st * BQ2 + qc]) : 0.f;
+          ds[e] = p[e] * (dpt[j][2 * r + e] - sdel[st * BQ2 + qc]);
+        }
+        store_pair(spt + row * LDP + col, p[0], p[1]);
+        store_pair(sdst + row * LDP + col, ds[0], ds[1]);
+      }
     __syncthreads();
 
-    // S^T = K Q^T and dP^T = V dO^T for key rows ty + 16 i, q columns tx + 16 j.
-    float st[4][2], dpt[4][2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) st[i][j] = dpt[i][j] = 0.f;
-#pragma unroll 2
-    for (int c = 0; c < D; c += 4) {
-      float4 b[2], g[2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        b[j] = *reinterpret_cast<const float4*>(&sq[(tx + 16 * j) * LD + c]);
-        g[j] = *reinterpret_cast<const float4*>(&sdo[(tx + 16 * j) * LD + c]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 a = *reinterpret_cast<const float4*>(&sk[(ty + 16 * i) * LD + c]);
-        const float4 w = *reinterpret_cast<const float4*>(&sv[(ty + 16 * i) * LD + c]);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          st[i][j] = dot4(a, b[j], st[i][j]);
-          dpt[i][j] = dot4(w, g[j], dpt[i][j]);
-        }
-      }
-    }
-
-    // P^T = exp(S^T - lse) with q rows >= n zeroed; dS^T = P^T (dP^T - D).
-    // P^T is rounded to dO's type before P^T dO and dS^T to q's type before
-    // dS^T Q, as _dkv_kernel does; dS^T uses the unrounded P^T.
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int col = tx + 16 * j;
-      const bool ok = q0 + col < n;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = ok ? expf(st[i][j] - slse[col]) : 0.f;
-        spt[(ty + 16 * i) * LP + col] = round_to<TQK>(p);
-        sdst[(ty + 16 * i) * LP + col] = round_to<TQK>(p * (dpt[i][j] - sdel[col]));
-      }
-    }
-    __syncthreads();
-
-    // dV += P^T dO and dK += dS^T Q for key rows ty + 16 i, head columns
-    // tx + 16 d.
-#pragma unroll 2
-    for (int c = 0; c < BQ2; c += 4) {
-      float4 pa[4], da[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pa[i] = *reinterpret_cast<const float4*>(&spt[(ty + 16 * i) * LP + c]);
-        da[i] = *reinterpret_cast<const float4*>(&sdst[(ty + 16 * i) * LP + c]);
-      }
-#pragma unroll
-      for (int d = 0; d < DC; ++d) {
-        const int col = tx + 16 * d;
-        const float4 oc = make_float4(sdo[(c + 0) * LD + col], sdo[(c + 1) * LD + col],
-                                      sdo[(c + 2) * LD + col], sdo[(c + 3) * LD + col]);
-        const float4 qc = make_float4(sq[(c + 0) * LD + col], sq[(c + 1) * LD + col],
-                                      sq[(c + 2) * LD + col], sq[(c + 3) * LD + col]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          dv_acc[i][d] = dot4(pa[i], oc, dv_acc[i][d]);
-          dk_acc[i][d] = dot4(da[i], qc, dk_acc[i][d]);
-        }
-      }
-    }
+    dkv_accumulate<TQK, D>(dv_acc, dk_acc, spt + 16 * kg * LDP, sdst + 16 * kg * LDP,
+                           sdoi + half * (D / 2), sqi + half * (D / 2));
+    __syncthreads();  // stage st and the P^T, dS^T tiles are free
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = k0 + ty + 16 * i;
-    if (r < n) {
+  for (int r = 0; r < 2; ++r) {
+    const int row = k0 + 16 * kg + g + 8 * r;
+    if (row < n) {
+      const size_t off = base + (size_t)row * D + half * (D / 2) + 2 * t;
 #pragma unroll
-      for (int d = 0; d < DC; ++d) {
-        const size_t off = base + (size_t)r * D + tx + 16 * d;
-        dk[off] = from_f32<TQK>(dk_acc[i][d]);
-        dv[off] = from_f32<TV>(dv_acc[i][d]);
+      for (int d = 0; d < NH; ++d) {
+        store_pair(dk + off + 8 * d, dk_acc[d][2 * r], dk_acc[d][2 * r + 1]);
+        store_pair(dv + off + 8 * d, dv_acc[d][2 * r], dv_acc[d][2 * r + 1]);
       }
     }
   }
@@ -360,9 +447,10 @@ int launch_dq(const Args& a) {
 template <typename TQK, typename TV, int D>
 int launch_dkv(const Args& a) {
   auto kern = flash_dkv_kernel<TQK, TV, D>;
-  constexpr size_t smem = dkv_smem_bytes<D>();
+  constexpr int smem = dkv_smem_bytes<TQK, TV, D>();
+  static_assert(smem <= 232448, "shared-memory tiles exceed the block limit");
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.n + BK - 1) / BK, a.bh);
   kern<<<grid, NT, smem, a.stream>>>(

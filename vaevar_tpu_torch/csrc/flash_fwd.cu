@@ -4,203 +4,242 @@
 // flash-2 forward of the unmasked full-grid LG stage of the 0.25 deg forecast
 // model: B*h = 6, N = 16200 tokens, head dim 192).
 //
-// What bounds it on this card: compute. One call at N = 16200, d = 192,
-// B*h = 6 does 4*N^2*d*B*h ~ 1.2 TFLOP while it reads and writes ~0.1 GB, so
-// it sits far above the H100's ~295 FLOP/byte ridge. What the design does
-// about it: every (b*h, 64-row q tile) is one CTA that keeps its q tile, the
-// running max / sum and an f32 accumulator on chip for the whole key loop, so
-// device memory sees each q row once and each k/v row once per q tile; the
-// N x N logits never leave the SM. This first version multiplies with scalar
-// f32 FMAs (4x4 logits and 4 x d/16 outputs per thread, float4 shared-memory
-// reads along the head dim); tensor-core MMA (mma.sync / wgmma) and TMA
-// staging are later work.
+// What bounds it on this card: tensor-core operations. One call at
+// N = 16200, d = 192, B*h = 6 does two (N x N x d) products per head,
+// 2 * 6.05e11 FLOP, while it moves under 0.1 GB. With the main path's types
+// (f32 q and k from the rope stage, bf16 v) Q.K^T has f32 operands, which
+// need the TF32 rate (495 TFLOP/s) and P.V is bf16 (989 TFLOP/s): the bound
+// is 1.83 ms; all-bf16 1.22 ms.
+//
+// Design: one CTA of NW warps per (b*h, 16*NW-row q tile); each warp owns
+// 16 q rows. The q tile stays in shared memory; k/v tiles of BK rows stream
+// through a two-stage cp.async ring (16-byte copies, zero-fill past N), each
+// operand in its own storage type. At d = 192: bf16 8 warps and 64-key
+// tiles (150 KiB); f32 q/k with bf16 v 4 warps and 64 keys (197 KiB); one
+// CTA per SM either way. Products run on mma.sync (wgmma needs
+// both operands' k-major layouts in shared memory and a warpgroup-wide
+// accumulator of 64 rows, which the per-warp online softmax and the 3xTF32
+// split do not map to simply; mma.sync keeps every product and the softmax
+// in one warp's registers):
+//   - S = Q.K^T: f32 q/k on m16n8k8 TF32 with the 3xTF32 split (a single
+//     TF32 pass moves a logit by ~5e-4 at d = 192, beyond the tolerances);
+//     bf16 q/k on m16n8k16 bf16 (ldmatrix);
+//   - the online softmax on the S fragments: a row lives on the 4 lanes of
+//     a quad, so max and sum reduce with shfl_xor 1 and 2;
+//   - P.V: with bf16 v, P is rounded to bf16 straight from the S registers
+//     into the A fragment and V comes through ldmatrix.trans (m16n8k16);
+//     with f32 v, P stays f32 in registers (paired k order, mma_sm90.cuh)
+//     and P.V runs on 3xTF32.
+// No atomics and a fixed order: a block recomputed under remat gives the
+// same O and lse bit for bit.
 //
 // Semantics (those of _fwd_kernel and ops/flash.py::_forward):
 //   q is pre-scaled by 1/sqrt(d); no mask except keys >= n;
 //   m, l and the accumulator are f32; P is rounded to v's type before P.V;
 //   O = acc / l in q's type; lse = m + log(l) in f32.
-// Inputs (BH, n, d), contiguous. q and k share a type; v may be bf16 while
-// q and k are f32 (the rope stage rotates q and k with f32 tables).
-// The kernel allocates nothing and launches on the caller's stream.
+// Inputs (BH, n, d), contiguous, 16-byte aligned. q and k share a type; v
+// may be bf16 while q and k are f32 (the rope stage rotates q and k with f32
+// tables). The kernel allocates nothing and launches on the caller's stream.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_sm90.cuh"
+
 namespace {
 
-constexpr int BQ = 64;   // q rows per CTA
-constexpr int BK = 64;   // k/v rows per tile of the key loop
-constexpr int NT = 256;  // threads per CTA, a 16 x 16 grid (tx, ty)
-constexpr int PAD = 4;   // row padding (floats): conflict-free float4 reads
+using namespace mma_sm90;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+constexpr int SMEM_MAX = 232448;
+
+// Warps, q rows and shared memory of a CTA for (q/k type, v type, head
+// dim): NW warps of 16 q rows and BK key rows per stage; the q tile and two
+// stages of k and v must fit. 8 warps and 64 keys where they fit; else 64
+// keys on 4 warps; else 32 keys on 8 warps (f32 v at d = 192).
+template <typename TQK, typename TV, int D>
+struct Fwd {
+  static constexpr int LDQ = tile_ld<TQK>(D), LDV = tile_ld<TV>(D);
+  static constexpr int bytes(int nw, int bk) {
+    return (int)(sizeof(TQK) * (16 * nw + 2 * bk) * LDQ + sizeof(TV) * 2 * bk * LDV);
+  }
+  static constexpr int NW = bytes(8, 64) <= SMEM_MAX || bytes(4, 64) > SMEM_MAX ? 8 : 4;
+  static constexpr int BK = bytes(NW, 64) <= SMEM_MAX ? 64 : 32;
+  static constexpr int BQ = 16 * NW, NT = 32 * NW, SMEM = bytes(NW, BK);
+};
+
+// s[j] (16 x 8, keys 8j..8j+7) = Q (this warp's 16 rows at sq) . K^T (BK
+// rows at sk), summed over the head dim.
+template <typename TQK, int D, int LD, int NS>
+__device__ __forceinline__ void qk_product(float (&s)[NS][4], const TQK* sq, const TQK* sk) {
+  if constexpr (is_f32<TQK>) {
+#pragma unroll 2
+    for (int c = 0; c < D; c += 8) {
+      float xa[4];
+      load_a_rows<LD>(xa, sq + c);
+      const Tf32Split<4> a = split_tf32(xa);
+      Tf32Split<2> b[NS];
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        float xb[2];
+        load_b_rows<LD>(xb, sk + 8 * j * LD + c);
+        b[j] = split_tf32(xb);
+      }
+      mma_3xtf32(s, a, b);
+    }
+  } else {
+#pragma unroll 2
+    for (int c = 0; c < D; c += 16) {
+      uint32_t a[4];
+      load_a_bf16<LD>(a, sq + c);
+#pragma unroll
+      for (int j = 0; j < NS; j += 2) {
+        uint32_t b[4];
+        load_b_bf16_rows<LD>(b, sk + 8 * j * LD + c);
+        mma_bf16(s[j], a, b[0], b[1]);
+        mma_bf16(s[j + 1], a, b[2], b[3]);
+      }
+    }
+  }
 }
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// P is rounded to v's type before P.V, as both JAX versions do.
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<T>(x));
-}
-
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * ((size_t)(BQ + 2 * BK) * (D + PAD) + (size_t)BQ * (BK + PAD));
+// acc[d] (16 x 8, head columns 8d..8d+7) = acc[d] * corr + P . V, with P
+// (16 x BK in the S fragments p) rounded to v's type and V the BK rows at
+// sv. Each fragment's products go to a fresh accumulator (add_tile).
+template <typename TV, int D, int LD, int NS>
+__device__ __forceinline__ void pv_product(float (&acc)[D / 8][4], const float (&corr)[2],
+                                           const float (&p)[NS][4], const TV* sv) {
+  if constexpr (is_f32<TV>) {
+    Tf32Split<4> a[NS];
+#pragma unroll
+    for (int kk = 0; kk < NS; ++kk) {
+      float xa[4];
+      c_as_a_paired(xa, p[kk]);
+      a[kk] = split_tf32(xa);
+    }
+#pragma unroll
+    for (int d = 0; d < D / 8; ++d) {
+      float tile[4] = {};
+#pragma unroll
+      for (int kk = 0; kk < NS; ++kk) {
+        float xb[2];
+        load_b_cols_paired<LD>(xb, sv + 8 * kk * LD + 8 * d);
+        mma_3xtf32(tile, a[kk], split_tf32(xb));
+      }
+      add_tile(acc[d], tile, corr[0], corr[1]);
+    }
+  } else {
+    uint32_t a[NS / 2][4];
+#pragma unroll
+    for (int kk = 0; kk < NS / 2; ++kk) c_as_a_bf16(a[kk], p[2 * kk], p[2 * kk + 1]);
+#pragma unroll
+    for (int d = 0; d < D / 8; d += 2) {
+      float t0[4] = {}, t1[4] = {};
+#pragma unroll
+      for (int kk = 0; kk < NS / 2; ++kk) {
+        uint32_t b[4];
+        load_b_bf16_cols<LD>(b, sv + 16 * kk * LD + 8 * d);
+        mma_bf16(t0, a[kk], b[0], b[1]);
+        mma_bf16(t1, a[kk], b[2], b[3]);
+      }
+      add_tile(acc[d], t0, corr[0], corr[1]);
+      add_tile(acc[d + 1], t1, corr[0], corr[1]);
+    }
+  }
 }
 
 template <typename TQK, typename TV, int D>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(Fwd<TQK, TV, D>::NT)
     flash_fwd_kernel(const TQK* __restrict__ q, const TQK* __restrict__ k,
                      const TV* __restrict__ v, TQK* __restrict__ o,
                      float* __restrict__ lse, int n) {
-  constexpr int LD = D + PAD;   // row stride of the q, k and v tiles
-  constexpr int LP = BK + PAD;  // row stride of the P tile
-  constexpr int DC = D / 16;    // output columns per thread
-  extern __shared__ float4 smem4[];
-  float* sq = reinterpret_cast<float*>(smem4);
-  float* sk = sq + BQ * LD;
-  float* sv = sk + BK * LD;
-  float* sp = sv + BK * LD;
+  using C = Fwd<TQK, TV, D>;
+  constexpr int BQ = C::BQ, NT = C::NT, BK = C::BK, LDQ = C::LDQ, LDV = C::LDV;
+  constexpr int NS = BK / 8;  // S fragments (key columns) per warp
+  constexpr int ND = D / 8;   // O fragments (head columns) per warp
+  extern __shared__ __align__(16) unsigned char smem[];
+  TQK* sq = reinterpret_cast<TQK*>(smem);
+  TQK* sk = sq + BQ * LDQ;                            // 2 stages of BK rows
+  TV* sv = reinterpret_cast<TV*>(sk + 2 * BK * LDQ);  // 2 stages of BK rows
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // key column / output column lane
-  const int ty = tid / 16;  // row lane: this thread owns rows ty + 16 i
+  const int warp = threadIdx.x >> 5, g = lane_id() >> 2, t = lane_id() & 3;
   const int q0 = blockIdx.x * BQ;
   const size_t base = (size_t)blockIdx.y * n * D;
+  const int nk = (n + BK - 1) / BK;
 
-  for (int i = tid; i < BQ * D; i += NT) {
-    const int r = i / D, c = i % D, gr = q0 + r;
-    sq[r * LD + c] = gr < n ? to_f32(q[base + (size_t)gr * D + c]) : 0.f;
-  }
+  auto load_kv = [&](int j) {
+    const int st = j & 1;
+    copy_rows_async<TQK, BK, D, LDQ, NT>(sk + st * BK * LDQ, k + base, j * BK, n);
+    copy_rows_async<TV, BK, D, LDV, NT>(sv + st * BK * LDV, v + base, j * BK, n);
+  };
+  copy_rows_async<TQK, BQ, D, LDQ, NT>(sq, q + base, q0, n);
+  load_kv(0);
+  cp_async_commit();
 
-  float m[4], l[4], acc[4][DC];
+  float acc[ND][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int d = 0; d < DC; ++d) acc[i][d] = 0.f;
-  }
+  for (int d = 0; d < ND; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
+  // rows g and g + 8 of this warp: running max, and this lane's share of
+  // the running sum (its 2 columns per fragment; the quad sums at the end)
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, corr[2];
 
-  for (int k0 = 0; k0 < n; k0 += BK) {
-    __syncthreads();  // the previous tile's readers are done
-    for (int i = tid; i < BK * D; i += NT) {
-      const int r = i / D, c = i % D, gr = k0 + r;
-      const size_t off = base + (size_t)gr * D + c;
-      const bool ok = gr < n;
-      sk[r * LD + c] = ok ? to_f32(k[off]) : 0.f;
-      sv[r * LD + c] = ok ? to_f32(v[off]) : 0.f;
-    }
+  for (int j = 0; j < nk; ++j) {
+    if (j + 1 < nk) load_kv(j + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile j (and the q tile) landed
     __syncthreads();
+    const int st = j & 1;
 
-    // S = Q K^T for rows ty + 16 i and key columns tx + 16 j.
-    float s[4][4];
+    float s[NS][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < NS; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+    qk_product<TQK, D, LDQ, NS>(s, sq + warp * 16 * LDQ, sk + st * BK * LDQ);
+    if ((j + 1) * BK > n) {  // keys >= n of the ragged last tile
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < D; c += 4) {
-      float4 a[4], b[4];
+      for (int i = 0; i < NS; ++i)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        a[i] = *reinterpret_cast<const float4*>(&sq[(ty + 16 * i) * LD + c]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        b[j] = *reinterpret_cast<const float4*>(&sk[(tx + 16 * j) * LD + c]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float t = s[i][j];
-          t = fmaf(a[i].x, b[j].x, t);
-          t = fmaf(a[i].y, b[j].y, t);
-          t = fmaf(a[i].z, b[j].z, t);
-          t = fmaf(a[i].w, b[j].w, t);
-          s[i][j] = t;
-        }
+        for (int e = 0; e < 4; ++e)
+          if (j * BK + 8 * i + 2 * t + (e & 1) >= n) s[i][e] = -INFINITY;
     }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (k0 + tx + 16 * j >= n)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) s[i][j] = -INFINITY;
 
-    // Online softmax; a row's 64 columns live on the 16 lanes of one
-    // half-warp, so the row max and sum reduce with xor-shuffles.
+    // Online softmax; element e of a fragment is row g + 8 (e >> 1).
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
+    for (int r = 0; r < 2; ++r) {
+      float mx = -INFINITY;
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off, 16));
-      const float m_new = fmaxf(m[i], mx);
-      const float corr = expf(m[i] - m_new);
+      for (int i = 0; i < NS; ++i) mx = fmaxf(mx, fmaxf(s[i][2 * r], s[i][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[r], mx);  // finite: every tile has a key < n
+      corr[r] = expf(m[r] - m_new);
       float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        rs += p;
-        sp[(ty + 16 * i) * LP + tx + 16 * j] = round_to<TV>(p);
+      for (int i = 0; i < NS; ++i) {
+        s[i][2 * r] = expf(s[i][2 * r] - m_new);
+        s[i][2 * r + 1] = expf(s[i][2 * r + 1] - m_new);
+        rs += s[i][2 * r] + s[i][2 * r + 1];
       }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off, 16);
-      l[i] = l[i] * corr + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int d = 0; d < DC; ++d) acc[i][d] *= corr;
+      l[r] = l[r] * corr[r] + rs;
+      m[r] = m_new;
     }
-    __syncthreads();
 
-    // acc += P V for rows ty + 16 i and head columns tx + 16 d.
-#pragma unroll 2
-    for (int c = 0; c < BK; c += 4) {
-      float4 pa[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pa[i] = *reinterpret_cast<const float4*>(&sp[(ty + 16 * i) * LP + c]);
-#pragma unroll
-      for (int d = 0; d < DC; ++d) {
-        const float v0 = sv[(c + 0) * LD + tx + 16 * d];
-        const float v1 = sv[(c + 1) * LD + tx + 16 * d];
-        const float v2 = sv[(c + 2) * LD + tx + 16 * d];
-        const float v3 = sv[(c + 3) * LD + tx + 16 * d];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float t = acc[i][d];
-          t = fmaf(pa[i].x, v0, t);
-          t = fmaf(pa[i].y, v1, t);
-          t = fmaf(pa[i].z, v2, t);
-          t = fmaf(pa[i].w, v3, t);
-          acc[i][d] = t;
-        }
-      }
-    }
+    pv_product<TV, D, LDV, NS>(acc, corr, s, sv + st * BK * LDV);
+    __syncthreads();  // stage st is free for tile j + 2
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
-    if (r < n) {
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = q0 + warp * 16 + g + 8 * r;
+    if (row < n) {
+      const float inv = 1.f / l[r];
+      TQK* out = o + base + (size_t)row * D + 2 * t;
 #pragma unroll
-      for (int d = 0; d < DC; ++d)
-        o[base + (size_t)r * D + tx + 16 * d] = from_f32<TQK>(acc[i][d] / l[i]);
-      if (tx == 0) lse[(size_t)blockIdx.y * n + r] = m[i] + logf(l[i]);
+      for (int d = 0; d < ND; ++d)
+        store_pair(out + 8 * d, acc[d][2 * r] * inv, acc[d][2 * r + 1] * inv);
+      if (t == 0) lse[(size_t)blockIdx.y * n + row] = m[r] + logf(l[r]);
     }
   }
 }
@@ -209,12 +248,14 @@ template <typename TQK, typename TV, int D>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            int bh, int n, cudaStream_t stream) {
   auto kern = flash_fwd_kernel<TQK, TV, D>;
-  constexpr size_t smem = smem_bytes<D>();
+  using C = Fwd<TQK, TV, D>;
+  constexpr int smem = C::SMEM;
+  static_assert(smem <= SMEM_MAX, "shared-memory tiles exceed the block limit");
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((n + BQ - 1) / BQ, bh);
-  kern<<<grid, NT, smem, stream>>>(
+  const dim3 grid((n + C::BQ - 1) / C::BQ, bh);
+  kern<<<grid, C::NT, smem, stream>>>(
       static_cast<const TQK*>(q), static_cast<const TQK*>(k),
       static_cast<const TV*>(v), static_cast<TQK*>(o),
       static_cast<float*>(lse), n);

@@ -2,8 +2,8 @@
 
 Each `csrc/*.cu` file is compiled at first use with nvcc for sm_90a into
 `vaevar_tpu_torch/_build/lib<name>-<hash>.so`, where the hash covers the
-source and the flags, so an edited source builds anew and an unchanged one is
-reused. The library has a plain C interface and is loaded with ctypes. A
+source, every header under `csrc/` (`*.cuh`) and the flags, so an edited
+source or header builds anew and an unchanged one is reused. The library has a plain C interface and is loaded with ctypes. A
 failed build raises with nvcc's output.
 """
 
@@ -39,9 +39,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> tuple[Path, float]:

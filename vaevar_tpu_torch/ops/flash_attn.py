@@ -165,6 +165,9 @@ def _check(name, q, k, v, *same):
                          f"all but v, and (q, v) in {_TYPE_PAIRS}")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError(f"{name}: inputs must be contiguous")
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError(f"{name}: inputs must be 16-byte aligned "
+                         "(the kernels copy 16 bytes at a time)")
     if B * h > 65535 or N >= 2**31 // d:
         raise ValueError(f"{name}: B*h={B * h}, N={N} out of range")
     return B, h, N, d
