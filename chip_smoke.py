@@ -18,9 +18,11 @@ exits nonzero without its last line:
    f32 shapes, and the production shape with f32 q/k/dO and bf16 v (the
    main path's) and in bf16, against the plain backward in f32 on the same
    inputs; a tolerance per gradient, relative to its largest entry (see
-   BWD_TOL); two launches bitwise equal; median times of both, and of the
-   whole backward (D, dq and dkv) beside the library's backward, which
-   computes the pair's function in one call (`library_bwd_fn`);
+   BWD_TOL); the dq kernel's CTA, registers and spills at head dim 192
+   (`dq_build_report`); two launches bitwise equal; median times of both
+   with their share of the bound, and of the whole backward (D, dq and dkv)
+   beside the library's backward, which computes the pair's function in one
+   call (`library_bwd_fn`);
 5. the port's model on the card (kernel path) against the same model on the
    CPU (plain path) at a micro size, f32: the forward (atol 1e-4), then one
    Possloss train step with remat (loss and gradients);
@@ -241,12 +243,48 @@ def check_kernel(fa):
     return out
 
 
+# The dq kernel's instances at d = 192: (q/k type code, v type code, template types).
+DQ_INSTANCES = {"main": (0, 1, "float, __nv_bfloat16"),
+                "bf16": (1, 1, "__nv_bfloat16, __nv_bfloat16"),
+                "f32": (0, 0, "float, float")}
+
+
+def dq_build_report():
+    """The dq kernel's CTA (from the library) and its registers and spills
+    (from the build's `-Xptxas -v` log) for every instance at head dim 192;
+    prints one line each and returns {"main" | "bf16" | "f32": {...}}."""
+    import ctypes
+
+    from vaevar_tpu_torch.ops import _build
+
+    config = _build.load("flash_bwd").flash_bwd_dq_config
+    config.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    config.restype = ctypes.c_int
+    ptxas = _build.ptxas_report(_build.library_path("flash_bwd").with_suffix(".log").read_text())
+    out = {}
+    for key, (qk_type, v_type, types) in DQ_INSTANCES.items():
+        cfg = (ctypes.c_int * 4)()
+        if config(192, qk_type, v_type, cfg) != 0:
+            raise AssertionError(f"flash_bwd_dq_config refused d = 192, types {types}")
+        kern = f"flash_dq_kernel<{types}, 192>"
+        if kern not in ptxas:
+            raise AssertionError(f"{kern} is not in the ptxas log")
+        regs, spill_st, spill_ld = ptxas[kern]
+        out[key] = {"warps": cfg[0], "q_rows": cfg[1], "key_tile": cfg[2], "smem_bytes": cfg[3],
+                    "registers": regs, "spill_stores": spill_st, "spill_loads": spill_ld}
+        phase("bwd", f"{kern}: {cfg[0]} warps, {cfg[1]} q rows, {cfg[2]}-key tiles, "
+              f"{cfg[3]} bytes of shared memory; {regs} registers, spill stores/loads "
+              f"{spill_st}/{spill_ld} bytes (ptxas -v)")
+    return out
+
+
 def check_bwd(fa):
     """Phase 4: dq and dkv kernels against their plain versions; returns
     {kernel: {"max_abs_err": at the production shape, "main" and "bf16":
     {"ms", "plain_ms", "library_ms" (None: no one call computes one kernel's
-    function), "bound_ms", "bound_by"}}, "pair": {"main", "bf16": {"ms" of
-    the whole backward, "library_ms" of the library's backward}}}."""
+    function), "bound_ms", "bound_by"}, and for dq "build" (dq_build_report)},
+    "pair": {"main", "bf16": {"ms" of the whole backward, "library_ms" of the
+    library's backward}}}."""
     import torch
 
     def grads_vs_plain(shape, qk_dt, v_dt, seed):
@@ -283,7 +321,8 @@ def check_bwd(fa):
     for i, shape in enumerate(SMALL_SHAPES):
         grads_vs_plain(shape, torch.float32, torch.float32, 20 + 10 * i)
 
-    out = {"flash_dq": {"max_abs_err": 0.0}, "flash_dkv": {"max_abs_err": 0.0}, "pair": {}}
+    out = {"flash_dq": {"max_abs_err": 0.0, "build": dq_build_report()},
+           "flash_dkv": {"max_abs_err": 0.0}, "pair": {}}
     for key, (qk_dt, v_dt) in (("bf16", (torch.bfloat16, torch.bfloat16)),
                                ("main", (torch.float32, torch.bfloat16))):
         args, o, errs = grads_vs_plain(PROD_SHAPE, qk_dt, v_dt, 5)
@@ -569,6 +608,8 @@ def main():
         rec["bf16"] = stats[name]["bf16"]
         if name != "flash_fwd":  # dq + dkv + D together against the library's backward
             rec["pair"] = bwd["pair"]
+        if "build" in stats[name]:
+            rec["build"] = stats[name]["build"]
         kernels.append(rec)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

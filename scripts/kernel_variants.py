@@ -10,16 +10,15 @@ are wrong by design) to show what that stage costs. Each variant is built
 in a temporary directory (one nvcc per source, all started together) and
 its registers and spills at head dim 192 are printed. Then, at the
 production shape (1, 6, 16200, 192), with the main
-path's dtypes (f32 q/k/dO, bf16 v) and in bf16, each variant's forward and
-dkv kernels are checked against the plain versions and timed in turns: the
-variants in order, then in reverse, medians of 5 CUDA-event runs each.
+path's dtypes (f32 q/k/dO, bf16 v) and in bf16, each variant's forward, dq
+and dkv kernels are checked against the plain versions and timed in turns:
+the variants in order, then in reverse, medians of 5 CUDA-event runs each.
 """
 
 from __future__ import annotations
 
 import ctypes
 import json
-import re
 import shutil
 import statistics
 import subprocess
@@ -67,19 +66,11 @@ def build(variants, root):
 
 
 def report(name, log):
-    """Print registers and spill stores of every d = 192 forward and dkv kernel."""
-    kernel = spill = None
-    for line in log.splitlines():
-        if m := re.search(r"Compiling entry function '(\S+)'", line):
-            kernel = subprocess.run(["c++filt", m.group(1)], capture_output=True,
-                                    text=True).stdout.replace("(anonymous namespace)::", "")
-            kernel = kernel.split("(")[0].removeprefix("void ")
-        elif m := re.search(r"(\d+) bytes spill stores", line):
-            spill = m.group(1)
-        elif (m := re.search(r"Used (\d+) registers", line)) and kernel:
-            if "192>" in kernel and "dq_kernel" not in kernel:
-                print(f"{name}: {kernel} {m.group(1)} registers, {spill} bytes spilled", flush=True)
-            kernel = None
+    """Print registers and spills of every head-dim-192 kernel in a build log."""
+    for kernel, (regs, spill_st, spill_ld) in _build.ptxas_report(log).items():
+        if "192>" in kernel:
+            print(f"{name}: {kernel} {regs} registers, spill stores/loads {spill_st}/{spill_ld} "
+                  "bytes", flush=True)
 
 
 def use(libs, name):
@@ -112,23 +103,26 @@ def main(path):
             do = cs.rand(shape, 4, torch.float32).to(qk)
             o_ref, lse = fa.flash_attention_plain(q.float(), k.float(), v.float(), 1024, 1024)
             delta = (do.float() * o_ref).sum(-1)
+            dq_ref = fa.flash_dq_plain(q.float(), k.float(), v.float(), do.float(), lse, delta)
             dk_ref, dv_ref = fa.flash_dkv_plain(q.float(), k.float(), v.float(), do.float(), lse,
                                                 delta)
+            runs = {"fwd": lambda: fa.flash_fwd_cuda(q, k, v),
+                    "dq": lambda: fa.flash_dq_cuda(q, k, v, do, lse, delta),
+                    "dkv": lambda: fa.flash_dkv_cuda(q, k, v, do, lse, delta)}
             for name in names:
                 use(libs, name)
-                o, _ = fa.flash_fwd_cuda(q, k, v)
-                dk, dv = fa.flash_dkv_cuda(q, k, v, do, lse, delta)
+                o, _ = runs["fwd"]()
+                dq, (dk, dv) = runs["dq"](), runs["dkv"]()
                 errs = [(o.float() - o_ref).abs().max().item()] + [
                     ((a.float() - b).abs().max() / b.abs().max()).item()
-                    for a, b in ((dk, dk_ref), (dv, dv_ref))]
-                print(f"{key} {name}: max|dO| {errs[0]:.3g}; dk, dv max|d| / max|ref| "
-                      f"{errs[1]:.3g}, {errs[2]:.3g}", flush=True)
-            times = {name: {"fwd": [], "dkv": []} for name in names}
+                    for a, b in ((dq, dq_ref), (dk, dk_ref), (dv, dv_ref))]
+                print(f"{key} {name}: max|dO| {errs[0]:.3g}; dq, dk, dv max|d| / max|ref| "
+                      f"{errs[1]:.3g}, {errs[2]:.3g}, {errs[3]:.3g}", flush=True)
+            times = {name: {kern: [] for kern in runs} for name in names}
             for name in names + names[::-1]:
                 use(libs, name)
-                times[name]["fwd"].append(cs.median_ms(lambda: fa.flash_fwd_cuda(q, k, v)))
-                times[name]["dkv"].append(
-                    cs.median_ms(lambda: fa.flash_dkv_cuda(q, k, v, do, lse, delta)))
+                for kern, fn in runs.items():
+                    times[name][kern].append(cs.median_ms(fn))
             for name in names:
                 print(f"{key} {name}: " + "; ".join(
                     f"{kern} {statistics.mean(t):.3f} ms ({t[0]:.3f}/{t[1]:.3f})"

@@ -43,9 +43,11 @@ def _qkv(shape, seed, device, qk_dtype=torch.float32, v_dtype=torch.float32):
 
 
 # Every head dim the kernels take, each (q/k, v) type pair, and ragged N:
-# the last 64-row tile holds 2, 1 and 44 rows (dkv's 32-row q tiles 2, 1, 12).
+# the kernels tile N by 32 and 64 rows (and dq's q rows by 128 where it runs
+# 8 warps); the last 64-row tile holds 2, 1, 44, 33 and 1 rows, the last
+# 32-row tile 2, 1, 12, 1 and 1 (N = 32 k + 1 and 64 k + 1 among them).
 TYPE_PAIRS = [("float32", "float32"), ("bfloat16", "bfloat16"), ("float32", "bfloat16")]
-SMALL_SHAPES = [(1, 1, 130), (1, 3, 257), (2, 2, 300)]
+SMALL_SHAPES = [(1, 1, 130), (1, 3, 257), (2, 2, 300), (1, 2, 161), (1, 1, 321)]
 CASES = [((*bhn, d), dtypes) for d in fa.HEAD_DIMS for bhn in SMALL_SHAPES
          for dtypes in TYPE_PAIRS]
 

@@ -15,16 +15,27 @@
 // 4.89 ms; all-bf16 at 1.83 and 2.45 ms. What the design does about it: as
 // on the TPU, two kernels, so that each gradient is summed inside one CTA
 // and written once, with no atomics (two launches give bitwise-equal
-// gradients):
-//   - dq: one CTA per (b*h, 64-row q tile) keeps q, dO, lse, D and an f32 dQ
-//     accumulator on chip and loops over 64-row k/v tiles. It still
-//     multiplies with scalar f32 FMAs (float4 shared-memory reads);
+// gradients). Products run on mma.sync (mma_sm90.cuh): 3xTF32 where an
+// operand is f32 (a product with bf16 v in two passes, since bf16 is exact
+// in TF32), bf16 m16n8k16 in all-bf16. Operands stay in their storage types
+// in shared memory; k/v or q/dO tiles stream through a two-stage cp.async
+// ring (zero-filled past n).
+//   - dq (the forward's shape on the dq products): one CTA per (b*h, q tile)
+//     keeps the q and dO tiles in shared memory and loops over k/v tiles.
+//     A row group of 16 q rows holds its lse and D in registers and computes
+//     S = Q.K^T and dP = dO.V^T on C fragments, dS = P (dP - D) in place,
+//     then dQ += dS.K with dS going from the C fragments straight into the
+//     A fragment (paired k order for f32 k, rounded to bf16 for bf16 k); K
+//     is read row-wise for Q.K^T and by columns for dS.K. Each tile's dS.K
+//     goes to a fresh accumulator added to the f32 dQ. In all-bf16 (8 warps,
+//     64-key tiles at d = 192) a warp owns a row group and dQ takes 96
+//     registers a thread; with f32 q and k (8 warps, 64 q rows, 32-key
+//     tiles) a row group's two warps each sum S and dP over half of the head
+//     dim, add the other's half through shared memory, and accumulate half
+//     of the head columns of dQ (Dq);
 //   - dkv: one CTA of 8 warps per (b*h, 64-row k tile) keeps k and v in
-//     shared memory in their storage types and loops over 32-row q/dO tiles
-//     (with lse and D) in a two-stage cp.async ring. Products run on
-//     mma.sync (mma_sm90.cuh): 3xTF32 where an operand is f32 (V.dO^T with
-//     bf16 v in two passes, since bf16 is exact in TF32), bf16 m16n8k16 in
-//     all-bf16. Warp w = (key group w % 4, half w / 4): first it computes
+//     shared memory and loops over 32-row q/dO tiles (with lse and D).
+//     Warp w = (key group w % 4, half w / 4): first it computes
 //     S^T and dP^T for its 16 keys and 16 q columns and writes the rounded
 //     P^T and dS^T tiles to shared memory; after a barrier it accumulates
 //     dV and dK for its 16 keys and half of the head columns, so the two
@@ -56,36 +67,11 @@ namespace {
 
 using namespace mma_sm90;
 
-constexpr int BQ = 64;   // dq kernel: q rows per CTA
-constexpr int BK = 64;   // k/v rows per tile (dq) and per CTA (dkv)
+constexpr int SMEM_MAX = 232448;  // shared memory a block can use
+constexpr int BK = 64;   // dkv kernel: k/v rows per CTA
 constexpr int BQ2 = 32;  // dkv kernel: q rows per tile of the q loop
-constexpr int NT = 256;  // threads per CTA (dq: a 16 x 16 grid (tx, ty); dkv: 8 warps)
-constexpr int PAD = 4;   // dq: row padding (floats), conflict-free float4 reads
+constexpr int NT = 256;  // dkv kernel: threads per CTA (8 warps)
 constexpr int LDP = BQ2 + 8;  // dkv: row stride of the P^T and dS^T tiles
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float t) {
-  t = fmaf(a.x, b.x, t);
-  t = fmaf(a.y, b.y, t);
-  t = fmaf(a.z, b.z, t);
-  return fmaf(a.w, b.w, t);
-}
-
-// rows [r0, r0 + rows) of a (n, D) matrix into a (rows, D + PAD) f32 tile;
-// rows >= n read as 0.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
-                                          int r0, int rows, int n) {
-  constexpr int LD = D + PAD;
-  for (int i = threadIdx.x; i < rows * D; i += NT) {
-    const int r = i / D, c = i % D, gr = r0 + r;
-    dst[r * LD + c] = gr < n ? to_f32(src[(size_t)gr * D + c]) : 0.f;
-  }
-}
-
-template <int D>
-constexpr size_t dq_smem_bytes() {
-  return sizeof(float) * ((size_t)(2 * BQ + 2 * BK) * (D + PAD) + (size_t)BQ * (BK + PAD));
-}
 
 // dkv shared memory: k and v tiles, two stages of q and dO tiles, the P^T
 // and dS^T tiles (q's type) and two stages of lse and D.
@@ -96,111 +82,266 @@ constexpr int dkv_smem_bytes() {
                sizeof(TV) * BK * tile_ld<TV>(D) + sizeof(float) * 4 * BQ2);
 }
 
+// A dq CTA for (q/k type, v type, head dim): RG row groups of 16 q rows and
+// KT keys per k/v tile. Without SPLIT one warp owns a row group. With SPLIT
+// two warps share one: each sums S and dP over half of the head dim, the
+// two hand each other their partial sums through shared memory (two f32
+// tiles per half), and each then forms dS for the whole key tile and
+// accumulates dQ for its half of the head columns. The q and dO tiles, two
+// stages of k and v (and the exchange tiles) must fit: 8 row groups and 64
+// keys where they fit, else 4 and 64, else 4 and 32; with SPLIT 4 row groups
+// (8 warps). f32 q and k SPLIT where it fits (at d = 192 with bf16 v, not
+// with f32 v): 4 row groups and 32-key tiles are all that fit, and twice the
+// warps hide the latency of their 3xTF32 products; bf16 does not: 8 one-warp
+// row groups and 64-key tiles fit, and beat the split
+// (scripts/kernel_variants_flash.json, dq_other_design; PERF.md, section 6).
 template <typename TQK, typename TV, int D>
-__global__ void __launch_bounds__(NT)
+struct Dq {
+  static constexpr int LDQ = tile_ld<TQK>(D), LDV = tile_ld<TV>(D);
+  static constexpr int bytes(bool split, int rg, int kt) {
+    return (int)(sizeof(TQK) * (32 * rg + 2 * kt) * LDQ + sizeof(TV) * 2 * kt * LDV +
+                 (split ? sizeof(float) * 4 * 16 * rg * (kt + 8) : 0));
+  }
+  static constexpr bool SPLIT = is_f32<TQK> && bytes(true, 4, 32) <= SMEM_MAX;
+  static constexpr int RG = !SPLIT && bytes(false, 8, 64) <= SMEM_MAX ? 8 : 4;
+  static constexpr int KT = bytes(SPLIT, RG, 64) <= SMEM_MAX ? 64 : 32;
+  static constexpr int BQ = 16 * RG, NW = SPLIT ? 2 * RG : RG, NT = 32 * NW;
+  static constexpr int LDX = KT + 8;  // row stride of the exchange tiles (see mma_sm90.cuh)
+  static constexpr int SMEM = bytes(SPLIT, RG, KT);
+};
+
+// s[j] = Q.K^T and dp[j] = dO.V^T (16 x 8 each, keys 8j..8j+7) for the 16
+// q rows at sq, sdo and the 8 NS keys at sk, sv, summed over DS head
+// columns (tiles of D columns). f32 q, k and dO: 3xTF32, dO.V^T in two
+// passes when v is bf16 (exact in TF32), each 64 (or 32) columns in fresh
+// accumulators added to s and dp in f32 (long chains drift toward zero, see
+// mma_sm90.cuh); all-bf16: m16n8k16.
+template <typename TQK, typename TV, int D, int DS, int NS>
+__device__ __forceinline__ void dq_scores(float (&s)[NS][4], float (&dp)[NS][4], const TQK* sq,
+                                          const TQK* sdo, const TQK* sk, const TV* sv) {
+  constexpr int LDQ = tile_ld<TQK>(D), LDV = tile_ld<TV>(D);
+  if constexpr (is_f32<TQK>) {
+    // head columns per fresh accumulator
+    constexpr int CH = DS % 64 == 0 ? 64 : DS % 32 == 0 ? 32 : DS;
+    for (int c0 = 0; c0 < DS; c0 += CH) {
+      float ts[NS][4] = {}, tp[NS][4] = {};
+#pragma unroll
+      for (int c = c0; c < c0 + CH; c += 8) {
+        float xq[4], xo[4];
+        load_a_rows<LDQ>(xq, sq + c);
+        load_a_rows<LDQ>(xo, sdo + c);
+        const Tf32Split<4> a = split_tf32(xq), ao = split_tf32(xo);
+        Tf32Split<2> bk[NS], bv[NS];
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+          float xk[2], xv[2];
+          load_b_rows<LDQ>(xk, sk + 8 * j * LDQ + c);
+          load_b_rows<LDV>(xv, sv + 8 * j * LDV + c);
+          bk[j] = split_tf32(xk);
+          bv[j] = split_tf32<!is_f32<TV>>(xv);
+        }
+        mma_3xtf32(ts, a, bk);
+        mma_3xtf32<false, !is_f32<TV>>(tp, ao, bv);
+      }
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        add_tile(s[j], ts[j]);
+        add_tile(dp[j], tp[j]);
+      }
+    }
+  } else {
+    static_assert(NS % 2 == 0, "bf16 B fragments come in pairs of 8 keys");
+#pragma unroll 2
+    for (int c = 0; c < DS; c += 16) {
+      uint32_t a[4], ao[4];
+      load_a_bf16<LDQ>(a, sq + c);
+      load_a_bf16<LDQ>(ao, sdo + c);
+#pragma unroll
+      for (int j = 0; j < NS; j += 2) {
+        uint32_t b[4], bv[4];
+        load_b_bf16_rows<LDQ>(b, sk + 8 * j * LDQ + c);
+        load_b_bf16_rows<LDV>(bv, sv + 8 * j * LDV + c);
+        mma_bf16(s[j], a, b[0], b[1]);
+        mma_bf16(s[j + 1], a, b[2], b[3]);
+        mma_bf16(dp[j], ao, bv[0], bv[1]);
+        mma_bf16(dp[j + 1], ao, bv[2], bv[3]);
+      }
+    }
+  }
+}
+
+// The A fragments of dS (16 rows x 8 NK keys) for dS.K from dS's C
+// fragments, dS rounded to k's type: f32 split in the paired k order, bf16
+// packed in pairs.
+template <typename T, int NK>
+struct DsFrags;
+
+template <int NK>
+struct DsFrags<float, NK> {
+  Tf32Split<4> a[NK];
+  __device__ __forceinline__ void from_c(const float (&ds)[NK][4]) {
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) {
+      float x[4];
+      c_as_a_paired(x, ds[kk]);
+      a[kk] = split_tf32(x);
+    }
+  }
+};
+
+template <int NK>
+struct DsFrags<__nv_bfloat16, NK> {
+  uint32_t a[NK / 2][4];
+  __device__ __forceinline__ void from_c(const float (&ds)[NK][4]) {
+#pragma unroll
+    for (int kk = 0; kk < NK / 2; ++kk) c_as_a_bf16(a[kk], ds[2 * kk], ds[2 * kk + 1]);
+  }
+};
+
+// acc[d] (16 x 8, head columns 8d..8d+7 of the tile at sk) += dS . K over
+// the 8 NK keys (rows of sk); each pair of fragments takes the tile's
+// products in a fresh accumulator (add_tile), so the sum over N keeps f32
+// accuracy. K is B stored (k, n) row-major: paired columns for f32,
+// ldmatrix.trans for bf16.
+template <typename TQK, int D, int ND, int NK>
+__device__ __forceinline__ void dq_accumulate(float (&acc)[ND][4], const DsFrags<TQK, NK>& f,
+                                              const TQK* sk) {
+  constexpr int LD = tile_ld<TQK>(D);
+#pragma unroll
+  for (int d = 0; d < ND; d += 2) {
+    float tile[2][4] = {};
+    if constexpr (is_f32<TQK>) {
+#pragma unroll
+      for (int kk = 0; kk < NK; ++kk) {
+        Tf32Split<2> b[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float x[2];
+          load_b_cols_paired<LD>(x, sk + 8 * kk * LD + 8 * (d + h));
+          b[h] = split_tf32(x);
+        }
+        mma_3xtf32(tile, f.a[kk], b);
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < NK / 2; ++kk) {
+        uint32_t b[4];
+        load_b_bf16_cols<LD>(b, sk + 16 * kk * LD + 8 * d);
+        mma_bf16(tile[0], f.a[kk], b[0], b[1]);
+        mma_bf16(tile[1], f.a[kk], b[2], b[3]);
+      }
+    }
+    add_tile(acc[d], tile[0]);
+    add_tile(acc[d + 1], tile[1]);
+  }
+}
+
+template <typename TQK, typename TV, int D>
+__global__ void __launch_bounds__(Dq<TQK, TV, D>::NT, 1)
     flash_dq_kernel(const TQK* __restrict__ q, const TQK* __restrict__ k,
                     const TV* __restrict__ v, const TQK* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     TQK* __restrict__ dq, int n) {
-  constexpr int LD = D + PAD;   // row stride of the q, dO, k and v tiles
-  constexpr int LS = BK + PAD;  // row stride of the dS tile
-  constexpr int DC = D / 16;    // dQ columns per thread
-  extern __shared__ float4 smem4[];
-  float* sq = reinterpret_cast<float*>(smem4);
-  float* sdo = sq + BQ * LD;
-  float* sk = sdo + BQ * LD;
-  float* sv = sk + BK * LD;
-  float* sds = sv + BK * LD;
+  using C = Dq<TQK, TV, D>;
+  constexpr int BQ = C::BQ, KT = C::KT, LDQ = C::LDQ, LDV = C::LDV, LDX = C::LDX;
+  constexpr int NK = KT / 8;                // key fragments of a k/v tile
+  constexpr int DW = C::SPLIT ? D / 2 : D;  // head columns of S, dP and dQ per warp
+  constexpr int ND = DW / 8;                // dQ fragments per warp
+  extern __shared__ __align__(16) unsigned char smem[];
+  TQK* sq = reinterpret_cast<TQK*>(smem);
+  TQK* sdo = sq + BQ * LDQ;
+  TQK* sk = sdo + BQ * LDQ;                                // 2 stages of KT rows
+  TV* sv = reinterpret_cast<TV*>(sk + 2 * KT * LDQ);       // 2 stages of KT rows
+  float* sx = reinterpret_cast<float*>(sv + 2 * KT * LDV);  // SPLIT: S, dP of each half
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // key column / dQ column lane
-  const int ty = tid / 16;  // row lane: this thread owns rows ty + 16 i
+  const int warp = threadIdx.x >> 5, g = lane_id() >> 2, t = lane_id() & 3;
+  const int rg = warp % C::RG, half = warp / C::RG;  // half is 0 without SPLIT
   const int q0 = blockIdx.x * BQ;
   const size_t base = (size_t)blockIdx.y * n * D;
   const size_t rbase = (size_t)blockIdx.y * n;
+  const int nk = (n + KT - 1) / KT;
 
-  load_tile<TQK, D>(sq, q + base, q0, BQ, n);
-  load_tile<TQK, D>(sdo, dout + base, q0, BQ, n);
-  float rl[4], rd[4], acc[4][DC];
+  auto load_kv = [&](int j) {
+    const int st = j & 1;
+    copy_rows_async<TQK, KT, D, LDQ, C::NT>(sk + st * KT * LDQ, k + base, j * KT, n);
+    copy_rows_async<TV, KT, D, LDV, C::NT>(sv + st * KT * LDV, v + base, j * KT, n);
+  };
+  copy_rows_async<TQK, BQ, D, LDQ, C::NT>(sq, q + base, q0, n);
+  copy_rows_async<TQK, BQ, D, LDQ, C::NT>(sdo, dout + base, q0, n);
+  load_kv(0);
+  cp_async_commit();
+
+  // lse and D of rows g and g + 8 of the row group (rows >= n are not stored)
+  float rl[2], rd[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
-    rl[i] = r < n ? lse[rbase + r] : 0.f;
-    rd[i] = r < n ? delta[rbase + r] : 0.f;
-#pragma unroll
-    for (int d = 0; d < DC; ++d) acc[i][d] = 0.f;
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + 16 * rg + g + 8 * r;
+    rl[r] = row < n ? lse[rbase + row] : 0.f;
+    rd[r] = row < n ? delta[rbase + row] : 0.f;
   }
+  float acc[ND][4];
+#pragma unroll
+  for (int d = 0; d < ND; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
 
-  for (int k0 = 0; k0 < n; k0 += BK) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<TQK, D>(sk, k + base, k0, BK, n);
-    load_tile<TV, D>(sv, v + base, k0, BK, n);
+  for (int j = 0; j < nk; ++j) {
+    if (j + 1 < nk) load_kv(j + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile j (and the q and dO tiles) landed
     __syncthreads();
+    const int st = j & 1;
+    const TQK* skj = sk + st * KT * LDQ + DW * half;  // this warp's head columns
 
-    // S = Q K^T and dP = dO V^T for rows ty + 16 i, key columns tx + 16 j.
-    float s[4][4], dp[4][4];
+    // element e of a fragment is row g + 8 (e >> 1), key 2t + (e & 1)
+    float s[NK][4] = {}, dp[NK][4] = {};
+    dq_scores<TQK, TV, D, DW, NK>(s, dp, sq + 16 * rg * LDQ + DW * half,
+                                  sdo + 16 * rg * LDQ + DW * half, skj,
+                                  sv + st * KT * LDV + DW * half);
+    if constexpr (C::SPLIT) {  // add the other warp's sums over the other half
+      float* own = sx + (2 * half * BQ + 16 * rg) * LDX;   // S, then dP BQ rows on
+      float* other = sx + (2 * (half ^ 1) * BQ + 16 * rg) * LDX;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < NK; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 2
-    for (int c = 0; c < D; c += 4) {
-      float4 a[4], g[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = *reinterpret_cast<const float4*>(&sq[(ty + 16 * i) * LD + c]);
-        g[i] = *reinterpret_cast<const float4*>(&sdo[(ty + 16 * i) * LD + c]);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float4 b = *reinterpret_cast<const float4*>(&sk[(tx + 16 * j) * LD + c]);
-        const float4 w = *reinterpret_cast<const float4*>(&sv[(tx + 16 * j) * LD + c]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          s[i][j] = dot4(a[i], b, s[i][j]);
-          dp[i][j] = dot4(g[i], w, dp[i][j]);
+        for (int r = 0; r < 2; ++r) {
+          const int at = (g + 8 * r) * LDX + 8 * i + 2 * t;
+          store_pair(own + at, s[i][2 * r], s[i][2 * r + 1]);
+          store_pair(own + BQ * LDX + at, dp[i][2 * r], dp[i][2 * r + 1]);
         }
-      }
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < NK; ++i)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int at = (g + 8 * r) * LDX + 8 * i + 2 * t;
+          const float2 ps = *reinterpret_cast<const float2*>(other + at);
+          const float2 pp = *reinterpret_cast<const float2*>(other + BQ * LDX + at);
+          s[i][2 * r] += ps.x;
+          s[i][2 * r + 1] += ps.y;
+          dp[i][2 * r] += pp.x;
+          dp[i][2 * r + 1] += pp.y;
+        }
     }
-
-    // dS = P (dP - D), P = exp(S - lse); keys >= n give P = 0. dS is
-    // rounded to k's type before dS K, as _dq_kernel does.
+    // dS = P (dP - D) in place of S, P = exp(S - lse) and 0 for keys >= n
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const bool ok = k0 + tx + 16 * j < n;
+    for (int i = 0; i < NK; ++i)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = ok ? expf(s[i][j] - rl[i]) : 0.f;
-        sds[(ty + 16 * i) * LS + tx + 16 * j] = round_to<TQK>(p * (dp[i][j] - rd[i]));
+      for (int e = 0; e < 4; ++e) {
+        const float p = j * KT + 8 * i + 2 * t + (e & 1) < n ? expf(s[i][e] - rl[e >> 1]) : 0.f;
+        s[i][e] = p * (dp[i][e] - rd[e >> 1]);
       }
-    }
-    __syncthreads();
-
-    // dQ += dS K for rows ty + 16 i and head columns tx + 16 d.
-#pragma unroll 2
-    for (int c = 0; c < BK; c += 4) {
-      float4 da[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        da[i] = *reinterpret_cast<const float4*>(&sds[(ty + 16 * i) * LS + c]);
-#pragma unroll
-      for (int d = 0; d < DC; ++d) {
-        const float4 kc = make_float4(
-            sk[(c + 0) * LD + tx + 16 * d], sk[(c + 1) * LD + tx + 16 * d],
-            sk[(c + 2) * LD + tx + 16 * d], sk[(c + 3) * LD + tx + 16 * d]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][d] = dot4(da[i], kc, acc[i][d]);
-      }
-    }
+    DsFrags<TQK, NK> f;
+    f.from_c(s);
+    dq_accumulate<TQK, D, ND, NK>(acc, f, skj);
+    __syncthreads();  // stage st (and the exchange tiles) is free for tile j + 2
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
-    if (r < n) {
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + 16 * rg + g + 8 * r;
+    if (row < n) {
+      TQK* out = dq + base + (size_t)row * D + DW * half + 2 * t;
 #pragma unroll
-      for (int d = 0; d < DC; ++d)
-        dq[base + (size_t)r * D + tx + 16 * d] = from_f32<TQK>(acc[i][d]);
+      for (int d = 0; d < ND; ++d) store_pair(out + 8 * d, acc[d][2 * r], acc[d][2 * r + 1]);
     }
   }
 }
@@ -426,17 +567,24 @@ struct Args {
   void *dq, *dk, *dv;
   int bh, n;
   cudaStream_t stream;
+  int* cfg;  // dq: when set, receives the CTA's shape instead of a launch
 };
 
 template <typename TQK, typename TV, int D>
 int launch_dq(const Args& a) {
+  using C = Dq<TQK, TV, D>;
+  static_assert(C::SMEM <= SMEM_MAX, "shared-memory tiles exceed the block limit");
+  if (a.cfg) {
+    const int cfg[4] = {C::NW, C::BQ, C::KT, C::SMEM};
+    for (int i = 0; i < 4; ++i) a.cfg[i] = cfg[i];
+    return 0;
+  }
   auto kern = flash_dq_kernel<TQK, TV, D>;
-  constexpr size_t smem = dq_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.n + BQ - 1) / BQ, a.bh);
-  kern<<<grid, NT, smem, a.stream>>>(
+  const dim3 grid((a.n + C::BQ - 1) / C::BQ, a.bh);
+  kern<<<grid, C::NT, C::SMEM, a.stream>>>(
       static_cast<const TQK*>(a.q), static_cast<const TQK*>(a.k),
       static_cast<const TV*>(a.v), static_cast<const TQK*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
@@ -499,6 +647,16 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             int v_type, void* stream) {
   const Args a{q, k, v, dout, lse, delta, dq, nullptr, nullptr, bh, n,
                static_cast<cudaStream_t>(stream)};
+  return dispatch<true>(a, d, qk_type, v_type);
+}
+
+// The dq CTA of an instance, written to cfg: {warps, q rows, keys per k/v
+// tile, shared-memory bytes}. Returns 0, or -1 for one the kernel does not
+// take.
+extern "C" int flash_bwd_dq_config(int d, int qk_type, int v_type, int* cfg) {
+  Args a{};
+  a.bh = a.n = 1;
+  a.cfg = cfg;
   return dispatch<true>(a, d, qk_type, v_type);
 }
 

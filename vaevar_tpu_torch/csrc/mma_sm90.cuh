@@ -19,7 +19,10 @@
 // toward zero (dK summed over 16200 q rows in one chain was off by 1.3e-4 of
 // its largest entry on the H100). The kernels therefore take each tile's
 // products in a fresh accumulator (a chain of a few mma) and add it to the
-// running f32 sum with one rounding to nearest (`add_tile`).
+// running f32 sum with one rounding to nearest (`add_tile`). Chains of
+// dozens drift too, where a sum feeds an exponential or a difference: the
+// dq kernel's S and dP summed over d = 192 in one chain (72 and 48 mma) left
+// dq at 7.6e-6 of its largest entry, in chains of 32 columns at 2.6e-6.
 //
 // Fragment layouts (PTX ISA, warp-level mma), with g = lane / 4 and
 // t = lane % 4:
@@ -38,8 +41,9 @@
 // words: the row-wise pattern g*LD + t and the paired column pattern
 // 2t*LD + g hit 32 distinct banks); bf16 tiles D + 8 (stride = 16 mod 128
 // bytes: the 8 rows of an ldmatrix 8x8 hit 8 distinct 16-byte bank groups).
-// The f32 probability tiles of the dkv kernel use 40 (= 8 mod 32): a float2
-// read or write at (g, 2t) hits distinct banks in each half-warp.
+// The probability tiles of the dkv kernel and the exchange tiles of the dq
+// kernel use their width + 8: for 32 f32 columns 40 (= 8 mod 32), so a
+// float2 read or write at (g, 2t) hits distinct banks in each half-warp.
 
 #pragma once
 
@@ -53,23 +57,6 @@ namespace mma_sm90 {
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// x rounded to T and back (the rounding points of the TPU kernels).
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<T>(x));
-}
 
 template <typename T>
 constexpr bool is_f32 = sizeof(T) == 4;

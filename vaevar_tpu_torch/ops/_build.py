@@ -13,6 +13,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -75,6 +76,27 @@ def build_all(names) -> dict[str, tuple[Path, float]]:
     with ThreadPoolExecutor(max_workers=len(names)) as pool:
         futures = {name: pool.submit(build, name) for name in names}
     return {name: f.result() for name, f in futures.items()}
+
+
+def ptxas_report(log: str) -> dict[str, tuple[int, int, int]]:
+    """Registers and spill bytes of each kernel in an `nvcc -Xptxas -v` log:
+    {demangled name without the namespace: (registers, spill stores, spill
+    loads)}."""
+    found, name, spill = {}, None, (0, 0)
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            name = m.group(1)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            spill = (int(m.group(1)), int(m.group(2)))
+        elif (m := re.search(r"Used (\d+) registers", line)) and name:
+            found[name] = (int(m.group(1)), *spill)
+            name, spill = None, (0, 0)
+    if not found:
+        return {}
+    names = subprocess.run(["c++filt"], input="\n".join(found), capture_output=True,
+                           text=True).stdout.splitlines()
+    return {pretty.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void "): v
+            for pretty, v in zip(names, found.values())}
 
 
 @functools.cache
