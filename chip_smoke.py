@@ -31,6 +31,17 @@ exits nonzero without its last line:
    128x256, Nit 4), 2 cycles after the 8-step spin-up, random weights from
    the seed. Checks the forward kernel's launch count, finite analyses, the
    cost decrease and the on-disk state;
+6b. the window path: the same cycle as 4D-Var with --da_win 6 (FLOW_140
+   inside J at 128x256, block and step remat, the linesearch `auto`
+   resolves to jvp-zoom), one cycle from the truth (--init_tp 1, no
+   spin-up). Checks the launches (4 forward: the advance; the window cost
+   runs no flash op), the resolved linesearch, the cost decrease, finite
+   fields and the on-disk state; prints the seconds of the cycle, of its obs
+   preparation and of the solve, the per-segment iterations, charged evals,
+   jvp probes and gradient restores, and the peak device memory. Then, at
+   micro size in f32 on the card, one window solve (da_win 3) with zoom and
+   with jvp-zoom: equal iteration and eval counts and analyses within
+   norm-relative 1e-5, and the jvp slope against grad . u;
 7. the training path: FORECAST_025 at 721x1440, batch 1, bf16, remat,
    Possloss, random weights from the seed, the trainer CLI's lr and AdamW:
    3 train steps through make_forecast_train_step on one synthetic ERA5
@@ -42,7 +53,7 @@ exits nonzero without its last line:
    2 steps with validation and a checkpoint, then a second run that resumes
    at the saved step.
 The second-to-last line is a JSON record of the kernels (launches summed
-over the DA and training paths, each counted from 0; times with the main
+over the DA, window and training paths, each counted from 0; times with the main
 path's dtypes, and under "bf16" the all-bf16 ones; each bound from the
 function `bound_ms` below); the last line is {"ok": true, "device": {...}}.
 """
@@ -61,9 +72,12 @@ import time
 
 START = "2022-01-01 00:00:00"
 END = "2022-01-01 12:00:00"  # two 6 h cycles
-MAIN_ARGS = ["--da_mode", "vae4dvar", "--fast_init", "--grid", "721x1440",
-             "--solver_grid", "128x256", "--Nit", "4", "--bf16",
-             "--start_time", START, "--end_time", END]
+FULL_WIDTH = ["--da_mode", "vae4dvar", "--fast_init", "--grid", "721x1440",
+              "--solver_grid", "128x256", "--Nit", "4", "--bf16", "--start_time", START]
+MAIN_ARGS = FULL_WIDTH + ["--end_time", END]
+# one 6 h cycle of 4D-Var from the truth: the main phase runs the spin-up
+WINDOW_ARGS = FULL_WIDTH + ["--end_time", "2022-01-01 06:00:00", "--da_win", "6",
+                            "--init_tp", "1"]
 SMALL_SHAPES = [(2, 2, 300, 64), (1, 2, 200, 32), (1, 1, 130, 32)]
 PROD_SHAPE = (1, 6, 16200, 192)
 # Backward tolerances, relative to the gradient's largest |entry|, keyed by
@@ -415,6 +429,119 @@ def check_model(fa):
         raise AssertionError("the micro train step on the card disagrees with the CPU path")
 
 
+def check_window(fa, extra=()):
+    """Phase 6b: the 4D-Var window cycle at full width (WINDOW_ARGS and
+    `extra` flags of run_da); returns its forward launches and the
+    run's CycledDA."""
+    import torch
+
+    from vaevar_tpu_torch import run_da
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as work:
+        fa.flash_fwd_launches = fa.flash_dq_launches = fa.flash_dkv_launches = 0
+        t0 = time.perf_counter()
+        da = run_da.main(WINDOW_ARGS + list(extra) + ["--work_dir", work])
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        counts = (fa.flash_fwd_launches, fa.flash_dq_launches, fa.flash_dkv_launches)
+        files = sorted(os.listdir(da.work_dir))
+    peak = torch.cuda.max_memory_allocated()
+    if len(da.cycle_log) != 1:
+        raise AssertionError(f"{len(da.cycle_log)} window cycles; want 1")
+    c = da.cycle_log[0]
+    j = [b + o for b, o in zip(c["jb"], c["jo"])]
+    phase("window", f"{' '.join(extra) or 'defaults'}: da_win 6 cycle in "
+          f"{c['seconds']:.2f} s ({total:.2f} s with the model set-up): obs preparation "
+          f"{c['obs_s']:.2f} s, reduction {c['reduce_s']:.3f} s, solve {c['solve_s']:.2f} s; "
+          f"linesearch {c['linesearch']}; iterations {c['n_iters']}, charged evals "
+          f"{c['n_evals']}, jvp probes {c['n_jvp']}, gradient restores {c['n_restore']}; "
+          f"J {j[0]:.6g} -> {j[-1]:.6g} ({', '.join(f'{v:.6g}' for v in j)}); "
+          f"peak memory {peak / 2**30:.2f} GiB; flash launches (fwd, dq, dkv) {counts}")
+    if counts != (4, 0, 0):
+        raise AssertionError(f"window cycle launched (fwd, dq, dkv) {counts}; want (4, 0, 0)")
+    if c["linesearch"] != "jvp-zoom":
+        raise AssertionError(f"auto resolved to {c['linesearch']}; want jvp-zoom")
+    # the approximate-decrease test lets a step raise J by up to 1e-6 |J|
+    slack = 1e-6 * abs(j[0]) * sum(c["n_iters"])
+    if not (max(j) <= j[0] + slack and j[-1] < j[0]):
+        raise AssertionError(f"the window solve did not lower J: {j}")
+    if not (c["xa_finite"] and c["xb_next_finite"]):
+        raise AssertionError("non-finite analysis or background in the window cycle")
+    need = {"xb.npy", "current_time.txt", "bg_wrmse.npy", "ana_wrmse.npy"}
+    if not need <= set(files):
+        raise AssertionError(f"missing from the window work dir: {sorted(need - set(files))}")
+    return counts[0], da
+
+
+def micro_window_problem(device, da_win=3, low=(32, 64), full=(47, 93)):
+    """(cost, to_state, z0, bundle) of a micro f32 window cost with block and
+    step remat: relbias decoder and flow model, a 47x93 analysis grid over a
+    32x64 solver grid (a non-integer ratio, so the gather S is a real one)."""
+    import numpy as np
+    import torch
+
+    from vaevar_tpu_torch import channels
+    from vaevar_tpu_torch import config as cfgs
+    from vaevar_tpu_torch.da import cost as cost_mod
+    from vaevar_tpu_torch.models.lgunet import LGUnet
+    from vaevar_tpu_torch.utils.fast_init import fast_init
+
+    dec = fast_init(LGUnet(cfgs.micro_vae_configs(img_size=low)[1].replace(remat=True)), seed=1)
+    flow = fast_init(LGUnet(cfgs.micro_config(img_size=low, attn_type="relbias", remat=True)),
+                     seed=2)
+    dec, flow = (m.to(device).eval().requires_grad_(False) for m in (dec, flow))
+    rr = np.random.default_rng(0)
+    m, s = channels.MEAN.reshape(-1, 1, 1), channels.STD.reshape(-1, 1, 1)
+    arrs = (m + s * rr.normal(size=(69, *full)),
+            m[None] + s[None] * rr.normal(size=(da_win, 69, *full)),
+            rr.random((da_win, 69, *full)) < 0.3,
+            s[None] ** 2 * (0.5 + rr.random((da_win, 69, *full))))
+    bundle = cost_mod.reduce_obs_window(cost_mod.ObsBundle(*(
+        torch.as_tensor(np.asarray(a, np.float32), device=device) for a in arrs)), low)
+    cost, to_state, parts = cost_mod.make_vae4dvar_cost_window_reduced(dec, flow, da_win=da_win)
+    z0 = torch.as_tensor(0.1 * rr.standard_normal((1, 8, *low)), dtype=torch.float32,
+                         device=device)
+    return cost, to_state, parts, z0, bundle
+
+
+def check_micro_window():
+    """Phase 6b, second part: forward-mode AD on the card. The jvp slope of
+    the micro window cost against grad . u, then one solve with zoom and one
+    with jvp-zoom: equal counts, analyses within norm-relative 1e-5."""
+    import torch
+
+    from vaevar_tpu_torch.da import lbfgs
+    from vaevar_tpu_torch.da.solver import VariationalSolver
+
+    cost, to_state, parts, z0, bundle = micro_window_problem("cuda")
+    u = torch.randn(z0.shape, generator=torch.Generator().manual_seed(5)).cuda()
+    v, g = lbfgs.value_and_grad(lambda q: cost(q, bundle), z0)
+    vj, slope = lbfgs.value_and_slope(lambda q: cost(q, bundle), z0, u)
+    want = float((g * u).sum())
+    rel = abs(float(slope) - want) / abs(want)
+    phase("window", f"micro f32 window cost on the card: jvp slope {float(slope):.7g} against "
+          f"grad . u {want:.7g} (rel {rel:.2g}, tol 1e-5); values {float(vj):.7g}, {float(v):.7g}")
+    if not rel <= 1e-5:
+        raise AssertionError("the jvp slope disagrees with the gradient on the card")
+    out = {}
+    for ls in ("zoom", "jvp-zoom"):
+        solver = VariationalSolver(cost, to_state, parts, lbfgs_iters=4, history=4,
+                                   linesearch=ls)
+        _, xa, diag = solver.solve(z0, bundle, nit=2, verbose=False)
+        out[ls] = (xa, diag)
+    (xz, dz), (xj, dj) = out["zoom"], out["jvp-zoom"]
+    nrel = float((xj - xz).norm() / xz.norm())
+    phase("window", f"micro solve, zoom: iterations {dz.n_iters}, evals {dz.n_evals}; jvp-zoom: "
+          f"iterations {dj.n_iters}, evals {dj.n_evals}, jvp probes {dj.n_jvp}, restores "
+          f"{dj.n_restore}; analyses norm-rel {nrel:.2g} (tol 1e-5)")
+    if (dz.n_iters, dz.n_evals) != (dj.n_iters, dj.n_evals) or not nrel <= 1e-5:
+        raise AssertionError("jvp-zoom and zoom took different steps on the card")
+    if sum(dj.n_jvp) == 0:
+        raise AssertionError("the micro solve ran no jvp probe")
+
+
 def check_forecast_training(fa):
     """Phase 7: FORECAST_025 train steps at full width; returns the launch
     counts of the phase."""
@@ -587,6 +714,11 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
+    window_launches = check_window(fa)[0]
+    check_micro_window()
+    gc.collect()
+    torch.cuda.empty_cache()
+
     train_counts = check_forecast_training(fa)
     gc.collect()
     torch.cuda.empty_cache()
@@ -601,7 +733,8 @@ def main():
         main, rec = stats[name]["main"], {
             "name": name, "route": "cuda", "source": f"vaevar_tpu_torch/csrc/{src}",
             "replaces": tpu,
-            "launches": train_counts[name] + (launches if name == "flash_fwd" else 0),
+            "launches": train_counts[name] + (launches + window_launches
+                                              if name == "flash_fwd" else 0),
             "max_abs_err": stats[name]["max_abs_err"]}
         rec.update(main)
         rec["share_of_bound"] = main["bound_ms"] / main["ms"]

@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_util import model_pair, rand, to_np
+from torch_port_util import model_pair, quadratic, rand, to_np
 from vaevar_tpu import channels
 from vaevar_tpu import config as C
 from vaevar_tpu.da import cost as jcost
@@ -26,7 +26,7 @@ from vaevar_tpu.da import lbfgs as jlbfgs
 from vaevar_tpu.da.obs import build_R, make_obs_mask, obs_error_variance
 from vaevar_tpu_torch.da import cost as tcost
 from vaevar_tpu_torch.da import lbfgs as tlbfgs
-from vaevar_tpu_torch.da.solver import resolve_linesearch
+from vaevar_tpu_torch.da.solver import VariationalSolver
 
 torch.set_num_threads(1)
 RTOL = 1e-5
@@ -77,21 +77,9 @@ def test_cost_and_gradient(setup, zscale):
         np.testing.assert_allclose(float(a), float(b), rtol=RTOL, atol=1e-6)
 
 
-def _quadratic(seed: int, n: int = 64, cond_pow: float = 4.0):
-    """Random SPD quadratic with condition number 10**cond_pow (the
-    generator of tests/test_lbfgs_torch_trajectory.py)."""
-    rng = np.random.default_rng(seed)
-    Q, _ = np.linalg.qr(rng.normal(size=(n, n)))
-    eig = np.logspace(0.0, cond_pow, n)
-    A = ((Q * eig) @ Q.T).astype(np.float32)
-    A = (A + A.T) / 2
-    b = rng.normal(size=n).astype(np.float32)
-    return A, b
-
-
 @pytest.mark.parametrize("seed", range(6))
 def test_lbfgs_matches_jax_segments(seed):
-    A, b = _quadratic(seed)
+    A, b = quadratic(seed)
     Aj, bj, At, bt = jnp.asarray(A), jnp.asarray(b), torch.from_numpy(A), torch.from_numpy(b)
     xj, sj = jnp.zeros(64, jnp.float32), None
     xt, st = torch.zeros(64), None
@@ -113,6 +101,12 @@ def test_lbfgs_matches_jax_segments(seed):
 
 
 def test_solver_refuses_other_linesearches():
-    assert resolve_linesearch("auto") == resolve_linesearch("zoom") == "zoom"
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-        resolve_linesearch("jvp-zoom")
+    """auto, zoom and jvp-zoom are the linesearches; any other name fails
+    when the solver or a minimisation is set up."""
+    parts = (lambda x, b: x.sum(), lambda x, b: x, lambda x, b: (0.0, 0.0))
+    for ls in ("auto", "zoom", "jvp-zoom"):
+        assert VariationalSolver(*parts, linesearch=ls).linesearch == ls
+    with pytest.raises(ValueError, match="backtracking"):
+        VariationalSolver(*parts, linesearch="backtracking")
+    with pytest.raises(ValueError, match="backtracking"):
+        tlbfgs.lbfgs_minimize(lambda x: (x * x).sum(), torch.ones(3), linesearch="backtracking")

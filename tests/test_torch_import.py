@@ -5,7 +5,8 @@ and optax cannot be imported, and no vaevar_tpu module gets loaded; no
 source file of the port (or chip_smoke.py) names them. The few jax-free
 tables the port carries as copies (channel registry, model and DA configs,
 the synthetic ERA5 source, the relative-position index, the synthetic obs
-masks and R, the batch prefetcher) are held equal to the reference here."""
+masks, R and the model error Q, the batch prefetcher) are held equal to the
+reference here."""
 
 import dataclasses
 import inspect
@@ -102,13 +103,40 @@ def test_obs_and_posenc_copies_equal_reference():
         np.testing.assert_array_equal(tobs.obs_error_variance(0.005, tp),
                                       jobs.obs_error_variance(0.005, tp))
     var = jobs.obs_error_variance(0.005, 2)
-    np.testing.assert_array_equal(tobs.build_R(var, 1), jobs.build_R(var, None, 1, (8, 8)))
+    np.testing.assert_array_equal(tobs.build_R(var, None, 1), jobs.build_R(var, None, 1, (8, 8)))
     for kind in ("free_0001", "column_random_0001"):
         np.testing.assert_array_equal(
             tobs.make_obs_mask(kind, 1, (64, 128), np.random.default_rng(4)),
             jobs.make_obs_mask(kind, 1, (64, 128), np.random.default_rng(4)))
     for win in ((4, 4), (6, 12)):
         np.testing.assert_array_equal(t_rpi(win), j_rpi(win))
+
+
+@pytest.mark.parametrize("q_type, files", [(1, None), (1, "new_q"), (0, "q"), (-1, None)])
+def test_q_matrix_and_R_copies_equal_reference(tmp_path, q_type, files):
+    """load_q_matrix and build_R with Q: q_type 1 with new_q.npy and without
+    it (the synthetic Q linear in lead), q_type 0 (spatial means of q<i>.npy)
+    and -1 (none), at da_win 6; and R for da_win 1, where Q never applies."""
+    rng = np.random.default_rng(7)
+    if files == "new_q":
+        np.save(tmp_path / "new_q.npy", rng.random((8, 69)).astype(np.float32))
+    elif files == "q":
+        for i in range(1, 6):
+            np.save(tmp_path / f"q{i}.npy", rng.random((69, 12, 24)).astype(np.float32))
+    var = jobs.obs_error_variance(0.005, 2)
+    for win in (1, 6):
+        q_t = tobs.load_q_matrix(str(tmp_path), q_type, win)
+        q_j = jobs.load_q_matrix(str(tmp_path), q_type, win, (12, 24))
+        assert (q_t is None) == (q_j is None) == (win == 1 or q_type == -1)
+        if q_t is not None:
+            assert q_t.shape == (win - 1, 69, 1, 1)
+            np.testing.assert_array_equal(q_t, q_j)
+        R = tobs.build_R(var, q_t, win)
+        np.testing.assert_array_equal(R, jobs.build_R(var, q_j, win, (12, 24)))
+        assert R.shape == (win, 69, 1, 1)
+    per_pixel = rng.random((5, 69, 12, 24)).astype(np.float32)
+    np.testing.assert_array_equal(tobs.build_R(var, per_pixel, 6),
+                                  jobs.build_R(var, per_pixel, 6, (12, 24)))
 
 
 def test_prefetch_copy_equals_reference():

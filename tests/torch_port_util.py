@@ -32,6 +32,18 @@ def model_pair(cfg, seed=1):
     return JaxLGUnet(cfg), params, port.eval()
 
 
+def quadratic(seed: int, n: int = 64, cond_pow: float = 4.0):
+    """Random SPD quadratic (A, b) with condition number 10**cond_pow (the
+    generator of tests/test_lbfgs_torch_trajectory.py)."""
+    rng = np.random.default_rng(seed)
+    Q, _ = np.linalg.qr(rng.normal(size=(n, n)))
+    eig = np.logspace(0.0, cond_pow, n)
+    A = ((Q * eig) @ Q.T).astype(np.float32)
+    A = (A + A.T) / 2
+    b = rng.normal(size=n).astype(np.float32)
+    return A, b
+
+
 def to_np(t):
     return t.detach().cpu().float().numpy() if isinstance(t, torch.Tensor) \
         else np.asarray(t, np.float32)

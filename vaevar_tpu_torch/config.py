@@ -119,17 +119,19 @@ def micro_vae_configs(img_size=(16, 32)):
 
 @dataclass(frozen=True)
 class DAConfig:
-    """Cycled vae4dvar 3D-Var configuration (the fields of
-    vaevar_tpu.config.DAConfig that this path reads, same defaults)."""
+    """Cycled vae4dvar configuration, 3D-Var and the 4D-Var window (the
+    fields of vaevar_tpu.config.DAConfig that this path reads, same
+    defaults)."""
 
     da_mode: str = "vae4dvar"
-    da_win: int = 1
+    da_win: int = 1  # hourly slots in the window (1 => 3D-Var)
     nit: int = 4  # outer iterations (L-BFGS segments)
     lbfgs_iters: int = 10  # quasi-Newton iterations per segment
     lbfgs_history: int = 10
     obs_std: float = 0.005
     obs_coeff: float = 1.0
     obs_type: str = "column_random_0001"
+    q_type: int = 1  # model error Q in R for slots >= 1 (da/obs.load_q_matrix)
     modify_tp: int = 2
     init_lag: int = 8
     init_tp: int = 0
@@ -137,8 +139,13 @@ class DAConfig:
     latent_shape: tuple[int, ...] = (1, 32, 128, 256)
     grid_hw: tuple[int, int] = (721, 1440)  # analysis grid
     solver_hw: tuple[int, int] = (128, 256)  # latent grid
+    # one torch.utils.checkpoint per rollout step inside the window cost
+    window_step_checkpoint: bool = True
     lbfgs_max_evals: int | None = None  # None => lbfgs_iters * 5 // 4
-    lbfgs_linesearch: str = "auto"  # resolves to "zoom" in the port
+    # "auto" resolves at the first solve: "jvp-zoom" (forward-mode probes)
+    # when the cost runs under torch.func.jvp, "zoom" when it runs the flash
+    # attention op, which has no forward-mode rule
+    lbfgs_linesearch: str = "auto"
 
     def replace(self, **kw) -> "DAConfig":
         return dataclasses.replace(self, **kw)

@@ -1,25 +1,32 @@
-"""The vae4dvar 3D-Var cost on the reduced observation quadratic.
+"""The vae4dvar costs: 3D-Var and the 4D-Var window, reduced and full-grid.
 
-Port of vaevar_tpu/da/cost.py:36-87 and :401-437:
+Port of vaevar_tpu/da/cost.py:36-256, 294-398 and :401-437:
 
     x0 = xb + up(decoder(z) * err_std * model_std)
-    J(z) = 1/2 ||z||^2 + obs_coeff * Jo,
-    Jo = 1/2 sum_cells [a e^2 - 2 b e] + c/2  (e the low-res increment)
+    J(z) = 1/2 ||z||^2 + obs_coeff * sum_t 1/2 sum H (M_t(x0) - yo_t)^2 / R_t
 
-For nearest upsampling the analysis is constant per solver cell, so the
-full-resolution obs term reduces exactly onto the solver grid once per
-cycle (`reduce_obs`).
+with M_t the hourly flow model applied t times inside the cost (t = 0 for
+3D-Var). For nearest upsampling the analysis is constant per solver cell,
+so the full-resolution obs term reduces exactly onto the solver grid once
+per cycle: `reduce_obs` for da_win = 1, `reduce_obs_window` for windows,
+where the rollout then runs natively on the solver grid through the static
+gather S = down o up. The full-grid windowed cost (`make_vae4dvar_cost`)
+is the reference the reduced form is held to and the path of a window
+without a flow model.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
 from vaevar_tpu_torch import channels
+from vaevar_tpu_torch.da.dynamics import checkpointed, make_integrate, rollout_window
 from vaevar_tpu_torch.ops.interp import _nearest_idx, resize_nearest
+
+_A11 = "real observations on augmented levels (interp_matrix): ROADMAP A.11"
 
 
 class ObsBundle(NamedTuple):
@@ -28,7 +35,7 @@ class ObsBundle(NamedTuple):
     xb: torch.Tensor  # (69, H, W)
     yo: torch.Tensor  # (T, 69, H, W)
     H: torch.Tensor  # (T, 69, H, W) 0/1 mask
-    R: torch.Tensor  # (T, 69, 1, 1) obs error variance
+    R: torch.Tensor  # (T, 69, 1, 1) obs error variance, or full (T, 69, H, W)
 
 
 class ReducedObs(NamedTuple):
@@ -41,22 +48,237 @@ class ReducedObs(NamedTuple):
     c: torch.Tensor  # ()
 
 
+class ReducedWindowObs(NamedTuple):
+    """Window (da_win > 1) obs term reduced onto the solver grid, per slot in
+    the cell-centred form
+
+        Jo_t = 1/2 [sum a_t (p_t - ybar_t)^2 + c_t],
+        a_t = sum_cell w_t, ybar_t = sum_cell (w_t tgt_t) / a_t,
+        c_t = sum w_t (tgt_t - ybar_t)^2, w_t = H_t / R_t,
+
+    with p_0 = e (the low-res increment, target yo_0 - xb) and p_t the coarse
+    physical state of slot t (target yo_t). The naive a p^2 - 2 b p + c
+    cancels ~4 f32 digits when p is a physical state (z500 ~ 5e4); p - ybar
+    is innovation-sized."""
+
+    xb: torch.Tensor  # (69, H, W) full-resolution background
+    xb_low: torch.Tensor  # (69, h, w) nearest-sampled background
+    a: torch.Tensor  # (T, 69, h, w)
+    ybar: torch.Tensor  # (T, 69, h, w) weighted cell-mean target
+    c: torch.Tensor  # (T,)
+
+
+def _down_matrices(full_hw, low_hw, device):
+    """0/1 matrices (Hf, hl), (Wf, wl): Mh.T @ t @ Mw sums the full-resolution
+    cells of each solver cell."""
+    (Hf, Wf), (hl, wl) = full_hw, low_hw
+    Mh = np.eye(hl, dtype=np.float32)[_nearest_idx(Hf, hl)]
+    Mw = np.eye(wl, dtype=np.float32)[_nearest_idx(Wf, wl)]
+    return torch.as_tensor(Mh, device=device), torch.as_tensor(Mw, device=device)
+
+
 def reduce_obs(bundle: ObsBundle, low_hw) -> ReducedObs:
     """Exact reduction of (yo, H, R) onto the solver grid (da_win == 1)."""
     xb = bundle.xb
-    Hf, Wf = xb.shape[-2:]
-    hl, wl = low_hw
-    eye_h = np.eye(hl, dtype=np.float32)[_nearest_idx(Hf, hl)]  # (Hf, hl)
-    eye_w = np.eye(wl, dtype=np.float32)[_nearest_idx(Wf, wl)]  # (Wf, wl)
-    Mh = torch.as_tensor(eye_h, device=xb.device)
-    Mw = torch.as_tensor(eye_w, device=xb.device)
+    Mh, Mw = _down_matrices(xb.shape[-2:], low_hw, xb.device)
     w = bundle.H[0] / bundle.R[0]
     r = bundle.yo[0] - xb
 
-    def down(t):  # sum over the full-resolution cells of each solver cell
+    def down(t):
         return Mh.T @ (t @ Mw)
 
     return ReducedObs(xb=xb, a=down(w), b=down(w * r), c=torch.sum(w * r * r))
+
+
+def reduce_obs_window(bundle: ObsBundle, low_hw) -> ReducedWindowObs:
+    """Exact per-slot reduction of (yo, H, R) onto the solver grid (see
+    ReducedWindowObs). One slot at a time, so the transients are (69, H, W)
+    fields, not (T, 69, H, W) ones."""
+    xb = bundle.xb
+    full_hw = tuple(xb.shape[-2:])
+    Mh, Mw = _down_matrices(full_hw, low_hw, xb.device)
+    R = bundle.R.expand(bundle.H.shape[0], *bundle.R.shape[1:])
+    a, ybar, c = [], [], []
+    for t in range(bundle.H.shape[0]):
+        w = bundle.H[t] / R[t]
+        tgt = bundle.yo[t] - xb if t == 0 else bundle.yo[t]
+        a_t = Mh.T @ (w @ Mw)
+        pos = a_t > 0
+        yb_t = torch.where(pos, (Mh.T @ ((w * tgt) @ Mw)) / torch.where(pos, a_t, 1.0), 0.0)
+        dev = tgt - resize_nearest(yb_t, full_hw)
+        a.append(a_t)
+        ybar.append(yb_t)
+        c.append(torch.sum(w * dev * dev))
+    return ReducedWindowObs(xb=xb, xb_low=resize_nearest(xb, low_hw), a=torch.stack(a),
+                            ybar=torch.stack(ybar), c=torch.stack(c))
+
+
+def _resample_gather(n_full: int, n_low: int) -> np.ndarray:
+    """Index table of S = down o up on one axis (see ReducedWindowObs)."""
+    down = _nearest_idx(n_low, n_full)  # coarse j -> fine row
+    up = _nearest_idx(n_full, n_low)  # fine f -> coarse cell
+    return up[down]
+
+
+def _make_window_obs_reduced(increment: Callable, flow, da_win: int,
+                             step_checkpoint: bool = True):
+    """Jo over the window from a ReducedWindowObs: the hourly rollout runs
+    natively on the solver grid (the full path's per-step resizes collapse to
+    the static gather S), with one checkpoint per step when
+    `step_checkpoint`."""
+    if da_win > 1 and flow is None:
+        raise ValueError(
+            "reduced window cost requires a flow model for da_win > 1 "
+            "(the persistence fallback scores xb + up(e) against every slot, "
+            "which only reduces in innovation form: use the full windowed cost)")
+
+    def quad(a_t, ybar_t, c_t, p):
+        d = p - ybar_t
+        return 0.5 * (torch.sum(a_t * d * d) + c_t)
+
+    if da_win > 1:
+        integrate = make_integrate(flow)
+
+        def step(s):
+            return integrate(s, 1)
+
+        if step_checkpoint:
+            step = checkpointed(step)
+
+    def window_obs(z, bundle: ReducedWindowObs):
+        e = increment(z)  # (69, h, w) physical increment
+        jo = quad(bundle.a[0], bundle.ybar[0], bundle.c[0], e)
+        if da_win == 1:
+            return jo
+        (Hf, Wf), (hl, wl) = bundle.xb.shape[-2:], e.shape[-2:]
+        gh, gw = _resample_gather(Hf, hl), _resample_gather(Wf, wl)
+        if np.array_equal(gh, np.arange(hl)) and np.array_equal(gw, np.arange(wl)):
+            def S(v):
+                return v
+        else:
+            gh_t = torch.as_tensor(gh, device=e.device)
+            gw_t = torch.as_tensor(gw, device=e.device)
+
+            def S(v):
+                return v.index_select(-2, gh_t).index_select(-1, gw_t)
+
+        nxt = bundle.xb_low + S(e)  # down(xb + up(e)), exactly
+        for t in range(1, da_win):
+            m = step(nxt)
+            jo = jo + quad(bundle.a[t], bundle.ybar[t], bundle.c[t], m)
+            nxt = S(m)
+        return jo
+
+    return window_obs
+
+
+def _increment_fn(decoder):
+    """z -> the decoder's physical low-res increment (69, h, w) in f32."""
+
+    def increment(z):
+        err = torch.as_tensor(channels.ERR_STD, dtype=torch.float32, device=z.device)
+        mstd = torch.as_tensor(channels.STD, dtype=torch.float32, device=z.device)
+        return decoder(z)[0].float() * err.reshape(-1, 1, 1) * mstd.reshape(-1, 1, 1)
+
+    return increment
+
+
+def _state_fn(increment):
+    """(z, bundle) -> xb + up(increment(z)): the state on xb's grid."""
+
+    def to_state(z, bundle):
+        return bundle.xb + resize_nearest(increment(z), bundle.xb.shape[-2:])
+
+    return to_state
+
+
+def make_vae4dvar_cost_window_reduced(decoder, flow=None, da_win: int = 1,
+                                      obs_coeff: float = 1.0,
+                                      step_checkpoint: bool = True):
+    """(cost, to_state, cost_parts) of the 4D-Var vae4dvar cost on a
+    ReducedWindowObs: the same J as make_vae4dvar_cost up to float
+    associativity, with no full-resolution tensor inside the solve."""
+    increment = _increment_fn(decoder)
+    window_obs = _make_window_obs_reduced(increment, flow, da_win, step_checkpoint)
+    to_state = _state_fn(increment)
+
+    def cost(z, bundle: ReducedWindowObs):
+        return 0.5 * torch.sum(z ** 2) + obs_coeff * window_obs(z, bundle)
+
+    def cost_parts(z, bundle: ReducedWindowObs):
+        """(Jb, Jo) with Jo unscaled by obs_coeff, like the reference printout."""
+        return 0.5 * torch.sum(z ** 2), window_obs(z, bundle)
+
+    return cost, to_state, cost_parts
+
+
+def obs_term(x_pred, bundle: ObsBundle, interp_matrix=None):
+    """1/2 sum H (x_pred - yo)^2 / R."""
+    if interp_matrix is not None:
+        raise NotImplementedError(_A11)
+    return 0.5 * torch.sum(bundle.H * (x_pred - bundle.yo) ** 2 / bundle.R)
+
+
+def _window_predict(x0, flow, flow_hw, da_win: int):
+    """States of every slot, (da_win, 69, H, W): the flow model rolled out
+    with nearest resizes to and from `flow_hw`."""
+    if da_win == 1 or flow is None:
+        return x0[None]
+    integrate = make_integrate(flow, flow_hw)
+    return rollout_window(x0, lambda x: integrate(x, 1, interpolation=True), da_win)
+
+
+def _make_window_obs(flow, flow_hw, da_win: int, interp_matrix=None):
+    """Jo accumulated inside the rollout, one checkpoint per step, so the
+    live set is one slot (the reference's folded form)."""
+    if interp_matrix is not None:
+        raise NotImplementedError(_A11)
+
+    def jo_slot(x, yo_t, h_t, r_t):
+        return 0.5 * torch.sum(h_t * (x - yo_t) ** 2 / r_t)
+
+    if da_win > 1 and flow is not None:
+        integrate = make_integrate(flow, flow_hw)
+
+        @checkpointed
+        def step(x, yo_t, h_t, r_t):
+            x = integrate(x, 1, interpolation=True)
+            return x, jo_slot(x, yo_t, h_t, r_t)
+
+    def window_obs(x0, bundle: ObsBundle):
+        if flow is None and da_win > 1:
+            # persistence: x0 scored against every slot
+            return obs_term(x0[None], bundle)
+        R = bundle.R.expand(bundle.yo.shape[0], *bundle.R.shape[1:])
+        jo = jo_slot(x0, bundle.yo[0], bundle.H[0], R[0])
+        x = x0
+        for t in range(1, da_win):
+            x, jo_t = step(x, bundle.yo[t], bundle.H[t], R[t])
+            jo = jo + jo_t
+        return jo
+
+    return window_obs
+
+
+def make_vae4dvar_cost(decoder, flow=None, flow_hw=(128, 256), da_win: int = 1,
+                       obs_coeff: float = 1.0, interp_matrix=None):
+    """(cost, decode_to_state, cost_parts) on a full-resolution ObsBundle.
+
+    decoder(z) -> (1, 69, h', w') is nearest-upsampled to xb's grid, scaled
+    by err_std * model_std and added to xb (da_4dvar.py:1185-1188)."""
+    if interp_matrix is not None:
+        raise NotImplementedError(_A11)
+    window_obs = _make_window_obs(flow, flow_hw, da_win)
+    decode_to_state = _state_fn(_increment_fn(decoder))
+
+    def cost(z, bundle: ObsBundle):
+        return 0.5 * torch.sum(z ** 2) + obs_coeff * window_obs(decode_to_state(z, bundle),
+                                                               bundle)
+
+    def cost_parts(z, bundle: ObsBundle):
+        return 0.5 * torch.sum(z ** 2), window_obs(decode_to_state(z, bundle), bundle)
+
+    return cost, decode_to_state, cost_parts
 
 
 def make_vae4dvar_cost_reduced(decoder, obs_coeff: float = 1.0):
@@ -64,14 +286,8 @@ def make_vae4dvar_cost_reduced(decoder, obs_coeff: float = 1.0):
 
     `decoder` maps z (1, C_lat, h, w) to the normalised increment
     (1, 69, h, w)."""
-
-    def increment(z):
-        err = torch.as_tensor(channels.ERR_STD, dtype=torch.float32, device=z.device)
-        mstd = torch.as_tensor(channels.STD, dtype=torch.float32, device=z.device)
-        return decoder(z)[0].float() * err.reshape(-1, 1, 1) * mstd.reshape(-1, 1, 1)
-
-    def decode_to_state(z, bundle: ReducedObs):
-        return bundle.xb + resize_nearest(increment(z), bundle.xb.shape[-2:])
+    increment = _increment_fn(decoder)
+    decode_to_state = _state_fn(increment)
 
     def obs_quad(e, bundle: ReducedObs):
         return 0.5 * (torch.sum(bundle.a * e * e) - 2.0 * torch.sum(bundle.b * e)

@@ -1,20 +1,44 @@
 """Forecast integration on physical fields.
 
-Port of vaevar_tpu/da/dynamics.py:25-58: normalise, apply the model `steps`
+Port of vaevar_tpu/da/dynamics.py: normalise, apply the model `steps`
 times keeping the first 69 output channels (the mean head), denormalise,
-with an optional nearest resize to and from the model's grid.
+with an optional nearest resize to and from the model's grid. Under
+autograd each step of a multi-step integration and of the window rollout
+runs under torch.utils.checkpoint, as the reference's steps run under
+jax.checkpoint, so a backward recomputes a step instead of storing it.
 """
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from vaevar_tpu_torch import channels
 from vaevar_tpu_torch.ops.interp import resize_nearest
 
 
+def checkpointed(fn: Callable) -> Callable:
+    """fn under torch.utils.checkpoint when autograd records (the
+    reference's jax.checkpoint); fn itself otherwise, where there is nothing
+    to rematerialise (no_grad, forward-mode probes)."""
+
+    def run(*args):
+        if torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
+    return run
+
+
 def make_integrate(model: torch.nn.Module, model_hw=None):
     """integrate(x, steps, interpolation) for x (69, H, W) in physical units."""
+
+    def step(z):
+        return model(z)[:, : channels.N_CHANNELS]
+
+    remat_step = checkpointed(step)
 
     def integrate(x, steps: int, interpolation: bool = False):
         mean = torch.as_tensor(channels.MEAN, dtype=torch.float32,
@@ -27,9 +51,23 @@ def make_integrate(model: torch.nn.Module, model_hw=None):
         if resize:
             z = resize_nearest(z, model_hw)
         for _ in range(steps):
-            z = model(z)[:, : channels.N_CHANNELS]
+            z = step(z) if steps == 1 else remat_step(z)
         if resize:
             z = resize_nearest(z, hw)
         return z[0] * std + mean
 
     return integrate
+
+
+def rollout_window(x0, flow_step: Callable, da_win: int):
+    """States at each of the `da_win` hourly slots: (da_win, 69, H, W).
+
+    flow_step(x) advances one hour in physical units; each step is
+    checkpointed under autograd."""
+    if da_win == 1:
+        return x0[None]
+    step = checkpointed(flow_step)
+    states = [x0]
+    for _ in range(da_win - 1):
+        states.append(step(states[-1]))
+    return torch.stack(states)

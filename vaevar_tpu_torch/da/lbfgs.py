@@ -1,6 +1,6 @@
 """L-BFGS with a strong-Wolfe zoom linesearch, run eagerly on torch tensors.
 
-Port of vaevar_tpu/da/lbfgs.py:242-401, which is optax 0.2.6's `lbfgs`
+Port of vaevar_tpu/da/lbfgs.py:98-401, which is optax 0.2.6's `lbfgs`
 (two-loop recursion, identity scale from the last curvature pair, capped
 1/|g| on the first step) chained with
 `scale_by_zoom_linesearch(max_linesearch_steps=25,
@@ -9,6 +9,13 @@ Hager-Zhang approximate decrease test), under torch.optim.LBFGS's stopping
 rules: entry/per-iteration max|g| <= tolerance_grad, no-progress
 tolerance_change, and a closure-eval budget of max_iters*5//4 per segment
 with one eval charged at segment entry.
+
+Two linesearches: "zoom" pays a value and gradient at every probe;
+"jvp-zoom" (`scale_by_jvp_zoom_linesearch` of the reference) pays one at the
+first probe and one `torch.func.jvp` along the direction at each later
+probe, and restores the true gradient at the accepted point. The zoom's
+decisions read only the value and the slope, so both take the same steps;
+the charged evals are the probes in both.
 
 Vector work stays on the tensors' device. The linesearch's scalar decisions
 run on the host in numpy float32, so each comparison and interpolation
@@ -36,6 +43,7 @@ _CURV_RTOL = f32(0.9)
 _APPROX_DEC_RTOL = f32(1e-6)
 _APPROX_SLOPE = f32(2 * 1e-4 - 1.0)
 _INTERVAL_THRESHOLD = f32(1e-5)
+LINESEARCHES = ("zoom", "jvp-zoom")
 
 
 def _dot(a, b) -> torch.Tensor:
@@ -66,11 +74,20 @@ class LBFGSResult:
     x: torch.Tensor
     value: np.float32
     n_iters: int
-    n_evals: int
+    n_evals: int  # charged: the entry eval and every linesearch probe
     state: LBFGSState
+    n_jvp: int = 0  # probes that paid a jvp instead of a value and gradient
+    n_restore: int = 0  # uncharged value and gradient at accepted jvp probes
 
 
-def lbfgs_init_state(x0, history: int = 10) -> LBFGSState:
+def _check_linesearch(linesearch: str):
+    if linesearch not in LINESEARCHES:
+        raise ValueError(f"unknown linesearch {linesearch!r} (expected 'zoom' or 'jvp-zoom')")
+
+
+def lbfgs_init_state(x0, history: int = 10, linesearch: str = "zoom") -> LBFGSState:
+    """Fresh optimizer state; both linesearches carry the same state."""
+    _check_linesearch(linesearch)
     z = torch.zeros_like(x0)
     mem = torch.zeros((history, *x0.shape), dtype=x0.dtype, device=x0.device)
     return LBFGSState(
@@ -86,6 +103,13 @@ def value_and_grad(fun: Callable, x):
         v = fun(xg)
         (g,) = torch.autograd.grad(v, xg)
     return _host(v), g
+
+
+def value_and_slope(fun: Callable, x, u):
+    """(value, slope along u) of a scalar torch function as device scalars,
+    by one forward-mode torch.func.jvp; no backward graph is recorded."""
+    with torch.no_grad():
+        return torch.func.jvp(fun, (x.detach(),), (u,))
 
 
 def _lbfgs_direction(st: LBFGSState, x, g):
@@ -154,10 +178,27 @@ def _curvature_error(slope, slope_init):
     return _INF if np.isnan(err) else err
 
 
-def zoom_linesearch(fun, params, updates, value, grad, max_steps: int = 25):
-    """optax's zoom linesearch (linesearch.py:815-1282) from stepsize 1.
+@dataclass
+class LinesearchResult:
+    stepsize: np.float32
+    value: np.float32
+    grad: torch.Tensor
+    n_probes: int
+    n_jvp: int = 0
+    n_restore: int = 0
 
-    Returns (stepsize, value, grad, n_probes) at the accepted point."""
+
+def zoom_linesearch(fun, params, updates, value, grad, max_steps: int = 25,
+                    jvp_probes: bool = False) -> LinesearchResult:
+    """optax's zoom linesearch (linesearch.py:815-1282) from stepsize 1, at
+    the accepted point.
+
+    With `jvp_probes` (the reference's scale_by_jvp_zoom_linesearch,
+    vaevar_tpu/da/lbfgs.py:175-237), probes after the first pay one jvp and
+    store the pseudo-gradient (slope / |u|^2) u, whose dot with u gives the
+    slope the decisions read; the true (value, grad) at the accepted point is
+    the first probe's or the entry's when the stepsize is theirs, else one
+    uncharged value_and_grad."""
     slope = _host(_dot(updates, grad))
     s = dict(stepsize=f32(0.0), value=value, grad=grad, slope=slope,
              low=f32(0.0), value_low=value, slope_low=slope,
@@ -168,8 +209,20 @@ def zoom_linesearch(fun, params, updates, value, grad, max_steps: int = 25):
     value_init, slope_init = value, slope
     count, interval_found, done, failed = 0, False, False, False
 
+    u_sq = _dot(updates, updates)
+    n_jvp = 0
+
     def probe(eta):
-        v, g = value_and_grad(fun, params + float(eta) * updates)
+        nonlocal n_jvp
+        w = params + float(eta) * updates
+        if jvp_probes and count > 0:
+            v, sl = value_and_slope(fun, w, updates)
+            coef = torch.where(u_sq > 0.0, sl.float() / torch.clamp(u_sq, min=1e-38),
+                               torch.zeros_like(u_sq))
+            v, g = _host(v), coef * updates
+            n_jvp += 1
+        else:
+            v, g = value_and_grad(fun, w)
         return v, g, _host(_dot(g, updates))
 
     with np.errstate(all="ignore"):
@@ -235,7 +288,19 @@ def zoom_linesearch(fun, params, updates, value, grad, max_steps: int = 25):
             if failed and (s["safe_stepsize"] > 0.0 or np.isinf(s["decrease_error"])):
                 s.update(stepsize=s["safe_stepsize"], value=s["safe_value"],
                          grad=s["safe_grad"])
-    return s["stepsize"], s["value"], s["grad"], count
+            if count == 1:
+                first = (s["stepsize"], s["value"], s["grad"])
+    res = LinesearchResult(s["stepsize"], s["value"], s["grad"], count, n_jvp)
+    if jvp_probes:  # restore the true (value, grad) at the accepted point
+        eta = res.stepsize
+        if eta == 0.0:
+            res.value, res.grad = value_init, grad
+        elif eta == first[0]:
+            res.value, res.grad = first[1], first[2]
+        else:
+            res.value, res.grad = value_and_grad(fun, params + float(eta) * updates)
+            res.n_restore = 1
+    return res
 
 
 def lbfgs_minimize(
@@ -248,11 +313,15 @@ def lbfgs_minimize(
     max_linesearch_steps: int = 25,
     max_evals: int | None = None,
     init_state: LBFGSState | None = None,
+    linesearch: str = "zoom",
 ) -> LBFGSResult:
     """Minimise `fun` (a scalar torch function of one tensor) from `x0` for
     up to `max_iters` more iterations; pass `init_state` (a previous
     result's `.state`, which this call updates) to continue a minimisation.
-    See vaevar_tpu.da.lbfgs.lbfgs_minimize for the stopping rules."""
+    `linesearch` is "zoom" or "jvp-zoom" (the cost must then be forward-mode
+    differentiable). See vaevar_tpu.da.lbfgs.lbfgs_minimize for the
+    stopping rules."""
+    _check_linesearch(linesearch)
     if max_evals is None:
         max_evals = max_iters * 5 // 4  # torch.optim.LBFGS default
     st = init_state if init_state is not None else lbfgs_init_state(x0, history)
@@ -260,6 +329,7 @@ def lbfgs_minimize(
     x = x0
     step_max = dloss = _INF
     evals = 1  # segment entry charges one closure eval, as in torch
+    n_jvp = n_restore = 0
     tol_grad, tol_change = f32(tolerance_grad), f32(tolerance_change)
     while True:
         it = st.count
@@ -274,12 +344,15 @@ def lbfgs_minimize(
         else:
             value, grad = value_and_grad(fun, x)
         direction = -_lbfgs_direction(st, x, grad)
-        eta, v_new, g_new, n_ls = zoom_linesearch(
-            fun, x, direction, value, grad, max_linesearch_steps)
-        step = float(eta) * direction
+        ls = zoom_linesearch(fun, x, direction, value, grad, max_linesearch_steps,
+                             jvp_probes=linesearch == "jvp-zoom")
+        step = float(ls.stepsize) * direction
         x = x + step
-        st.value, st.grad = v_new, g_new
+        st.value, st.grad = ls.value, ls.grad
         step_max = _host(step.abs().max())
-        dloss = abs(v_new - value)
-        evals += n_ls
-    return LBFGSResult(x=x, value=st.value, n_iters=st.count, n_evals=evals, state=st)
+        dloss = abs(ls.value - value)
+        evals += ls.n_probes
+        n_jvp += ls.n_jvp
+        n_restore += ls.n_restore
+    return LBFGSResult(x=x, value=st.value, n_iters=st.count, n_evals=evals, state=st,
+                       n_jvp=n_jvp, n_restore=n_restore)

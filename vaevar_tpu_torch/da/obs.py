@@ -1,14 +1,16 @@
-"""Synthetic observation pipeline: error variance R and masks H (numpy).
+"""Synthetic observation pipeline: error variance R, model error Q and
+masks H (numpy).
 
-Copies of vaevar_tpu/da/obs.py:41-86 (`obs_error_variance`, `build_R`) and
-:124-160 (`make_obs_mask` for the "free_XXXX" and "column_random_XXXX"
-families). The reference module imports jax through ops.interp, so the
-numpy functions are copied rather than imported. Real-observation and
-station families are not ported yet (ROADMAP A.11).
+Copies of vaevar_tpu/da/obs.py:41-118 (`obs_error_variance`, `build_R`,
+`load_q_matrix`) and :124-160 (`make_obs_mask` for the "free_XXXX" and
+"column_random_XXXX" families). The reference module imports jax through
+ops.interp, so the numpy functions are copied rather than imported.
+Real-observation and station families are not ported yet (ROADMAP A.11).
 """
 
 from __future__ import annotations
 
+import os
 import re
 
 import numpy as np
@@ -36,12 +38,47 @@ def obs_error_variance(obs_std: float, modify_tp: int = 0) -> np.ndarray:
     return var.astype(np.float32)
 
 
-def build_R(obs_var: np.ndarray, da_win: int = 1) -> np.ndarray:
-    """R broadcastable as (da_win, 69, 1, 1). Without a model-error Q (the
-    da_win = 1 path) every slot holds obs_var."""
+def build_R(obs_var: np.ndarray, q_matrix: np.ndarray | None = None,
+            da_win: int = 1) -> np.ndarray:
+    """R[0] = obs_var; R[t >= 1] += Q[t - 1] (da_4dvar.py:630-635).
+
+    Broadcastable as (da_win, 69, 1, 1); a per-pixel Q (spatial dims > 1)
+    broadcasts R out to Q's grid."""
     R = np.broadcast_to(obs_var.reshape(1, -1, 1, 1),
                         (da_win, channels.N_CHANNELS, 1, 1)).copy()
+    if da_win > 1 and q_matrix is not None:
+        q = np.asarray(q_matrix)[: da_win - 1]
+        if q.shape[-2:] != (1, 1):
+            R = np.broadcast_to(R, (da_win, channels.N_CHANNELS, *q.shape[-2:])).copy()
+        R[1:] += q
     return R.astype(np.float32)
+
+
+def load_q_matrix(coeff_dir: str, q_type: int, da_win: int) -> np.ndarray | None:
+    """Per-lead-time model-error variance (da_4dvar.py:528-550), broadcastable
+    as (da_win - 1, 69, 1, 1); None for da_win 1 or q_type -1.
+
+    q_type 1 reads `new_q.npy` (T-1, 69), or without it the synthetic
+    fallback linear in lead time; q_type 0 takes the spatial means of the
+    `q{i}.npy` fields."""
+    if da_win == 1 or q_type == -1:
+        return None
+    if q_type == 1:
+        path = os.path.join(coeff_dir, "new_q.npy")
+        if os.path.exists(path):
+            q = np.load(path).astype(np.float32)[: da_win - 1]
+        else:
+            lead = np.arange(1, da_win, dtype=np.float32).reshape(-1, 1)
+            q = (0.02 * lead) * channels.ERR_STD.reshape(1, -1) ** 2 * \
+                channels.STD.reshape(1, -1) ** 2
+        return q.astype(np.float32)[:, :, None, None]
+    if q_type == 0:
+        qs = []
+        for i in range(1, da_win):
+            q0 = np.load(os.path.join(coeff_dir, f"q{i}.npy"))
+            qs.append(q0.mean((1, 2), keepdims=True))
+        return np.stack(qs).astype(np.float32)
+    raise NotImplementedError(f"q_type {q_type}")
 
 
 def make_obs_mask(obs_type: str, da_win: int, hw: tuple[int, int],

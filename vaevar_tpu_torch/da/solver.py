@@ -1,9 +1,11 @@
 """Outer variational solve with per-iteration diagnostics.
 
-Port of vaevar_tpu/da/solver.py:75-291, 344-357 for the da_win = 1 path:
+Port of vaevar_tpu/da/solver.py:66-357 without the XLA dispatch machinery:
 `nit` L-BFGS segments of `lbfgs_iters` iterations on one carried optimizer
 state (the reference's one torch LBFGS stepped nit times), with WRMSE/bias
-and (Jb, Jo) against truth before each segment and after the last.
+and (Jb, Jo) against truth before each segment and after the last. The
+linesearch "auto" resolves at the first solve: "jvp-zoom" when the cost is
+forward-mode differentiable, else "zoom".
 """
 
 from __future__ import annotations
@@ -16,7 +18,13 @@ import numpy as np
 import torch
 
 from vaevar_tpu_torch import channels
-from vaevar_tpu_torch.da.lbfgs import lbfgs_init_state, lbfgs_minimize
+from vaevar_tpu_torch.da.lbfgs import (
+    LINESEARCHES,
+    lbfgs_init_state,
+    lbfgs_minimize,
+    value_and_slope,
+)
+from vaevar_tpu_torch.ops.flash_attn import NoForwardADError
 from vaevar_tpu_torch.utils import metrics as M
 
 
@@ -27,20 +35,11 @@ class SolveDiagnostics:
     loss_reg: list = field(default_factory=list)
     loss_obs: list = field(default_factory=list)
     n_iters: list = field(default_factory=list)  # per segment
-    n_evals: list = field(default_factory=list)
+    n_evals: list = field(default_factory=list)  # charged evals
+    n_jvp: list = field(default_factory=list)  # of which jvp probes
+    n_restore: list = field(default_factory=list)  # uncharged gradient restores
+    linesearch: str = ""  # the mode the solve ran
     seconds: float = 0.0
-
-
-def resolve_linesearch(linesearch: str) -> str:
-    if linesearch == "auto":
-        print("[solver] lbfgs_linesearch 'auto' resolves to 'zoom' "
-              "(jvp-zoom is ROADMAP A.7)", flush=True)
-        return "zoom"
-    if linesearch != "zoom":
-        raise NotImplementedError(
-            f"lbfgs_linesearch {linesearch!r}: only 'zoom' is ported "
-            "(jvp-zoom: ROADMAP A.7)")
-    return linesearch
 
 
 class VariationalSolver:
@@ -49,6 +48,9 @@ class VariationalSolver:
     def __init__(self, cost: Callable, to_state: Callable, cost_parts: Callable,
                  lbfgs_iters: int = 10, history: int = 10,
                  max_segment_evals: int | None = None, linesearch: str = "zoom"):
+        if linesearch != "auto" and linesearch not in LINESEARCHES:
+            raise ValueError(f"lbfgs_linesearch {linesearch!r}: expected 'auto', "
+                             "'zoom' or 'jvp-zoom'")
         self.cost = cost
         self.to_state = to_state
         self.cost_parts = cost_parts
@@ -57,7 +59,35 @@ class VariationalSolver:
         # torch's per-.step() closure-eval budget (max_iter * 5 // 4)
         self.max_segment_evals = (max_segment_evals if max_segment_evals is not None
                                   else lbfgs_iters * 5 // 4)
-        resolve_linesearch(linesearch)  # only "zoom" runs; others raise
+        self.linesearch = linesearch  # "auto" until the first solve
+        self._jvp_checked = linesearch != "jvp-zoom"
+
+    def _jvp_compatible(self, x0, bundle) -> bool:
+        """Whether the cost runs under forward-mode AD: one jvp of the real
+        cost at x0 (uncharged). Only the flash attention op, which has no
+        forward-mode rule, makes it False; any other failure propagates."""
+        try:
+            value_and_slope(lambda q: self.cost(q, bundle), x0, torch.ones_like(x0))
+        except NoForwardADError:
+            return False
+        return True
+
+    def ensure_linesearch(self, x0, bundle):
+        """Resolve "auto" and check an explicit "jvp-zoom", once per solver
+        (vaevar_tpu/da/solver.py:180-197, 326-341)."""
+        if self.linesearch == "auto":
+            self.linesearch = "jvp-zoom" if self._jvp_compatible(x0, bundle) else "zoom"
+            self._jvp_checked = True
+            print(f"[solver] lbfgs_linesearch 'auto' resolves to {self.linesearch!r}",
+                  flush=True)
+        if not self._jvp_checked:
+            if not self._jvp_compatible(x0, bundle):
+                raise ValueError(
+                    "lbfgs_linesearch='jvp-zoom' needs a forward-mode-differentiable "
+                    "cost, but this cost runs the flash attention op, which has no "
+                    "forward-mode rule (a mask-free attention stage with "
+                    "N >= flash_min_seq). Use lbfgs_linesearch='zoom' or 'auto'.")
+            self._jvp_checked = True
 
     @torch.no_grad()
     def diagnostics(self, x, bundle, gt0):
@@ -75,9 +105,10 @@ class VariationalSolver:
     def solve(self, x0, bundle, nit: int = 4, gt=None, verbose: bool = True,
               name: str = "da"):
         """-> (x, analysis state, SolveDiagnostics)."""
-        diag = SolveDiagnostics()
+        self.ensure_linesearch(x0, bundle)
+        diag = SolveDiagnostics(linesearch=self.linesearch)
         t0 = time.perf_counter()
-        x, state = x0, lbfgs_init_state(x0, self.history)
+        x, state = x0, lbfgs_init_state(x0, self.history, self.linesearch)
 
         def fun(q):
             return self.cost(q, bundle)
@@ -89,10 +120,13 @@ class VariationalSolver:
             if kk < nit:
                 res = lbfgs_minimize(fun, x, max_iters=self.lbfgs_iters,
                                      history=self.history, init_state=state,
-                                     max_evals=self.max_segment_evals)
+                                     max_evals=self.max_segment_evals,
+                                     linesearch=self.linesearch)
                 x, state = res.x, res.state
                 diag.n_iters.append(res.n_iters)
                 diag.n_evals.append(res.n_evals)
+                diag.n_jvp.append(res.n_jvp)
+                diag.n_restore.append(res.n_restore)
         with torch.no_grad():
             xa = self.to_state(x, bundle)
         diag.seconds = time.perf_counter() - t0

@@ -268,8 +268,20 @@ class FlashAttention(torch.autograd.Function):
         return flash_attention_bwd_plain(q, k, v, o, lse, do)
 
 
+class NoForwardADError(RuntimeError):
+    """Flash attention was called under a forward-mode transform
+    (torch.func.jvp): FlashAttention has no jvp rule, as the reference's
+    custom VJP has none."""
+
+
 def flash_attention(q, k, v):
     """Unmasked attention on (B, h, N, d) with q pre-scaled; returns O."""
     if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"flash_attention: no path for device {q.device}")
-    return FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous())
+    try:
+        return FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous())
+    except RuntimeError as e:
+        # torch.func refuses an autograd.Function without setup_context
+        if "setup_context" in str(e):
+            raise NoForwardADError("flash attention has no forward-mode (jvp) rule") from e
+        raise
