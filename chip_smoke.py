@@ -51,9 +51,25 @@ exits nonzero without its last line:
    prints seconds per step and peak device memory;
 8. the trainer CLI on the card (run_train_forecast --micro --grid 32x64):
    2 steps with validation and a checkpoint, then a second run that resumes
-   at the saved step.
+   at the saved step;
+9. record: the configuration of record (scripts/run_da.sh's flags) with its
+   inputs. Writes a reference-layout ERA5 store at 721x1440 from the
+   synthetic source (the spin-up frame at start - 48 h and the cycle's
+   truth) and checks that it reads back bit for bit; writes random-weight
+   checkpoints (FORECAST_025 as a wrapped reference .pth with `module.`
+   prefixes and logvar buffers, the full VAE as a bare .pth), converts both
+   with `python -m vaevar_tpu_torch.convert_ckpt`'s main, and writes FLOW_140
+   as a port params_latest; then runs vaevar_tpu_torch.run_da with
+   run_da.sh's flags, the three checkpoints, no --fast_init and the store
+   (--data_layout reference), cut to one 6 h cycle after the 8-step
+   spin-up. Checks the store's native reader, (8 + 1) x 4 = 36 forward
+   launches and no backward one, finite fields, the cost decrease and the
+   on-disk state; prints the seconds of the conversions, of the model loads,
+   of a frame read through the native pool, with np.load and through
+   LocalNpyStore (median of 3, files just written), of the spin-up and the
+   cycle, and the peak device memory.
 The second-to-last line is a JSON record of the kernels (launches summed
-over the DA, window and training paths, each counted from 0; times with the main
+over the DA, window, training and record paths, each counted from 0; times with the main
 path's dtypes, and under "bf16" the all-bf16 ones; each bound from the
 function `bound_ms` below); the last line is {"ok": true, "device": {...}}.
 """
@@ -95,6 +111,15 @@ BWD_TOL = {("float32", "float32"): 2e-5, ("float32", "bfloat16"): 2 ** -7,
 PEAK_FLOPS = {"tf32": 495e12, "bf16": 989e12}
 PEAK_BYTES = 3.35e12
 LR = 5e-6  # run_train_forecast's default
+# scripts/run_da.sh:18-32, the configuration of record, flag for flag; the
+# checkpoint paths stand for $VAE_CKPT, $FLOW_CKPT and $FORECAST_CKPT
+RECORD_FLAGS = ["--da_mode", "vae4dvar", "--da_win", "1", "--Nit", "4", "--obs_std", "0.005",
+                "--obs_type", "column_random_0001", "--modify_tp", "2", "--scale_factor",
+                "2.0", "--q_type", "1", "--obs_coeff", "1.0", "--filter_coeff", "0.1",
+                "--start_time", "2022-01-01 00:00:00", "--end_time", "2023-01-01 12:00:00"]
+# what run_da.sh's "$@" appends here: the store, and the end time cut to one
+# 6 h cycle after the spin-up
+RECORD_CUT = ["--end_time", "2022-01-01 06:00:00"]
 TOTAL_STEPS = 200  # run_train_forecast's --steps x --epochs defaults
 
 
@@ -640,6 +665,135 @@ def check_cli():
         raise AssertionError("the trainer CLI did not train, validate, save and resume")
 
 
+def write_record_inputs(root):
+    """Phase 9's inputs under `root`: the reference-layout store (and one
+    state-layout frame for the read timings), the three checkpoints.
+    Returns (paths, seconds of the conversions)."""
+    from datetime import datetime, timedelta
+
+    import numpy as np
+    import torch
+
+    from vaevar_tpu_torch import config as cfgs
+    from vaevar_tpu_torch import convert_ckpt
+    from vaevar_tpu_torch.data.era5 import LocalNpyStore, ReferenceLayoutStore, SyntheticEra5
+    from vaevar_tpu_torch.models.lgunet import LGUnet
+    from vaevar_tpu_torch.models.vae import VAE
+    from vaevar_tpu_torch.train import checkpoint as ckpt
+    from vaevar_tpu_torch.utils.fast_init import fast_init
+
+    t0 = time.perf_counter()
+    hw = cfgs.FORECAST_025.img_size
+    start = datetime(2022, 1, 1)
+    src = SyntheticEra5(hw=hw, seed=0)
+    paths = {"era5": os.path.join(root, "era5"), "era5_state": os.path.join(root, "era5_state")}
+    store = ReferenceLayoutStore(paths["era5"], hw)
+    for ts in (start - timedelta(hours=48), start):
+        store.save_state(ts, src.get_state(ts))
+        if not np.array_equal(store.get_state(ts), src.get_state(ts)):
+            raise AssertionError(f"the reference-layout store does not read back {ts}")
+    LocalNpyStore(paths["era5_state"], hw).save_state(start, src.get_state(start))
+    phase("record", f"store: 2 frames of 69 x {hw[0]}x{hw[1]} f32 in the reference layout "
+          f"({2 * 69} files), read back bit for bit through the {store.reader} reader; "
+          f"{time.perf_counter() - t0:.2f} s with the synthetic source")
+
+    bounds = {"max_logvar": torch.ones(1, 69), "min_logvar": -torch.ones(1, 69)}
+    sources = {
+        "forecast": lambda: {"model": {"lgunet_all": {
+            "module." + k: v for k, v in {**fast_init(LGUnet(cfgs.FORECAST_025), seed=11)
+                                          .state_dict(), **bounds}.items()}}},
+        "vae": lambda: fast_init(VAE(cfgs.VAE_ENCODER, cfgs.VAE_DECODER), seed=12).state_dict()}
+    convert_s = {}
+    for kind, make in sources.items():
+        pth, paths[kind] = os.path.join(root, f"{kind}.pth"), os.path.join(root, f"{kind}.pt")
+        obj = make()
+        torch.save(obj, pth)
+        t0 = time.perf_counter()
+        convert_ckpt.main([kind, pth, paths[kind]])
+        convert_s[kind] = time.perf_counter() - t0
+        want = ckpt.reference_state_dict(obj)
+        got = ckpt.restore(paths[kind])
+        if sorted(got) != sorted(want) or not all(torch.equal(got[k], want[k]) for k in want):
+            raise AssertionError(f"the converted {kind} checkpoint differs from its .pth")
+        os.remove(pth)
+        del obj, want, got
+        gc.collect()
+    paths["flow"] = os.path.join(root, "flow", "params_latest")
+    ckpt.save(paths["flow"], fast_init(LGUnet(cfgs.FLOW_140), seed=13).state_dict())
+    return paths, convert_s
+
+
+def check_record(fa):
+    """Phase 9: the configuration of record on its inputs; returns its
+    forward launches."""
+    from datetime import datetime
+
+    import numpy as np
+    import torch
+
+    from vaevar_tpu_torch import config as cfgs
+    from vaevar_tpu_torch import run_da
+    from vaevar_tpu_torch.data.era5 import LocalNpyStore, ReferenceLayoutStore
+
+    hw = cfgs.FORECAST_025.img_size
+    with tempfile.TemporaryDirectory() as root:
+        paths, convert_s = write_record_inputs(root)
+        start = datetime(2022, 1, 1)
+        readers = {"native pool": ReferenceLayoutStore(paths["era5"], hw),
+                   "np.load": ReferenceLayoutStore(paths["era5"], hw, use_native=False),
+                   "LocalNpyStore": LocalNpyStore(paths["era5_state"], hw)}
+        read_s = {}
+        for name, store in readers.items():
+            secs = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                store.get_state(start)
+                secs.append(time.perf_counter() - t0)
+            read_s[name] = statistics.median(secs)
+        del readers
+        argv = (RECORD_FLAGS + ["--vae_ckpt", paths["vae"], "--flow_ckpt", paths["flow"],
+                                "--forecast_ckpt", paths["forecast"], "--data_dir",
+                                paths["era5"], "--data_layout", "reference",
+                                "--work_dir", os.path.join(root, "work")] + RECORD_CUT)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.flash_fwd_launches = fa.flash_dq_launches = fa.flash_dkv_launches = 0
+        t0 = time.perf_counter()
+        da = run_da.main(argv)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        counts = (fa.flash_fwd_launches, fa.flash_dq_launches, fa.flash_dkv_launches)
+        peak = torch.cuda.max_memory_allocated()
+        files = sorted(os.listdir(da.work_dir))
+        xb = np.load(os.path.join(da.work_dir, "xb.npy"))
+    phase("record", "conversions " + ", ".join(f"{k} {v:.2f} s" for k, v in convert_s.items())
+          + f"; model loads {da.timings['models_s']:.2f} s; a 69 x {hw[0]}x{hw[1]} frame read "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in read_s.items())
+          + " (medians of 3, files just written, host clock)")
+    if len(da.cycle_log) != 1:
+        raise AssertionError(f"{len(da.cycle_log)} record cycles; want 1")
+    c = da.cycle_log[0]
+    j = [b + o for b, o in zip(c["jb"], c["jo"])]
+    want = (da.cfg.init_lag + 1) * 4
+    phase("record", f"run_da with run_da.sh's flags, 3 checkpoints and --data_dir (reader "
+          f"{da.state_source.reader}): {total:.2f} s; spin-up {da.timings['spin_up_s']:.2f} s; "
+          f"cycle {c['seconds']:.2f} s (obs {c['obs_s']:.2f} s, solve {c['solve_s']:.2f} s); "
+          f"J {j[0]:.6g} -> {j[-1]:.6g}, iterations {c['n_iters']}, evals {c['n_evals']}; "
+          f"peak memory {peak / 2**30:.2f} GiB; flash launches (fwd, dq, dkv) {counts}")
+    if da.state_source.reader != "native":
+        raise AssertionError(f"the store read through {da.state_source.reader}, not the pool")
+    if counts != (want, 0, 0):
+        raise AssertionError(f"record run launched (fwd, dq, dkv) {counts}; want ({want}, 0, 0)")
+    if not (c["xa_finite"] and c["xb_next_finite"] and np.isfinite(xb).all()):
+        raise AssertionError("non-finite analysis or background in the record run")
+    if not (j[-1] < j[0] and max(j) <= j[0] + 1e-6 * abs(j[0]) * c["n_iters"][-1]):
+        raise AssertionError(f"the record run's solve did not lower J: {j}")
+    need = {"xb.npy", "current_time.txt", "bg_wrmse.npy", "ana_wrmse.npy"}
+    if not need <= set(files):
+        raise AssertionError(f"missing from the record work dir: {sorted(need - set(files))}")
+    return counts[0]
+
+
 def main():
     import torch
 
@@ -723,6 +877,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     check_cli()
+    gc.collect()
+    torch.cuda.empty_cache()
+    record_launches = check_record(fa)
 
     stats = {"flash_fwd": fwd, "flash_dq": bwd["flash_dq"], "flash_dkv": bwd["flash_dkv"]}
     replaces = {"flash_fwd": ("flash_fwd.cu", "vaevar_tpu/ops/pallas_attn.py:47"),
@@ -733,7 +890,7 @@ def main():
         main, rec = stats[name]["main"], {
             "name": name, "route": "cuda", "source": f"vaevar_tpu_torch/csrc/{src}",
             "replaces": tpu,
-            "launches": train_counts[name] + (launches + window_launches
+            "launches": train_counts[name] + (launches + window_launches + record_launches
                                               if name == "flash_fwd" else 0),
             "max_abs_err": stats[name]["max_abs_err"]}
         rec.update(main)

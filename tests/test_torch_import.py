@@ -3,10 +3,11 @@
 Every vaevar_tpu_torch module imports in a fresh interpreter where jax, flax
 and optax cannot be imported, and no vaevar_tpu module gets loaded; no
 source file of the port (or chip_smoke.py) names them. The few jax-free
-tables the port carries as copies (channel registry, model and DA configs,
-the synthetic ERA5 source, the relative-position index, the synthetic obs
-masks, R and the model error Q, the batch prefetcher) are held equal to the
-reference here."""
+tables the port carries as copies (channel registry, model and DA configs
+and `from_reference_dict`, the ERA5 sources and stores, the native loader
+binding, `reference_state_dict`, `lgunet_block_from_yaml`, the
+relative-position index, the synthetic obs masks, R and the model error Q,
+the batch prefetcher) are held equal to the reference here."""
 
 import dataclasses
 import inspect
@@ -21,6 +22,9 @@ import numpy as np
 import pytest
 
 from vaevar_tpu import channels as jch
+from vaevar_tpu.data import era5 as jera5
+from vaevar_tpu.data import native_loader as jnative
+from vaevar_tpu.utils import port_torch
 from vaevar_tpu import config as jcfg
 from vaevar_tpu.da import obs as jobs
 from vaevar_tpu.data import prefetch as jprefetch
@@ -28,6 +32,10 @@ from vaevar_tpu.data.era5 import SyntheticEra5 as JaxEra5
 from vaevar_tpu.ops.posenc import relative_position_index as j_rpi
 from vaevar_tpu_torch import channels as tch
 from vaevar_tpu_torch import config as tcfg
+from vaevar_tpu_torch import convert_ckpt as tconvert
+from vaevar_tpu_torch.data import era5 as tera5
+from vaevar_tpu_torch.data import native_loader as tnative
+from vaevar_tpu_torch.train import checkpoint as tckpt
 from vaevar_tpu_torch.da import obs as tobs
 from vaevar_tpu_torch.data import prefetch as tprefetch
 from vaevar_tpu_torch.data.era5 import SyntheticEra5 as TorchEra5
@@ -142,3 +150,44 @@ def test_q_matrix_and_R_copies_equal_reference(tmp_path, q_type, files):
 def test_prefetch_copy_equals_reference():
     assert inspect.getsource(tprefetch.prefetched) == inspect.getsource(jprefetch.prefetched)
     assert list(tprefetch.prefetched(range(50), depth=3)) == list(range(50))
+
+
+def _src(obj):
+    """Source text with the port's package name read as the reference's."""
+    return inspect.getsource(obj).replace("vaevar_tpu_torch", "vaevar_tpu")
+
+
+def test_from_reference_dict_copy_equals_reference():
+    assert _src(tcfg.LGUnetConfig.from_reference_dict) == \
+        inspect.getsource(jcfg.LGUnetConfig.from_reference_dict)
+    block = {"img_size": [721, 1440], "patch_size": [3, 2], "inchans_list": [4, 13],
+             "outchans_list": [8, 26], "window_size": [6, 12], "enc_depths": [2, 2, 2],
+             "enc_heads": [3, 6, 6], "lg_depths": [4], "lg_heads": [6], "rank": 2,
+             "use_checkpoint": True}
+    for attn in ("rope", "relbias"):
+        assert dataclasses.asdict(tcfg.LGUnetConfig.from_reference_dict(block, attn)) == \
+            dataclasses.asdict(jcfg.LGUnetConfig.from_reference_dict(block, attn))
+
+
+def test_checkpoint_helper_copies_equal_reference():
+    assert _src(tckpt.reference_state_dict) == inspect.getsource(port_torch.reference_state_dict)
+    sys.path.insert(0, str(REPO / "scripts"))
+    import convert_ckpt as jconvert
+
+    assert _src(tconvert.lgunet_block_from_yaml) == \
+        inspect.getsource(jconvert.lgunet_block_from_yaml)
+
+
+def test_store_and_native_binding_copies_equal_reference():
+    """The stores' reading code and the binding's methods, line for line;
+    the port's ReferenceLayoutStore.__init__ differs only in recording its
+    reader, NativePrefetcher.__init__ in its error message."""
+    assert _src(tera5._stamp) == inspect.getsource(jera5._stamp)
+    assert _src(tera5.LocalNpyStore) == inspect.getsource(jera5.LocalNpyStore)
+    for name in ("_stamp_parts", "_paths", "get_state", "has"):
+        assert _src(getattr(tera5.ReferenceLayoutStore, name)) == \
+            inspect.getsource(getattr(jera5.ReferenceLayoutStore, name)), name
+    assert _src(tnative.LoaderSampleError) == inspect.getsource(jnative.LoaderSampleError)
+    for name in ("submit", "next", "next_tagged", "pending", "close", "__del__"):
+        assert _src(getattr(tnative.NativePrefetcher, name)) == \
+            inspect.getsource(getattr(jnative.NativePrefetcher, name)), name

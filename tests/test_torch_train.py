@@ -304,8 +304,18 @@ def test_cli_trains_resumes_and_evaluates_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flag", ["--mesh", "--data_dir"])
-def test_cli_refuses_what_is_not_ported(flag):
+def test_cli_refuses_what_is_not_ported(flag, tmp_path):
+    """--mesh is not ported (ROADMAP A.13) and raises. --data_dir is
+    (A.11a): a store without the run's frames fails loudly instead of
+    falling back to the synthetic source."""
     from vaevar_tpu_torch import run_train_forecast
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A.1"):
-        run_train_forecast.main(["--device", "cpu", flag, "x"])
+    if flag == "--mesh":
+        with pytest.raises(NotImplementedError, match="ROADMAP A.13"):
+            run_train_forecast.main(["--device", "cpu", flag, "x"])
+        return
+    with pytest.raises(FileNotFoundError, match="2022-01-01_00.npy"):
+        run_train_forecast.main(["--device", "cpu", "--micro", "--grid", "32x64",
+                                 "--task", "eval_rollout", "--steps", "1",
+                                 "--out_dir", str(tmp_path / "out"),
+                                 flag, str(tmp_path / "empty")])

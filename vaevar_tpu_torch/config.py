@@ -4,8 +4,10 @@ A copy of the dataclasses of vaevar_tpu/config.py that the port's slice
 uses, so that the port runs without the JAX package. Field names and
 defaults are the reference's (tests/test_torch_import.py holds them equal);
 the port's modules read configs by attribute, so a reference config object
-works in their place too. `DAConfig` keeps the fields of the vae4dvar
-3D-Var path.
+works in their place too. `LGUnetConfig.from_reference_dict` maps a
+reference YAML `lgunet_all` block onto a config, as the reference's does.
+`DAConfig` keeps the fields of the vae4dvar path and the two flags of the
+configuration of record that it carries for later modes.
 """
 
 from __future__ import annotations
@@ -59,6 +61,38 @@ class LGUnetConfig:
 
     def replace(self, **kw) -> "LGUnetConfig":
         return dataclasses.replace(self, **kw)
+
+    @classmethod
+    def from_reference_dict(
+        cls, d: dict, attn_type: str = "rope", **overrides
+    ) -> "LGUnetConfig":
+        """Build from a reference-style params dict (YAML `lgunet_all` block)."""
+
+        def pair(v) -> tuple[int, int]:
+            if isinstance(v, (list, tuple)):
+                return (int(v[-2]), int(v[-1]))
+            return (int(v), int(v))
+
+        kw = dict(
+            img_size=pair(d["img_size"]),
+            patch_size=pair(d.get("patch_size", (2, 2))),
+            stride=pair(d.get("stride", (2, 2))),
+            inchans_list=tuple(d["inchans_list"]),
+            outchans_list=tuple(d["outchans_list"]),
+            enc_dim=int(d.get("enc_dim", 96)),
+            embed_dim=int(d.get("embed_dim", 1152)),
+            window_size=pair(d.get("window_size", (4, 4))),
+            enc_depths=tuple(d.get("enc_depths", (2, 2))),
+            enc_heads=tuple(d.get("enc_heads", (3, 6))),
+            lg_depths=tuple(d.get("lg_depths", ())),
+            lg_heads=tuple(d.get("lg_heads", ())),
+            attn_type=attn_type,
+            lora_rank=int(d.get("rank", 0)),
+            lg_full_attn_first=attn_type == "rope",
+            remat=bool(d.get("use_checkpoint", False)),
+        )
+        kw.update(overrides)
+        return cls(**kw)
 
 
 #: 0.25 deg forecast model (new-gen rope, full-grid LG stage 0).
@@ -130,8 +164,10 @@ class DAConfig:
     lbfgs_history: int = 10
     obs_std: float = 0.005
     obs_coeff: float = 1.0
+    filter_coeff: float = 0.1  # real-obs quality control (ROADMAP A.11b)
     obs_type: str = "column_random_0001"
     q_type: int = 1  # model error Q in R for slots >= 1 (da/obs.load_q_matrix)
+    scale_factor: float = 2.0  # sc4dvar B length scales (ROADMAP A.10)
     modify_tp: int = 2
     init_lag: int = 8
     init_tp: int = 0

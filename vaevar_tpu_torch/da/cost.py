@@ -26,7 +26,7 @@ from vaevar_tpu_torch import channels
 from vaevar_tpu_torch.da.dynamics import checkpointed, make_integrate, rollout_window
 from vaevar_tpu_torch.ops.interp import _nearest_idx, resize_nearest
 
-_A11 = "real observations on augmented levels (interp_matrix): ROADMAP A.11"
+_A11 = "real observations on augmented levels (interp_matrix): ROADMAP A.11b"
 
 
 class ObsBundle(NamedTuple):

@@ -78,9 +78,9 @@ class CycledDA:
         if cfg.da_mode != "vae4dvar":
             raise NotImplementedError(
                 f"da_mode {cfg.da_mode!r}: only vae4dvar is ported "
-                "(sc4dvar: ROADMAP A.10; free_run/interpolation: ROADMAP A.11)")
+                "(sc4dvar: ROADMAP A.10; free_run/interpolation: ROADMAP A.11b)")
         if cfg.init_tp not in (0, 1):
-            raise NotImplementedError(f"init_tp {cfg.init_tp}: ROADMAP A.11")
+            raise NotImplementedError(f"init_tp {cfg.init_tp}: ROADMAP A.11b")
         os.makedirs(self.work_dir, exist_ok=True)
         self._rng = np.random.default_rng(self.seed)
         q = obs_mod.load_q_matrix(self.coeff_dir or ".", cfg.q_type,

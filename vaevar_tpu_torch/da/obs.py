@@ -5,7 +5,7 @@ Copies of vaevar_tpu/da/obs.py:41-118 (`obs_error_variance`, `build_R`,
 `load_q_matrix`) and :124-160 (`make_obs_mask` for the "free_XXXX" and
 "column_random_XXXX" families). The reference module imports jax through
 ops.interp, so the numpy functions are copied rather than imported.
-Real-observation and station families are not ported yet (ROADMAP A.11).
+Real-observation and station families are not ported yet (ROADMAP A.11b).
 """
 
 from __future__ import annotations
@@ -100,4 +100,4 @@ def make_obs_mask(obs_type: str, da_win: int, hw: tuple[int, int],
         return np.broadcast_to(flat.reshape(H, W), (da_win, 69, H, W)).copy()
     raise NotImplementedError(
         f"obs_type {obs_type!r}: only the synthetic free_/column_random_ "
-        "families are ported; mask files, real and prepbufr obs are ROADMAP A.11")
+        "families are ported; mask files, real and prepbufr obs are ROADMAP A.11b")

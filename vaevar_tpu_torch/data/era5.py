@@ -1,19 +1,151 @@
-"""Synthetic ERA5-like state source.
+"""ERA5-like state sources: the on-disk stores and the synthetic generator.
 
-A copy of vaevar_tpu/data/era5.py::SyntheticEra5 (numpy), kept in the port so
-that the port runs without the JAX package: deterministic, time-coherent
-band-limited fields advected zonally at channel-dependent speeds, in
-physical units through the channel mean/std registry. The same seed gives
-the same states as the reference (tests/test_torch_import.py).
+Copies of vaevar_tpu/data/era5.py (numpy), kept in the port so that the port
+runs without the JAX package (tests/test_torch_import.py holds them equal to
+the reference, and tests/test_torch_data.py their reads, bit for bit):
+- `LocalNpyStore`: one float32 (69, H, W) file per timestamp under a root
+  directory (`%Y-%m-%d_%H.npy`);
+- `ReferenceLayoutStore`: the reference's per-variable-per-level archive
+  layout, the 69 files of a frame read through the native C++ loader pool
+  when it builds (its `reader` says which reader is in use);
+- `SyntheticEra5`: deterministic, time-coherent band-limited fields advected
+  zonally at channel-dependent speeds, in physical units through the
+  channel mean/std registry; the same seed gives the reference's states.
 """
 
 from __future__ import annotations
 
+import os
 from datetime import datetime
 
 import numpy as np
 
 from vaevar_tpu_torch import channels
+
+_FMT = "%Y-%m-%d_%H"
+
+
+def _stamp(ts) -> str:
+    if hasattr(ts, "strftime"):
+        return ts.strftime(_FMT)
+    return str(ts)
+
+
+class LocalNpyStore:
+    def __init__(self, root: str, hw=(721, 1440)):
+        self.root = root
+        self.hw = hw
+
+    def path(self, ts) -> str:
+        return os.path.join(self.root, _stamp(ts) + ".npy")
+
+    def get_state(self, ts) -> np.ndarray:
+        return np.load(self.path(ts)).astype(np.float32)
+
+    def save_state(self, ts, state: np.ndarray):
+        os.makedirs(self.root, exist_ok=True)
+        np.save(self.path(ts), state.astype(np.float32))
+
+    def has(self, ts) -> bool:
+        return os.path.exists(self.path(ts))
+
+
+class ReferenceLayoutStore:
+    """Reads the reference's per-variable-per-level archive layout from a
+    local root — the exact URL scheme of the petrel loader
+    (dataset/dataset.py:429-434, init_file_list :185-190):
+
+        multi-level : <root>/<year>/<date>/<time>-<vname>-<level>.0.npy
+        single-level: <root>/single/<year>/<date>/<time>-<vname>.npy
+
+    so an archive mirrored from the reference's S3 buckets works
+    unchanged. Frames composite to the canonical (69, H, W) channel order
+    (channels.CHANNEL_NAMES) in PHYSICAL units; the 69 per-frame file
+    reads fan out over the native C++ loader pool when it is available.
+    """
+
+    def __init__(self, root: str, hw=(721, 1440), use_native: bool = True):
+        self.root = root
+        self.hw = hw
+        self._pool = None
+        if use_native:
+            try:
+                from vaevar_tpu_torch.data import native_loader
+
+                self._pool = native_loader.NativePrefetcher(
+                    sample_shape=hw, capacity=16, n_threads=8
+                )
+            except (OSError, RuntimeError):  # no library: read with np.load
+                self._pool = None
+        #: "native" when reads go through the C++ pool, "numpy" after the
+        #: fallback to np.load (the JAX class falls back without saying so)
+        self.reader = "numpy" if self._pool is None else "native"
+
+    def _stamp_parts(self, ts):
+        date = ts.strftime("%Y-%m-%d")
+        time = ts.strftime("%H:%M:%S")
+        return str(ts.year), date, time
+
+    def _paths(self, ts) -> list[str]:
+        year, date, time = self._stamp_parts(ts)
+        paths = [
+            os.path.join(self.root, "single", year, date,
+                         f"{time}-{v}.npy")
+            for v in channels.SINGLE_LEVEL_VNAMES
+        ]
+        for v in channels.MULTI_LEVEL_VNAMES:
+            for lev in channels.PRESSURE_LEVELS:
+                paths.append(
+                    os.path.join(self.root, year, date,
+                                 f"{time}-{v}-{lev}.0.npy")
+                )
+        return paths
+
+    def get_state(self, ts) -> np.ndarray:
+        paths = self._paths(ts)
+        n = len(paths)
+        out = np.empty((n, *self.hw), np.float32)
+        if self._pool is not None:
+            # epoch-encoded tags: a previous call that errored mid-drain
+            # may have left completed samples in the pool; stale-epoch
+            # deliveries are discarded instead of corrupting this frame
+            self._epoch = getattr(self, "_epoch", 0) + 1
+            base = self._epoch * n
+            for i, p in enumerate(paths):
+                self._pool.submit(p, tag=base + i)
+            from vaevar_tpu_torch.data.native_loader import LoaderSampleError
+
+            filled = 0
+            while filled < n:
+                try:
+                    got = self._pool.next_tagged()
+                except LoaderSampleError as e:
+                    if e.tag >= 0 and e.tag // n != self._epoch:
+                        continue  # stale-epoch failure: not our frame
+                    raise IOError(
+                        f"native loader failed reading {ts} (tag {e.tag})"
+                    ) from e
+                if got is None:
+                    raise IOError(f"native loader timed out on {ts}")
+                arr, tag = got
+                if tag // n != self._epoch:
+                    continue  # stale sample from an aborted earlier call
+                out[tag - base] = arr
+                filled += 1
+        else:
+            for i, p in enumerate(paths):
+                out[i] = np.load(p).astype(np.float32)
+        return out
+
+    def has(self, ts) -> bool:
+        return all(os.path.exists(p) for p in self._paths(ts))
+
+    def save_state(self, ts, state: np.ndarray):
+        """Write a (69, H, W) physical state as the layout's 69 files."""
+        for p, field in zip(self._paths(ts), state):
+            os.makedirs(os.path.dirname(p), exist_ok=True)
+            np.save(p, field.astype(np.float32))
+
 
 
 def _smooth_noise(rng: np.random.Generator, hw, cutoff_frac=0.12) -> np.ndarray:

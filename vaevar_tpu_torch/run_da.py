@@ -2,16 +2,30 @@
 
     python -m vaevar_tpu_torch.run_da --da_mode vae4dvar --fast_init
     python -m vaevar_tpu_torch.run_da --da_mode vae4dvar --fast_init --da_win 6
+    python -m vaevar_tpu_torch.run_da --da_mode vae4dvar --vae_ckpt vae.pt \
+        --flow_ckpt flow.pt --forecast_ckpt forecast.pt --data_dir era5 \
+        --data_layout reference
 
 The vae4dvar, synthetic-obs subset of run_da.py, with its flag names and
-its choice of forecast model (run_da.py:308-328): with --fast_init on a grid
-other than the solver grid the advance is the 0.25 deg rope model
-FORECAST_025 (721x1440), else the flow model at the solver grid. With
+defaults and its choice of models (run_da.py:268-328). Each model role reads
+its checkpoint (--vae_ckpt: a full VAE or a decoder; --flow_ckpt;
+--forecast_ckpt: port checkpoints, see train/checkpoint.py), or without one
+takes random weights from --seed (the flow model from --seed + 1, the
+forecast model from --seed + 2): N(0, 0.02^2) with --fast_init, else draws
+from the flax initializers' distributions (models/init.py). The advance is
+the 0.25 deg rope model FORECAST_025 (or its retarget to --grid) when a
+forecast checkpoint is given or --fast_init runs on a grid other than the
+solver grid (run_da.py:308), else the flow model at the solver grid; with
 --da_win > 1 the hourly flow model FLOW_140 also runs inside the cost.
-Weights are random (--fast_init), drawn from --seed (the flow model from
---seed + 1). The run goes on the device of --device (default cuda) and fails
-if that device is missing; --device cpu runs on the CPU. run_da.py's
---window_dispatch (XLA program granularity) does not apply here.
+States come from --data_dir (a LocalNpyStore, or with --data_layout
+reference the reference's per-variable archive) or, without it, from the
+synthetic source of --seed. An empty flag value counts as absent, as
+scripts/run_da.sh passes "" for unset checkpoints. --scale_factor (sc4dvar)
+and --filter_coeff (real-obs QC) are accepted and carried in the config;
+the vae4dvar synthetic-obs path reads neither. The run goes on the device of
+--device (default cuda) and fails if that device is missing; --device cpu
+runs on the CPU. run_da.py's --window_dispatch (XLA program granularity)
+does not apply here.
 
 Matrix products and convolutions run in full float32 where the model asks
 for float32: TF32 is switched off for both cuBLAS and cuDNN (cuDNN
@@ -23,13 +37,7 @@ from __future__ import annotations
 import argparse
 import os
 import sys
-
-_ROADMAP = {
-    "mesh": "--mesh (sharded solve): ROADMAP A.13",
-    "ckpt": "checkpoint loading (--vae_ckpt/--flow_ckpt/--forecast_ckpt): ROADMAP A.12",
-    "data": "--data_dir (on-disk ERA5 stores): ROADMAP A.11",
-    "init": "model init without --fast_init (flax initializers): ROADMAP A.12",
-}
+import time
 
 
 def arg_parser(argv=None):
@@ -47,6 +55,8 @@ def arg_parser(argv=None):
     p.add_argument("--Nit", type=int, default=4)
     p.add_argument("--obs_std", type=float, default=0.005)
     p.add_argument("--obs_coeff", type=float, default=1.0)
+    p.add_argument("--filter_coeff", type=float, default=0.1,
+                   help="real-obs quality control (not read by this path)")
     p.add_argument("--lbfgs_max_evals", type=int, default=None,
                    help="closure-eval budget per L-BFGS segment (default: "
                         "torch's max_iter*5//4)")
@@ -59,15 +69,28 @@ def arg_parser(argv=None):
                         "attention op")
     p.add_argument("--obs_type", type=str, default="column_random_0001")
     p.add_argument("--q_type", type=int, default=1)
+    p.add_argument("--scale_factor", type=float, default=2.0,
+                   help="sc4dvar B length-scale factor (not read by this path)")
     p.add_argument("--modify_tp", type=int, default=2)
     p.add_argument("--save_interval", type=int, default=5)
+    p.add_argument("--vae_ckpt", type=str, default=None,
+                   help="VAE checkpoint, full or decoder-only")
+    p.add_argument("--flow_ckpt", type=str, default=None)
+    p.add_argument("--forecast_ckpt", type=str, default=None)
+    p.add_argument("--data_dir", type=str, default=None,
+                   help="on-disk state store; synthetic source if omitted")
+    p.add_argument("--data_layout", type=str, default="state",
+                   choices=["state", "reference"],
+                   help="state: one (69,H,W) npy per timestamp; reference: "
+                        "the upstream per-variable-per-level archive layout")
     p.add_argument("--grid", type=str, default="721x1440")
     p.add_argument("--solver_grid", type=str, default="128x256")
     p.add_argument("--work_dir", type=str, default="da_cycle_results")
     p.add_argument("--bf16", action=argparse.BooleanOptionalAction, default=True,
                    help="bf16 compute (default on; --no-bf16 for f32)")
     p.add_argument("--fast_init", action="store_true",
-                   help="random N(0, 0.02^2) weights from --seed, in seconds")
+                   help="random N(0, 0.02^2) weights from --seed, in seconds, "
+                        "for a role without a checkpoint")
     p.add_argument("--micro", action="store_true",
                    help="micro model configs (smoke runs); latent of 8 channels")
     p.add_argument("--seed", type=int, default=0)
@@ -78,8 +101,7 @@ def arg_parser(argv=None):
                         "rollout step")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device of the run (default cuda; cpu for CPU runs)")
-    for flag in ("--mesh", "--vae_ckpt", "--flow_ckpt", "--forecast_ckpt", "--data_dir"):
-        p.add_argument(flag, type=str, default=None, help="not ported yet (ROADMAP)")
+    p.add_argument("--mesh", type=str, default=None, help="not ported yet (ROADMAP A.13)")
     return p.parse_args(argv)
 
 
@@ -101,21 +123,16 @@ def _check_supported(args):
     if args.da_mode != "vae4dvar":
         raise NotImplementedError(
             f"--da_mode {args.da_mode}: only vae4dvar is ported "
-            "(sc4dvar: ROADMAP A.10; free_run/interpolation: ROADMAP A.11)")
+            "(sc4dvar: ROADMAP A.10; free_run/interpolation: ROADMAP A.11b)")
     if args.obs_type.startswith(("real", "prepbufr")):
-        raise NotImplementedError(f"--obs_type {args.obs_type}: ROADMAP A.11")
+        raise NotImplementedError(f"--obs_type {args.obs_type}: ROADMAP A.11b")
     if args.mesh:
-        raise NotImplementedError(_ROADMAP["mesh"])
-    if args.vae_ckpt or args.flow_ckpt or args.forecast_ckpt:
-        raise NotImplementedError(_ROADMAP["ckpt"])
-    if args.data_dir:
-        raise NotImplementedError(_ROADMAP["data"])
-    if not args.fast_init:
-        raise NotImplementedError(_ROADMAP["init"])
+        raise NotImplementedError("--mesh (sharded solve): ROADMAP A.13")
 
 
 def main(argv=None):
-    """Run the cycle; returns the CycledDA (its timings and cycle_log)."""
+    """Run the cycle; returns the CycledDA (its timings, with the seconds of
+    the model set-up under "models_s", and its cycle_log)."""
     args = arg_parser(argv)
     _check_supported(args)
     import torch
@@ -131,8 +148,10 @@ def main(argv=None):
     from vaevar_tpu_torch import config as cfgs
     from vaevar_tpu_torch.da.cycler import CycledDA
     from vaevar_tpu_torch.da.dynamics import make_integrate
-    from vaevar_tpu_torch.data.era5 import SyntheticEra5
+    from vaevar_tpu_torch.data.era5 import LocalNpyStore, ReferenceLayoutStore, SyntheticEra5
+    from vaevar_tpu_torch.models.init import init_like_flax
     from vaevar_tpu_torch.models.lgunet import LGUnet
+    from vaevar_tpu_torch.train.checkpoint import load_weights
     from vaevar_tpu_torch.utils.fast_init import fast_init
 
     hw = tuple(int(v) for v in args.grid.split("x"))
@@ -140,19 +159,38 @@ def main(argv=None):
     dtype = torch.bfloat16 if args.bf16 else None
     cfg = cfgs.DAConfig(
         da_mode=args.da_mode, da_win=args.da_win, nit=args.Nit,
-        obs_std=args.obs_std, obs_coeff=args.obs_coeff, obs_type=args.obs_type,
-        q_type=args.q_type, modify_tp=args.modify_tp, init_lag=args.init_lag,
+        obs_std=args.obs_std, obs_coeff=args.obs_coeff, filter_coeff=args.filter_coeff,
+        obs_type=args.obs_type, q_type=args.q_type, scale_factor=args.scale_factor,
+        modify_tp=args.modify_tp, init_lag=args.init_lag,
         init_tp=args.init_tp, save_interval=args.save_interval,
         window_step_checkpoint=args.win_remat in ("both", "step"),
         lbfgs_max_evals=args.lbfgs_max_evals, lbfgs_linesearch=args.lbfgs_linesearch,
         latent_shape=(1, 8 if args.micro else 32, *shw), grid_hw=hw, solver_hw=shw,
     )
-    source = SyntheticEra5(hw=hw, seed=args.seed)
+    for flag in ("vae_ckpt", "flow_ckpt", "forecast_ckpt", "data_dir"):
+        if getattr(args, flag) and not os.path.exists(getattr(args, flag)):
+            raise SystemExit(f"--{flag} {getattr(args, flag)}: no such file or directory")
+    if args.data_dir and args.data_layout == "reference":
+        source = ReferenceLayoutStore(args.data_dir, hw)
+    elif args.data_dir:
+        source = LocalNpyStore(args.data_dir, hw)
+    else:
+        source = SyntheticEra5(hw=hw, seed=args.seed)
 
-    def build(model_cfg, seed):
-        model = fast_init(LGUnet(model_cfg), seed=seed).to(device).eval()
-        return model.requires_grad_(False)
+    def build(model_cfg, seed, ckpt_path=None, vae=False):
+        """The model of a role: its checkpoint, else random weights from
+        `seed` (run_da.py:268-275). Built and filled on the CPU, then moved
+        to the device once; parameters stay f32 under --bf16."""
+        model = LGUnet(model_cfg)
+        if ckpt_path:
+            load_weights(model, ckpt_path, vae=vae)
+        elif args.fast_init:
+            fast_init(model, seed=seed)
+        else:
+            init_like_flax(model, torch.Generator().manual_seed(seed))
+        return model.to(device).eval().requires_grad_(False)
 
+    t_models = time.perf_counter()
     if args.micro:
         dec_base = cfgs.micro_vae_configs(img_size=shw)[1]
         flow_base = cfgs.micro_config(img_size=shw)
@@ -161,12 +199,17 @@ def main(argv=None):
     # block remat of the decoder and the flow model when they run inside the
     # 4D-Var cost (run_da.py:284-300); 3D-Var keeps the faster backward
     block_remat = args.da_win > 1 and args.win_remat in ("both", "block")
-    decoder = build(dec_base.replace(dtype=dtype, remat=block_remat), args.seed)
+    decoder = build(dec_base.replace(dtype=dtype, remat=block_remat), args.seed,
+                    args.vae_ckpt, vae=True)
+    forecast_branch = bool(args.forecast_ckpt or (args.fast_init and hw != shw))
     flow = None
-    if args.da_win > 1 or hw == shw:
-        flow = build(flow_base.replace(dtype=dtype, remat=block_remat), args.seed + 1)
+    # the flow model runs inside a window's cost or as the advance; else a
+    # --flow_ckpt goes unread, as run_da.py restores it and never applies it
+    if args.da_win > 1 or not forecast_branch:
+        flow = build(flow_base.replace(dtype=dtype, remat=block_remat), args.seed + 1,
+                     args.flow_ckpt)
 
-    if hw != shw:  # --fast_init holds (_check_supported): run_da.py:308
+    if forecast_branch:  # run_da.py:308
         if args.micro:
             fc_base = cfgs.micro_config(img_size=hw)
         elif hw == cfgs.FORECAST_025.img_size:
@@ -174,13 +217,17 @@ def main(argv=None):
         else:
             fc_base = fit_grid(cfgs.FLOW_140.replace(
                 attn_type="rope", lg_full_attn_first=True), hw)
-        forecast = build(fc_base.replace(dtype=dtype), args.seed + 2)
+        forecast = build(fc_base.replace(dtype=dtype), args.seed + 2, args.forecast_ckpt)
         forecast_integrate = make_integrate(forecast)
-    else:  # advance with the flow model at the solver grid
+    else:  # advance with the flow model at the solver grid (run_da.py:323-328)
         flow_integrate = make_integrate(flow, model_hw=shw)
 
         def forecast_integrate(x, steps, interpolation=True):
             return flow_integrate(x, steps, True)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    models_s = time.perf_counter() - t_models
+    print(f"models ready in {models_s:.2f}s", flush=True)
 
     name = (f"run_stdmodify{args.modify_tp}_{args.obs_type}"
             f"_std{args.obs_std:.3f}_win{args.da_win}_Nit{args.Nit}")
@@ -188,6 +235,7 @@ def main(argv=None):
                   flow=flow if args.da_win > 1 else None, coeff_dir=args.coeff_dir,
                   work_dir=os.path.join(args.work_dir, name), seed=args.seed,
                   device=str(device))
+    da.timings["models_s"] = models_s
     da.run_assimilation(args.start_time, args.end_time)
     print("DA complete", flush=True)
     return da

@@ -8,9 +8,10 @@ one- or two-step training with Possloss or LpLoss on synthetic ERA5 pairs,
 `q_full.npy`), and the multi-step rollout WRMSE (`eval_rollout`). The model
 is FLOW_140 at --grid, or the micro config with --micro, as in the JAX CLI;
 weights are random from --seed unless --model_ckpt names a port checkpoint.
-The run goes on the device of --device (default cuda) and fails if that
-device is missing; --device cpu runs on the CPU. --mesh and --data_dir are
-not ported yet and raise.
+States come from --data_dir (a LocalNpyStore: one (69, H, W) npy per
+timestamp) or, without it, from the synthetic source of --seed. The run
+goes on the device of --device (default cuda) and fails if that device is
+missing; --device cpu runs on the CPU. --mesh is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -20,11 +21,6 @@ import os
 import sys
 from datetime import datetime, timedelta
 
-_ROADMAP = {
-    "mesh": "--mesh (data-parallel training): ROADMAP A.13",
-    "data": "--data_dir (on-disk ERA5 stores): ROADMAP A.11",
-}
-
 
 def arg_parser(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -32,7 +28,8 @@ def arg_parser(argv=None):
                    choices=["train", "calculate_q", "eval_rollout"])
     p.add_argument("--start_time", type=str, default="2022-01-01 00:00:00")
     p.add_argument("--end_time", type=str, default="2022-02-01 00:00:00")
-    p.add_argument("--data_dir", type=str, default=None, help="not ported yet (ROADMAP A.11)")
+    p.add_argument("--data_dir", type=str, default=None,
+                   help="LocalNpyStore root; synthetic source if omitted")
     p.add_argument("--grid", type=str, default="128x256")
     p.add_argument("--batch_size", type=int, default=4)
     p.add_argument("--steps", type=int, default=200,
@@ -74,9 +71,7 @@ def main(argv=None):
     """Run the task; returns (trainable, per-step losses) for `train`."""
     args = arg_parser(argv)
     if args.mesh:
-        raise NotImplementedError(_ROADMAP["mesh"])
-    if args.data_dir:
-        raise NotImplementedError(_ROADMAP["data"])
+        raise NotImplementedError("--mesh (data-parallel training): ROADMAP A.13")
     import numpy as np
     import torch
 
@@ -89,7 +84,7 @@ def main(argv=None):
 
     from vaevar_tpu_torch import channels
     from vaevar_tpu_torch import config as cfgs
-    from vaevar_tpu_torch.data.era5 import SyntheticEra5
+    from vaevar_tpu_torch.data.era5 import LocalNpyStore, SyntheticEra5
     from vaevar_tpu_torch.data.prefetch import prefetched
     from vaevar_tpu_torch.models.lgunet import LGUnet
     from vaevar_tpu_torch.train import checkpoint as ckpt
@@ -101,7 +96,8 @@ def main(argv=None):
 
     hw = tuple(int(v) for v in args.grid.split("x"))
     logger = get_logger("train_forecast", args.out_dir)
-    source = SyntheticEra5(hw=hw, seed=args.seed)
+    source = (LocalNpyStore(args.data_dir, hw) if args.data_dir
+              else SyntheticEra5(hw=hw, seed=args.seed))
     mean = channels.MEAN.reshape(-1, 1, 1)
     std = channels.STD.reshape(-1, 1, 1)
 

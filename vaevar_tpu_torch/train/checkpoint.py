@@ -4,8 +4,13 @@ Port of vaevar_tpu/train/checkpoint.py:17-93. A checkpoint is one
 `torch.save` file (the JAX package writes an orbax directory) with the same
 `<path>.meta.json` sidecar for the scalars: {epoch, step, metric_best}.
 Files are loaded with `weights_only=True`, so a checkpoint holds tensors and
-plain containers only. Reading the JAX package's orbax checkpoints, and
-`vae_decoder_params`, wait for ROADMAP A.12.
+plain containers only.
+
+Model weights are a bare state_dict under the reference torch key names:
+`run_train_forecast` writes one as `params_latest`, and the converters
+write them from a reference `.pth` (`vaevar_tpu_torch/convert_ckpt.py`) or
+from the JAX package's orbax trees (`scripts/orbax_to_torch.py`, which runs
+where jax is). `load_weights` reads one into a model strictly.
 """
 
 from __future__ import annotations
@@ -80,3 +85,56 @@ def restore_train_state(out_dir: str, trainable, opt_state,
         with open(path + ".meta.json") as f:
             meta.update(json.load(f))
     return trainable, opt_state, meta
+
+
+# --- model weights ------------------------------------------------------------
+
+
+def reference_state_dict(obj) -> dict:
+    """Normalize a loaded reference ``.pth`` object to a flat state_dict.
+
+    Mirrors the reference's own loading quirks (da_4dvar.py:552-603):
+    training checkpoints wrap the weights as ``{"model": sd}`` (flow,
+    :576) or ``{"model": {"lgunet_all": sd}}`` (forecast, :557) while VAE
+    files are bare state_dicts (:592); DDP-saved trees carry a
+    ``module.`` key prefix (stripped, :560-562,579-581,595-597); the
+    trainer's ``max_logvar``/``min_logvar`` buffers are dropped
+    (:564,583,599)."""
+    sd = obj
+    for key in ("model", "lgunet_all"):
+        if isinstance(sd, dict) and isinstance(sd.get(key), dict):
+            sd = sd[key]
+    out = {}
+    for k, v in sd.items():
+        if k.startswith("module."):
+            k = k[len("module."):]
+        if k in ("max_logvar", "min_logvar"):
+            continue
+        out[k] = v
+    return out
+
+
+def vae_decoder_params(sd: dict) -> dict:
+    """The decoder's state_dict from a VAE checkpoint (port of
+    vaevar_tpu/train/checkpoint.py:95-107): a full VAE state_dict
+    (`enc.`/`dec.`-prefixed LGUnets, what the VAE converters write and the
+    reference's whole `VAE_lr` files hold) gives its `dec.` entries without
+    the prefix; a decoder-only state_dict passes through. The DA engine only
+    runs the decoder (da_4dvar.py:1186)."""
+    if any(k.startswith(("enc.net.", "dec.net.")) for k in sd):
+        return {k[len("dec."):]: v for k, v in sd.items() if k.startswith("dec.")}
+    return sd
+
+
+def load_weights(model: torch.nn.Module, path: str, vae: bool = False) -> torch.nn.Module:
+    """Load model weights from `path` into `model` with strict=True, so a
+    checkpoint of another architecture fails loudly. Reads a port checkpoint
+    or a reference `.pth` that holds only tensors (its wrappers, `module.`
+    prefixes and logvar buffers go, as `reference_state_dict` says); with
+    `vae`, a full VAE file gives its decoder. The file is read onto the CPU;
+    move the model to its device afterwards."""
+    sd = reference_state_dict(restore(path))
+    if vae:
+        sd = vae_decoder_params(sd)
+    model.load_state_dict(sd, strict=True)
+    return model

@@ -7,7 +7,8 @@ returns the port's state_dict under the reference torch key names. It
 transposes Dense kernels, inverts the conv layout and the spatial flip of
 the transposed-conv kernel, and unstacks the group (`enc_gs`/`dec_gs`) and
 scan axes; shifted stacks are pairwise (`b0` holds blocks 0, 2, ...,
-`b1` blocks 1, 3, ...).
+`b1` blocks 1, 3, ...). `vae_state_dict_from_flax` does the same for a
+VAE tree, the inverse of port_torch.vae_params_from_torch.
 """
 
 from __future__ import annotations
@@ -130,6 +131,18 @@ def lgunet_state_dict_from_flax(flax_params, cfg) -> dict[str, torch.Tensor]:
         _group_decoder(sd, g, dec, cfg, gen)
     return {k: torch.from_numpy(np.array(v, dtype=np.float32))
             for k, v in sd.items()}
+
+
+def vae_state_dict_from_flax(flax_params, enc_cfg, dec_cfg) -> dict[str, torch.Tensor]:
+    """flax VAE params ({"enc": ..., "dec": ...}, with or without the top
+    "params" key) -> the port VAE's state_dict under the reference `enc.` /
+    `dec.` prefixes: the exact inverse of port_torch.vae_params_from_torch."""
+    params = flax_params.get("params", flax_params)
+    sd = {}
+    for half, cfg in (("enc", enc_cfg), ("dec", dec_cfg)):
+        for k, v in lgunet_state_dict_from_flax(params[half], cfg).items():
+            sd[f"{half}.{k}"] = v
+    return sd
 
 
 def forecast_trainable_from_flax(trainable, cfg) -> dict:
