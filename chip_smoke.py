@@ -68,8 +68,29 @@ exits nonzero without its last line:
    of a frame read through the native pool, with np.load and through
    LocalNpyStore (median of 3, files just written), of the spin-up and the
    cycle, and the peak device memory.
+10. vae_train: the NMC VAE trainer (train/vae_trainer.py). A micro f32 step
+   (run_train_vae --micro's configs at 32x64) on the card against the CPU
+   with a fixed noise (loss rel 1e-5, gradients 1e-3 x max|grad|); 3 steps
+   of train_vae at run_train_vae's defaults (FLOW_140 4 times without
+   gradient, VAE_ENCODER + VAE_DECODER, batch 8 at 128x256, bf16, remat,
+   Adam lr 1e-4, sigma 2) on one NMC batch: loss finite, the loss at one
+   fixed noise draw lower after the steps than before, more than half the
+   parameters moved by lr/2 or more and none by more than 4 lr, no flash
+   launch; seconds per step (the first apart), peak memory, and one
+   more step split into the NMC sample, forward + backward and Adam; then
+   run_train_vae --micro trained, resumed, and its vae_latest read by
+   run_da --micro --vae_ckpt;
+11. sc4dvar: the CVT increment (da/cvt.py) at 128x256 on the card against
+   the CPU in f32 (norm-rel 1e-5), the synthetic B calibrated on the card;
+   the README's cycle as --da_mode sc4dvar
+   at full width for 2 cycles after the 8-step spin-up, on the calibrated
+   synthetic B (no dataset/bq_info_lr here): 40 forward launches, no
+   decoder built, the synthetic-B WARNING on stderr, at most 5 L-BFGS
+   iterations per segment, J lowered, finite fields; prints the resolved
+   linesearch, spin-up and cycle seconds and peak memory.
 The second-to-last line is a JSON record of the kernels (launches summed
-over the DA, window, training and record paths, each counted from 0; times with the main
+over the DA, window, training, record, VAE-training and sc4dvar paths,
+each counted from 0; times with the main
 path's dtypes, and under "bf16" the all-bf16 ones; each bound from the
 function `bound_ms` below); the last line is {"ok": true, "device": {...}}.
 """
@@ -665,6 +686,245 @@ def check_cli():
         raise AssertionError("the trainer CLI did not train, validate, save and resume")
 
 
+def vae_step_on(dev, frames, eps):
+    """One micro f32 VAE train step (run_train_vae --micro's configs at
+    32x64, nmc_steps 2) on `dev` with the given noise; returns (loss, the
+    VAE's gradients as one CPU vector)."""
+    import torch
+
+    from vaevar_tpu_torch import config as cfgs
+    from vaevar_tpu_torch.models.lgunet import LGUnet
+    from vaevar_tpu_torch.models.vae import VAE
+    from vaevar_tpu_torch.train import vae_trainer as vt
+    from vaevar_tpu_torch.utils.fast_init import fast_init
+
+    flow_cfg, enc_cfg, dec_cfg = cfgs.micro_vae_train_configs(img_size=(32, 64))
+    flow = fast_init(LGUnet(flow_cfg), seed=1).to(dev).eval().requires_grad_(False)
+    vae = fast_init(VAE(enc_cfg, dec_cfg), seed=2).to(dev)
+    init_fn, step = vt.make_vae_train_step(vae, flow, latent_hw=(32, 64), nmc_steps=2)
+    m = step(init_fn(), frames.to(dev), eps=eps.to(dev))
+    grads = torch.cat([p.grad.flatten().cpu() for p in vae.parameters()])
+    return m["loss"].item(), grads
+
+
+def check_vae_train(fa):
+    """Phase 10: the NMC VAE trainer. A micro step card vs CPU with a fixed
+    noise; 3 steps of train_vae at run_train_vae's defaults (b8, 128x256,
+    bf16, remat, nmc_steps 4) on one batch, with the loss finite, lower at
+    a fixed noise draw after the steps than before, the parameters moved by
+    about lr and no flash launch, seconds per step (the first apart) from
+    the step logs, then one more step split into its NMC sample, forward +
+    backward and Adam; the CLI at micro size, trained, resumed and its
+    vae_latest read by run_da. Returns the flash launches of the 3 steps."""
+    import numpy as np
+    import torch
+
+    from vaevar_tpu_torch import config as cfgs
+    from vaevar_tpu_torch import run_da, run_train_vae
+    from vaevar_tpu_torch.data.era5 import SyntheticEra5
+    from vaevar_tpu_torch.data.nmc import NMCSequenceDataset, batched_loader
+    from vaevar_tpu_torch.models.lgunet import LGUnet
+    from vaevar_tpu_torch.models.vae import VAE
+    from vaevar_tpu_torch.train import checkpoint as ckpt
+    from vaevar_tpu_torch.train import vae_trainer as vt
+    from vaevar_tpu_torch.utils.fast_init import fast_init
+
+    rng = np.random.default_rng(6)
+    frames = torch.from_numpy(rng.standard_normal((2, 3, 69, 32, 64), dtype=np.float32))
+    eps = torch.from_numpy(rng.standard_normal((2, 32, 32, 64), dtype=np.float32))
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = (vae_step_on(d, frames, eps) for d in ("cpu", "cuda"))
+    scale = g_cpu.abs().max().item()
+    gerr = (g_gpu - g_cpu).abs().max().item()
+    # f32 through the flow rollout and ~30 VAE layers in another summation
+    # order: the loss to 1e-5 of itself, the gradients to 1e-3 of the largest
+    phase("vae_train", f"micro f32 step card vs CPU, fixed noise: loss {l_gpu:.7g} vs "
+          f"{l_cpu:.7g} (rel {abs(l_gpu - l_cpu) / abs(l_cpu):.2g}, tol 1e-5); gradients "
+          f"max|d| {gerr:.3g} <= {1e-3 * scale:.3g} (1e-3 x max|grad|)")
+    if not (abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu) and gerr <= 1e-3 * scale):
+        raise AssertionError("the micro VAE step on the card disagrees with the CPU path")
+
+    t0 = time.perf_counter()
+    hw, dt = (128, 256), torch.bfloat16
+    flow, enc_cfg, dec_cfg = (c.replace(img_size=hw, dtype=dt, remat=True)
+                              for c in (cfgs.FLOW_140, cfgs.VAE_ENCODER, cfgs.VAE_DECODER))
+    flow = fast_init(LGUnet(flow), seed=0).cuda().eval().requires_grad_(False)
+    vae = fast_init(VAE(enc_cfg, dec_cfg), seed=1).cuda()
+    ds = NMCSequenceDataset(SyntheticEra5(hw=hw, seed=0), START, "2022-02-01 00:00:00")
+    batch = next(batched_loader(ds, 8, seed=0))
+    n_vae = sum(p.numel() for p in vae.parameters())
+    torch.cuda.synchronize()
+    phase("vae_train", f"VAE_ENCODER + VAE_DECODER {n_vae / 1e6:.1f} M parameters, FLOW_140 "
+          f"{sum(p.numel() for p in flow.parameters()) / 1e6:.1f} M, batch {batch.shape} from "
+          f"{len(ds)} NMC sequences; set-up {time.perf_counter() - t0:.2f} s")
+    marks = []
+
+    def log(msg):
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), msg))
+
+    def fixed_noise_loss():
+        """The loss on the batch at one fixed noise draw: the 3 steps each
+        draw their own, so only this shows that the steps lowered it."""
+        vae.eval()
+        with torch.no_grad():
+            err = vt.nmc_error_sample(torch.as_tensor(batch).cuda(), flow, hw)
+            return vt.vae_loss(vae, err, 2.0, vt.step_generator("cuda", 0, 99))[0].item()
+
+    loss_before = fixed_noise_loss()
+    params_before = [p.detach().cpu() for p in vae.parameters()]  # off the card's peak
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_fwd_launches = fa.flash_dq_launches = fa.flash_dkv_launches = 0
+    t0 = time.perf_counter()
+    _, hist = vt.train_vae(vae, flow, [batch] * 3, epochs=1, logger=log, log_every=1,
+                           latent_hw=hw)
+    torch.cuda.synchronize()
+    counts = (fa.flash_fwd_launches, fa.flash_dq_launches, fa.flash_dkv_launches)
+    peak = torch.cuda.max_memory_allocated()
+    loss_after = fixed_noise_loss()
+    lr = 1e-4
+    moves = [(p.detach().cpu() - q).abs() for p, q in zip(vae.parameters(), params_before)]
+    moved = sum(int((d >= 0.5 * lr).sum()) for d in moves)
+    max_move = max(float(d.max()) for d in moves)
+    del moves
+    del params_before
+    ends = [t for t, msg in marks if " iter " in msg]
+    secs = [b - a for a, b in zip([t0] + ends[:-1], ends)]
+    losses = [h["loss"] for h in hist]
+    prior = [msg for _, msg in marks if "prior-sample" in msg]
+    phase("vae_train", "3 train_vae steps at b8 128x256 bf16 remat nmc_steps 4: losses "
+          + ", ".join(f"{v:.7g}" for v in losses) + f"; seconds {secs[0]:.3f} (first, with "
+          f"the probe), " + ", ".join(f"{v:.3f}" for v in secs[1:]) + f"; peak memory "
+          f"{peak / 2**30:.2f} GiB; {prior[0] if prior else 'no prior sample'}; flash "
+          f"launches (fwd, dq, dkv) {counts}")
+    # 3 Adam steps move each parameter by up to about 3 lr, and by at least
+    # lr / 2 wherever the gradient keeps its sign
+    phase("vae_train", f"loss at a fixed noise draw {loss_before:.7g} -> {loss_after:.7g}; "
+          f"parameters moved >= lr/2: {moved / n_vae:.4f} of {n_vae} (want > 0.5), max |dp| "
+          f"{max_move:.3g} (want <= 4 lr = {4 * lr:.3g})")
+    if counts != (0, 0, 0):
+        raise AssertionError(f"the VAE train step launched flash kernels {counts}; want none")
+    if not (len(losses) == 3 and all(np.isfinite(losses)) and loss_after < loss_before):
+        raise AssertionError(f"VAE training went wrong: losses {losses}, at a fixed noise draw "
+                             f"{loss_before} -> {loss_after}")
+    if not (moved > 0.5 * n_vae and max_move <= 4 * lr):
+        raise AssertionError("the 3 Adam steps did not move the VAE's parameters by about lr")
+
+    init_fn, _ = vt.make_vae_train_step(vae, flow, latent_hw=hw)
+    opt = init_fn()
+    frames = torch.as_tensor(batch).cuda()
+    for k in range(2):  # the second step's split (the first allocates Adam's state)
+        t = [time.perf_counter()]
+        err = vt.nmc_error_sample(frames, flow, hw)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        opt.zero_grad(set_to_none=True)
+        vt.vae_loss(vae, err, 2.0, vt.step_generator("cuda", 0, 1, k))[0].backward()
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        opt.step()
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+    split = [b - a for a, b in zip(t, t[1:])]
+    phase("vae_train", f"one step split (host clock, synchronized): NMC sample {split[0]:.3f} s, "
+          f"forward + backward {split[1]:.3f} s, Adam {split[2]:.3f} s; total {sum(split):.3f} s")
+    del vae, flow, opt, err, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as out:
+        argv = ["--micro", "--fast_init", "--grid", "32x64", "--batch_size", "2",
+                "--end_time", "2022-01-03 00:00:00", "--out_dir", out]
+        _, first = run_train_vae.main(argv + ["--epochs", "1"])
+        _, second = run_train_vae.main(argv + ["--epochs", "2"])
+        with open(os.path.join(out, "run.log")) as f:
+            resumed = "resumed from" in f.read()
+        da = run_da.main(["--micro", "--fast_init", "--grid", "32x64", "--solver_grid", "32x64",
+                          "--init_lag", "1", "--Nit", "1", "--end_time", "2022-01-01 06:00:00",
+                          "--vae_ckpt", os.path.join(out, "vae_latest"),
+                          "--work_dir", os.path.join(out, "da")])
+        saved = ckpt.restore(os.path.join(out, "vae_latest"))
+    loaded = all(torch.equal(v.cpu(), saved["dec." + k]) for k, v in da.decoder.state_dict().items())
+    phase("vae_train", f"CLI micro: run 1 losses {[round(h['loss'], 3) for h in first]}, run 2 "
+          f"{[round(h['loss'], 3) for h in second]}, resumed {resumed}; run_da read vae_latest: "
+          f"decoder equal {loaded}, latent {da.cfg.latent_shape}, cycle xa finite "
+          f"{da.cycle_log[0]['xa_finite']}")
+    if not (len(first) == len(second) == 2 and resumed and loaded and da.cycle_log[0]["xa_finite"]):
+        raise AssertionError("the VAE trainer CLI did not train, resume and hand run_da its VAE")
+    return counts[0]
+
+
+def check_sc4dvar(fa):
+    """Phase 11: sc4dvar. The CVT increment card vs CPU in f32, then the
+    README's cycle as sc4dvar at full width for 2 cycles; returns its
+    forward launches."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from vaevar_tpu_torch import config as cfgs
+    from vaevar_tpu_torch import run_da
+    from vaevar_tpu_torch.da.cvt import BMatrixAssets, CVTransform
+
+    t0 = time.perf_counter()
+    b = BMatrixAssets.synthetic(2.0, device="cuda")  # cached: run_da below takes these
+    cal_s = time.perf_counter() - t0
+    u = torch.from_numpy(np.random.default_rng(7).standard_normal((69, 128, 256),
+                                                                  dtype=np.float32))
+    want = CVTransform(b, device="cpu").increment(u)
+    got = CVTransform(b, device="cuda").increment(u.cuda()).cpu()
+    nrel = float((got - want).norm() / want.norm())
+    phase("sc4dvar", f"CVT increment at 128x256 card vs CPU, f32: norm-rel {nrel:.3g} (tol 1e-5); "
+          f"synthetic B calibration {cal_s:.2f} s (card)")
+    if not nrel < 1e-5:
+        raise AssertionError("the CVT increment on the card disagrees with the CPU")
+
+    argv = ["--da_mode", "sc4dvar"] + MAIN_ARGS[2:]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    err = io.StringIO()
+    with tempfile.TemporaryDirectory() as work:
+        fa.flash_fwd_launches = fa.flash_dq_launches = fa.flash_dkv_launches = 0
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stderr(err):
+                da = run_da.main(argv + ["--work_dir", work])
+        finally:
+            sys.stderr.write(err.getvalue())
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        counts = (fa.flash_fwd_launches, fa.flash_dq_launches, fa.flash_dkv_launches)
+        files = sorted(os.listdir(da.work_dir))
+    peak = torch.cuda.max_memory_allocated()
+    warned = "WARNING: B-matrix coefficient dir" in err.getvalue()
+    want = (da.cfg.init_lag + len(da.cycle_log)) * cfgs.FORECAST_025.lg_depths[0]
+    phase("sc4dvar", f"{len(da.cycle_log)} cycles in {total:.2f} s; spin-up "
+          f"{da.timings['spin_up_s']:.2f} s; cycles "
+          + ", ".join(f"{s:.2f}" for s in da.timings["cycle_s"]) + f" s; peak memory "
+          f"{peak / 2**30:.2f} GiB; decoder built {da.decoder is not None}; synthetic-B "
+          f"WARNING on stderr {warned}; flash launches (fwd, dq, dkv) {counts}")
+    if len(da.cycle_log) != 2 or counts != (want, 0, 0) or not warned or da.decoder is not None:
+        raise AssertionError(f"sc4dvar: {len(da.cycle_log)} cycles, launches {counts} "
+                             f"(want 2, ({want}, 0, 0)), warned {warned}")
+    for c in da.cycle_log:
+        j = [jb + jo for jb, jo in zip(c["jb"], c["jo"])]
+        per_segment = np.diff([0] + c["n_iters"])  # the counts are cumulative
+        phase("sc4dvar", f"cycle {c['time']}: {c['seconds']:.2f} s (obs {c['obs_s']:.2f} s, "
+              f"solve {c['solve_s']:.2f} s); linesearch {c['linesearch']}; iterations per "
+              f"segment {per_segment.tolist()}, charged evals {c['n_evals']}, jvp probes "
+              f"{c['n_jvp']}; J {j[0]:.6g} -> {j[-1]:.6g}")
+        if not (c["xa_finite"] and c["xb_next_finite"] and per_segment.max() <= 5):
+            raise AssertionError(f"sc4dvar cycle {c['time']}: non-finite fields or more than "
+                                 "5 iterations in a segment")
+        if not (j[-1] < j[0] and max(j) <= j[0] + 1e-6 * abs(j[0]) * c["n_iters"][-1]):
+            raise AssertionError(f"the sc4dvar solve did not lower J at {c['time']}: {j}")
+    need = {"xb.npy", "current_time.txt", "bg_wrmse.npy", "ana_wrmse.npy"}
+    if not need <= set(files):
+        raise AssertionError(f"missing from the sc4dvar work dir: {sorted(need - set(files))}")
+    return counts[0]
+
+
 def write_record_inputs(root):
     """Phase 9's inputs under `root`: the reference-layout store (and one
     state-layout frame for the read timings), the three checkpoints.
@@ -880,6 +1140,12 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     record_launches = check_record(fa)
+    gc.collect()
+    torch.cuda.empty_cache()
+    vae_launches = check_vae_train(fa)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sc4dvar_launches = check_sc4dvar(fa)
 
     stats = {"flash_fwd": fwd, "flash_dq": bwd["flash_dq"], "flash_dkv": bwd["flash_dkv"]}
     replaces = {"flash_fwd": ("flash_fwd.cu", "vaevar_tpu/ops/pallas_attn.py:47"),
@@ -890,8 +1156,9 @@ def main():
         main, rec = stats[name]["main"], {
             "name": name, "route": "cuda", "source": f"vaevar_tpu_torch/csrc/{src}",
             "replaces": tpu,
-            "launches": train_counts[name] + (launches + window_launches + record_launches
-                                              if name == "flash_fwd" else 0),
+            "launches": train_counts[name] + (
+                launches + window_launches + record_launches + vae_launches + sc4dvar_launches
+                if name == "flash_fwd" else 0),
             "max_abs_err": stats[name]["max_abs_err"]}
         rec.update(main)
         rec["share_of_bound"] = main["bound_ms"] / main["ms"]

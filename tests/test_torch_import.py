@@ -1,13 +1,15 @@
 """The port imports no JAX and none of the JAX package.
 
-Every vaevar_tpu_torch module imports in a fresh interpreter where jax, flax
-and optax cannot be imported, and no vaevar_tpu module gets loaded; no
-source file of the port (or chip_smoke.py) names them. The few jax-free
+Every vaevar_tpu_torch module imports in a fresh interpreter where jax, flax,
+optax and pandas cannot be imported (the chip machine has no pandas), and no
+vaevar_tpu module gets loaded; no source file of the port (or chip_smoke.py)
+names them. The few jax-free
 tables the port carries as copies (channel registry, model and DA configs
 and `from_reference_dict`, the ERA5 sources and stores, the native loader
 binding, `reference_state_dict`, `lgunet_block_from_yaml`, the
 relative-position index, the synthetic obs masks, R and the model error Q,
-the batch prefetcher) are held equal to the reference here."""
+the batch prefetcher, the SHT's quadrature weights and Legendre table) are
+held equal to the reference here."""
 
 import dataclasses
 import inspect
@@ -29,6 +31,7 @@ from vaevar_tpu import config as jcfg
 from vaevar_tpu.da import obs as jobs
 from vaevar_tpu.data import prefetch as jprefetch
 from vaevar_tpu.data.era5 import SyntheticEra5 as JaxEra5
+from vaevar_tpu.ops import sht as jsht
 from vaevar_tpu.ops.posenc import relative_position_index as j_rpi
 from vaevar_tpu_torch import channels as tch
 from vaevar_tpu_torch import config as tcfg
@@ -39,6 +42,7 @@ from vaevar_tpu_torch.train import checkpoint as tckpt
 from vaevar_tpu_torch.da import obs as tobs
 from vaevar_tpu_torch.data import prefetch as tprefetch
 from vaevar_tpu_torch.data.era5 import SyntheticEra5 as TorchEra5
+from vaevar_tpu_torch.ops import sht as tsht
 from vaevar_tpu_torch.ops.posenc import relative_position_index as t_rpi
 
 REPO = Path(__file__).resolve().parent.parent
@@ -54,7 +58,7 @@ def _modules():
 def test_every_module_imports_with_jax_blocked():
     code = (
         "import sys, importlib, json\n"
-        "for m in ('jax', 'jaxlib', 'flax', 'optax'):\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'pandas'):\n"
         "    sys.modules[m] = None\n"
         f"mods = {_modules()!r}\n"
         "for m in mods:\n"
@@ -72,7 +76,8 @@ def test_every_module_imports_with_jax_blocked():
     str(p.relative_to(REPO)) for p in [*PKG.rglob("*.py"), REPO / "chip_smoke.py"]))
 def test_sources_name_no_jax(path):
     src = (REPO / path).read_text()
-    bad = re.findall(r"^\s*(?:import|from)\s+(jax|jaxlib|flax|optax|vaevar_tpu)\b(?!_torch)",
+    bad = re.findall(r"^\s*(?:import|from)\s+(jax|jaxlib|flax|optax|pandas|vaevar_tpu)\b"
+                     r"(?!_torch)",
                      src, flags=re.M)
     assert not bad, (path, bad)
 
@@ -191,3 +196,16 @@ def test_store_and_native_binding_copies_equal_reference():
     for name in ("submit", "next", "next_tagged", "pending", "close", "__del__"):
         assert _src(getattr(tnative.NativePrefetcher, name)) == \
             inspect.getsource(getattr(jnative.NativePrefetcher, name)), name
+
+
+@pytest.mark.parametrize("n", [32, 33, 128, 721])
+def test_sht_table_copies_equal_reference(n):
+    """The quadrature weights and the Legendre table (of the n x 2n grid),
+    line for line and bitwise: the same numpy code in float64."""
+    for name in ("clenshaw_curtis_weights", "_legendre_table"):
+        assert inspect.getsource(getattr(tsht, name)) == inspect.getsource(getattr(jsht, name))
+    np.testing.assert_array_equal(tsht.clenshaw_curtis_weights(n),
+                                  jsht.clenshaw_curtis_weights(n))
+    if n <= 128:
+        np.testing.assert_array_equal(tsht._legendre_table(n, n, n + 1),
+                                      jsht._legendre_table(n, n, n + 1))

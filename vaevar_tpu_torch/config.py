@@ -151,6 +151,15 @@ def micro_vae_configs(img_size=(16, 32)):
     return enc, dec
 
 
+def micro_vae_train_configs(img_size=(16, 32), **overrides):
+    """run_train_vae.py --micro's (flow, encoder, decoder) (run_train_vae.py:
+    91-95): the micro relbias config with the VAE's six groups, latent 32."""
+    flow = micro_config(img_size=img_size, attn_type="relbias", **overrides)
+    enc = flow.replace(outchans_list=(4, 12, 12, 12, 12, 12))
+    dec = flow.replace(inchans_list=(2, 6, 6, 6, 6, 6), outchans_list=(4, 13, 13, 13, 13, 13))
+    return flow, enc, dec
+
+
 @dataclass(frozen=True)
 class DAConfig:
     """Cycled vae4dvar configuration, 3D-Var and the 4D-Var window (the

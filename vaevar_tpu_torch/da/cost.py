@@ -1,18 +1,21 @@
-"""The vae4dvar costs: 3D-Var and the 4D-Var window, reduced and full-grid.
+"""The vae4dvar and sc4dvar costs: 3D-Var and the 4D-Var window, reduced
+and full-grid.
 
-Port of vaevar_tpu/da/cost.py:36-256, 294-398 and :401-437:
+Port of vaevar_tpu/da/cost.py:
 
-    x0 = xb + up(decoder(z) * err_std * model_std)
-    J(z) = 1/2 ||z||^2 + obs_coeff * sum_t 1/2 sum H (M_t(x0) - yo_t)^2 / R_t
+    vae4dvar: x0 = xb + up(decoder(z) * err_std * model_std)
+    sc4dvar:  x0 = xb + up(B^1/2 w)  (da/cvt.py)
+    J(x) = 1/2 ||x||^2 + obs_coeff * sum_t 1/2 sum H (M_t(x0) - yo_t)^2 / R_t
 
 with M_t the hourly flow model applied t times inside the cost (t = 0 for
 3D-Var). For nearest upsampling the analysis is constant per solver cell,
 so the full-resolution obs term reduces exactly onto the solver grid once
 per cycle: `reduce_obs` for da_win = 1, `reduce_obs_window` for windows,
 where the rollout then runs natively on the solver grid through the static
-gather S = down o up. The full-grid windowed cost (`make_vae4dvar_cost`)
-is the reference the reduced form is held to and the path of a window
-without a flow model.
+gather S = down o up. The full-grid windowed cost (`make_vae4dvar_cost`,
+`make_sc4dvar_cost`) is the reference the reduced form is held to and the
+path of a window without a flow model. Both modes share each form's code:
+only the map from the control to the low-res increment differs.
 """
 
 from __future__ import annotations
@@ -192,24 +195,37 @@ def _state_fn(increment):
     return to_state
 
 
+def _window_reduced_cost(increment, flow, da_win, obs_coeff, step_checkpoint):
+    """(cost, to_state, cost_parts) on a ReducedWindowObs for x -> the
+    low-res physical increment `increment(x)`."""
+    window_obs = _make_window_obs_reduced(increment, flow, da_win, step_checkpoint)
+
+    def cost(x, bundle: ReducedWindowObs):
+        return 0.5 * torch.sum(x ** 2) + obs_coeff * window_obs(x, bundle)
+
+    def cost_parts(x, bundle: ReducedWindowObs):
+        """(Jb, Jo) with Jo unscaled by obs_coeff, like the reference printout."""
+        return 0.5 * torch.sum(x ** 2), window_obs(x, bundle)
+
+    return cost, _state_fn(increment), cost_parts
+
+
 def make_vae4dvar_cost_window_reduced(decoder, flow=None, da_win: int = 1,
                                       obs_coeff: float = 1.0,
                                       step_checkpoint: bool = True):
     """(cost, to_state, cost_parts) of the 4D-Var vae4dvar cost on a
     ReducedWindowObs: the same J as make_vae4dvar_cost up to float
     associativity, with no full-resolution tensor inside the solve."""
-    increment = _increment_fn(decoder)
-    window_obs = _make_window_obs_reduced(increment, flow, da_win, step_checkpoint)
-    to_state = _state_fn(increment)
+    return _window_reduced_cost(_increment_fn(decoder), flow, da_win, obs_coeff,
+                                step_checkpoint)
 
-    def cost(z, bundle: ReducedWindowObs):
-        return 0.5 * torch.sum(z ** 2) + obs_coeff * window_obs(z, bundle)
 
-    def cost_parts(z, bundle: ReducedWindowObs):
-        """(Jb, Jo) with Jo unscaled by obs_coeff, like the reference printout."""
-        return 0.5 * torch.sum(z ** 2), window_obs(z, bundle)
-
-    return cost, to_state, cost_parts
+def make_sc4dvar_cost_window_reduced(increment: Callable, flow=None, da_win: int = 1,
+                                     obs_coeff: float = 1.0, step_checkpoint: bool = True):
+    """The 4D-Var sc4dvar cost on a ReducedWindowObs: the CVT increment is
+    nearest-upsampled (da_4dvar.py:928), so the vae4dvar reduction applies.
+    `increment(w)` is B^1/2 w on the solver grid (cvt.CVTransform.increment)."""
+    return _window_reduced_cost(increment, flow, da_win, obs_coeff, step_checkpoint)
 
 
 def obs_term(x_pred, bundle: ObsBundle, interp_matrix=None):
@@ -260,6 +276,20 @@ def _make_window_obs(flow, flow_hw, da_win: int, interp_matrix=None):
     return window_obs
 
 
+def _full_cost(to_state, flow, flow_hw, da_win, obs_coeff):
+    """(cost, to_state, cost_parts) on a full-resolution ObsBundle for
+    (x, bundle) -> the state on xb's grid."""
+    window_obs = _make_window_obs(flow, flow_hw, da_win)
+
+    def cost(x, bundle: ObsBundle):
+        return 0.5 * torch.sum(x ** 2) + obs_coeff * window_obs(to_state(x, bundle), bundle)
+
+    def cost_parts(x, bundle: ObsBundle):
+        return 0.5 * torch.sum(x ** 2), window_obs(to_state(x, bundle), bundle)
+
+    return cost, to_state, cost_parts
+
+
 def make_vae4dvar_cost(decoder, flow=None, flow_hw=(128, 256), da_win: int = 1,
                        obs_coeff: float = 1.0, interp_matrix=None):
     """(cost, decode_to_state, cost_parts) on a full-resolution ObsBundle.
@@ -268,17 +298,36 @@ def make_vae4dvar_cost(decoder, flow=None, flow_hw=(128, 256), da_win: int = 1,
     by err_std * model_std and added to xb (da_4dvar.py:1185-1188)."""
     if interp_matrix is not None:
         raise NotImplementedError(_A11)
-    window_obs = _make_window_obs(flow, flow_hw, da_win)
-    decode_to_state = _state_fn(_increment_fn(decoder))
+    return _full_cost(_state_fn(_increment_fn(decoder)), flow, flow_hw, da_win, obs_coeff)
 
-    def cost(z, bundle: ObsBundle):
-        return 0.5 * torch.sum(z ** 2) + obs_coeff * window_obs(decode_to_state(z, bundle),
-                                                               bundle)
 
-    def cost_parts(z, bundle: ObsBundle):
-        return 0.5 * torch.sum(z ** 2), window_obs(decode_to_state(z, bundle), bundle)
+def make_sc4dvar_cost(transform: Callable, flow=None, flow_hw=(128, 256), da_win: int = 1,
+                      obs_coeff: float = 1.0, interp_matrix=None):
+    """(cost, to_state, cost_parts) on a full-resolution ObsBundle, with the
+    state transform(w, xb) = xb + up(B^1/2 w) (cvt.CVTransform); the form
+    of a window without a flow model."""
+    if interp_matrix is not None:
+        raise NotImplementedError(_A11)
+    return _full_cost(lambda w, bundle: transform(w, bundle.xb), flow, flow_hw, da_win,
+                      obs_coeff)
 
-    return cost, decode_to_state, cost_parts
+
+def _reduced_cost(increment, obs_coeff):
+    """(cost, to_state, cost_parts) on a ReducedObs for x -> the low-res
+    physical increment `increment(x)`."""
+
+    def obs_quad(e, bundle: ReducedObs):
+        return 0.5 * (torch.sum(bundle.a * e * e) - 2.0 * torch.sum(bundle.b * e)
+                      + bundle.c)
+
+    def cost(x, bundle: ReducedObs):
+        return 0.5 * torch.sum(x ** 2) + obs_coeff * obs_quad(increment(x), bundle)
+
+    def cost_parts(x, bundle: ReducedObs):
+        """(Jb, Jo) with Jo unscaled by obs_coeff, like the reference printout."""
+        return 0.5 * torch.sum(x ** 2), obs_quad(increment(x), bundle)
+
+    return cost, _state_fn(increment), cost_parts
 
 
 def make_vae4dvar_cost_reduced(decoder, obs_coeff: float = 1.0):
@@ -286,18 +335,11 @@ def make_vae4dvar_cost_reduced(decoder, obs_coeff: float = 1.0):
 
     `decoder` maps z (1, C_lat, h, w) to the normalised increment
     (1, 69, h, w)."""
-    increment = _increment_fn(decoder)
-    decode_to_state = _state_fn(increment)
+    return _reduced_cost(_increment_fn(decoder), obs_coeff)
 
-    def obs_quad(e, bundle: ReducedObs):
-        return 0.5 * (torch.sum(bundle.a * e * e) - 2.0 * torch.sum(bundle.b * e)
-                      + bundle.c)
 
-    def cost(z, bundle: ReducedObs):
-        return 0.5 * torch.sum(z ** 2) + obs_coeff * obs_quad(increment(z), bundle)
-
-    def cost_parts(z, bundle: ReducedObs):
-        """(Jb, Jo) with Jo unscaled by obs_coeff, like the reference printout."""
-        return 0.5 * torch.sum(z ** 2), obs_quad(increment(z), bundle)
-
-    return cost, decode_to_state, cost_parts
+def make_sc4dvar_cost_reduced(increment: Callable, obs_coeff: float = 1.0):
+    """3D-Var sc4dvar cost on a ReducedObs bundle: the CVT output is
+    nearest-upsampled (da_4dvar.py:928), so the vae4dvar reduction applies.
+    `increment(w)` is B^1/2 w on the solver grid (cvt.CVTransform.increment)."""
+    return _reduced_cost(increment, obs_coeff)

@@ -1,11 +1,12 @@
 """Cycled data assimilation loop: background -> analysis -> 6 h forecast.
 
-Port of vaevar_tpu/da/cycler.py for vae4dvar with synthetic observations:
-spin-up (`get_initial_state`), per-cycle truth frames at 1 h steps over the
-window and obs masks drawn from one seeded generator in cycle order, R with
-the model error Q for the window's later slots, the solve through the VAE
-decoder (3D-Var, or 4D-Var with the hourly flow model inside J), the
-forecast advance, per-cycle metrics appended to `metrics_log.jsonl` and
+Port of vaevar_tpu/da/cycler.py for vae4dvar and sc4dvar with synthetic
+observations: spin-up (`get_initial_state`), per-cycle truth frames at 1 h
+steps over the window and obs masks drawn from one seeded generator in cycle
+order, R with the model error Q for the window's later slots, the solve
+through the VAE decoder (vae4dvar) or the control-variable transform B^1/2
+(sc4dvar, `cvt`), in 3D-Var or in 4D-Var with the hourly flow model inside
+J, the forecast advance, per-cycle metrics appended to `metrics_log.jsonl` and
 consolidated into `<metric>.npy` dumps, and a restartable on-disk state
 (`xb.npy` + `current_time.txt`). Obs preparation runs serially (the
 reference's obs prefetch thread changes no number). The forecast model runs
@@ -64,8 +65,9 @@ class CycledDA:
     cfg: DAConfig
     state_source: object  # .get_state(datetime) -> (69, H, W) physical
     forecast_integrate: Callable  # integrate(x, steps, interpolation)
-    decoder: torch.nn.Module  # vae4dvar decoder: latent -> (1, 69, h, w)
+    decoder: torch.nn.Module | None = None  # vae4dvar: latent -> (1, 69, h, w)
     flow: torch.nn.Module | None = None  # hourly model for 4D-Var windows
+    cvt: object = None  # sc4dvar: cvt.CVTransform, B^1/2 with .increment
     coeff_dir: str | None = None  # Q-matrix asset dir (q_type 0 and 1)
     work_dir: str = "da_cycle_results/run"
     seed: int = 0
@@ -75,10 +77,13 @@ class CycledDA:
 
     def __post_init__(self):
         cfg = self.cfg
-        if cfg.da_mode != "vae4dvar":
+        if cfg.da_mode not in ("vae4dvar", "sc4dvar"):
             raise NotImplementedError(
-                f"da_mode {cfg.da_mode!r}: only vae4dvar is ported "
-                "(sc4dvar: ROADMAP A.10; free_run/interpolation: ROADMAP A.11b)")
+                f"da_mode {cfg.da_mode!r}: only vae4dvar and sc4dvar are ported "
+                "(free_run/interpolation: ROADMAP A.11b)")
+        role = "decoder" if cfg.da_mode == "vae4dvar" else "cvt"
+        if getattr(self, role) is None:
+            raise ValueError(f"da_mode {cfg.da_mode!r} needs a {role}")
         if cfg.init_tp not in (0, 1):
             raise NotImplementedError(f"init_tp {cfg.init_tp}: ROADMAP A.11b")
         os.makedirs(self.work_dir, exist_ok=True)
@@ -88,9 +93,9 @@ class CycledDA:
         self.R = obs_mod.build_R(
             obs_mod.obs_error_variance(cfg.obs_std, cfg.modify_tp), q, cfg.da_win)
         self._load_metrics()
-        self.decoder.requires_grad_(False)
-        if self.flow is not None:
-            self.flow.requires_grad_(False)
+        for model in (self.decoder, self.flow):
+            if model is not None:
+                model.requires_grad_(False)
         self._solver = self._build_solver()
         # per-run record: spin-up seconds and, per cycle, seconds and the
         # solver's (Jb, Jo) trace
@@ -110,26 +115,33 @@ class CycledDA:
         return self._reducible and self.cfg.da_win == 1
 
     def _build_solver(self):
-        """The cost of the configuration (vaevar_tpu/da/cycler.py:184-222):
+        """The cost of the configuration (vaevar_tpu/da/cycler.py:182-257):
         the reduced 3D-Var cost, the reduced window cost or the full windowed
-        cost, with the obs reduction it takes (`self._reduce_obs`)."""
+        cost of the mode, with the obs reduction it takes
+        (`self._reduce_obs`). sc4dvar runs at most 5 L-BFGS iterations per
+        segment (da_4dvar.py:1119), with the eval budget derived from them."""
         cfg = self.cfg
+        sc = cfg.da_mode == "sc4dvar"
         if self._use_reduced_obs:
-            c, to_state, parts = cost_mod.make_vae4dvar_cost_reduced(
-                self.decoder, obs_coeff=cfg.obs_coeff)
+            c, to_state, parts = (
+                cost_mod.make_sc4dvar_cost_reduced(self.cvt.increment, cfg.obs_coeff) if sc
+                else cost_mod.make_vae4dvar_cost_reduced(self.decoder, cfg.obs_coeff))
             self._reduce_obs = cost_mod.reduce_obs
         elif self._reducible:  # da_win > 1
-            c, to_state, parts = cost_mod.make_vae4dvar_cost_window_reduced(
-                self.decoder, self.flow, da_win=cfg.da_win, obs_coeff=cfg.obs_coeff,
-                step_checkpoint=cfg.window_step_checkpoint)
+            make = (cost_mod.make_sc4dvar_cost_window_reduced if sc
+                    else cost_mod.make_vae4dvar_cost_window_reduced)
+            c, to_state, parts = make(
+                self.cvt.increment if sc else self.decoder, self.flow, da_win=cfg.da_win,
+                obs_coeff=cfg.obs_coeff, step_checkpoint=cfg.window_step_checkpoint)
             self._reduce_obs = cost_mod.reduce_obs_window
         else:
-            c, to_state, parts = cost_mod.make_vae4dvar_cost(
-                self.decoder, self.flow, flow_hw=cfg.solver_hw, da_win=cfg.da_win,
-                obs_coeff=cfg.obs_coeff)
+            make = cost_mod.make_sc4dvar_cost if sc else cost_mod.make_vae4dvar_cost
+            c, to_state, parts = make(
+                self.cvt if sc else self.decoder, self.flow, flow_hw=cfg.solver_hw,
+                da_win=cfg.da_win, obs_coeff=cfg.obs_coeff)
             self._reduce_obs = None
         return VariationalSolver(
-            c, to_state, parts, lbfgs_iters=cfg.lbfgs_iters,
+            c, to_state, parts, lbfgs_iters=min(cfg.lbfgs_iters, 5) if sc else cfg.lbfgs_iters,
             history=cfg.lbfgs_history, max_segment_evals=cfg.lbfgs_max_evals,
             linesearch=cfg.lbfgs_linesearch)
 
@@ -248,9 +260,11 @@ class CycledDA:
             bundle = self._reduce_obs(bundle, cfg.solver_hw)
         self._sync()
         self.last_reduce_s = time.perf_counter() - t0
-        z0 = torch.zeros(cfg.latent_shape, dtype=torch.float32, device=self.device)
-        _, xa, diag = self._solver.solve(z0, bundle, nit=cfg.nit, gt=gt,
-                                         verbose=self.verbose, name="vae4dvar")
+        shape = ((channels.N_CHANNELS, *cfg.solver_hw) if cfg.da_mode == "sc4dvar"
+                 else cfg.latent_shape)
+        x0 = torch.zeros(shape, dtype=torch.float32, device=self.device)
+        _, xa, diag = self._solver.solve(x0, bundle, nit=cfg.nit, gt=gt,
+                                         verbose=self.verbose, name=cfg.da_mode)
         self.last_diag = diag
         w_ana = self._score("ana", xa, gt[0])
         if self.verbose:

@@ -35,11 +35,14 @@ class VAE(nn.Module):
         mu, logvar = torch.chunk(self.enc(x), 2, dim=1)
         return mu, logvar
 
-    def sampling(self, mu, logvar, generator: torch.Generator | None = None):
+    def sampling(self, mu, logvar, generator: torch.Generator | None = None, eps=None):
+        """mu + eps * exp(logvar / 2), with eps drawn from `generator` in
+        std's type unless the caller gives it."""
         std = torch.exp(0.5 * logvar)
-        eps = torch.randn(std.shape, generator=generator, dtype=std.dtype,
-                          device=std.device)
-        return mu + eps * std
+        if eps is None:
+            eps = torch.randn(std.shape, generator=generator, dtype=std.dtype,
+                              device=std.device)
+        return mu + eps.to(std.dtype) * std
 
     def decoder(self, z):
         return self.dec(z)
@@ -47,9 +50,9 @@ class VAE(nn.Module):
     def decoder_hr(self, z, out_hw=(721, 1440)):
         return resize_nearest(self.dec(z), out_hw)
 
-    def forward(self, x, generator: torch.Generator | None = None):
+    def forward(self, x, generator: torch.Generator | None = None, eps=None):
         mu, logvar = self.encoder(x)
-        z = self.sampling(mu, logvar, generator)
+        z = self.sampling(mu, logvar, generator, eps)
         return self.decoder(z), mu, logvar
 
 

@@ -1,13 +1,21 @@
-"""Cycled vae4dvar runner on PyTorch (CLI): 3D-Var, or 4D-Var with --da_win.
+"""Cycled vae4dvar and sc4dvar runner on PyTorch (CLI): 3D-Var, or 4D-Var
+with --da_win.
 
     python -m vaevar_tpu_torch.run_da --da_mode vae4dvar --fast_init
     python -m vaevar_tpu_torch.run_da --da_mode vae4dvar --fast_init --da_win 6
+    python -m vaevar_tpu_torch.run_da --da_mode sc4dvar --fast_init
     python -m vaevar_tpu_torch.run_da --da_mode vae4dvar --vae_ckpt vae.pt \
         --flow_ckpt flow.pt --forecast_ckpt forecast.pt --data_dir era5 \
         --data_layout reference
 
-The vae4dvar, synthetic-obs subset of run_da.py, with its flag names and
-defaults and its choice of models (run_da.py:268-328). Each model role reads
+The vae4dvar and sc4dvar, synthetic-obs subset of run_da.py, with its flag
+names and defaults and its choice of models (run_da.py:268-328). vae4dvar
+solves through the VAE decoder; sc4dvar through the control-variable
+transform B^1/2 (da/cvt.py) built from the B coefficients in --coeff_dir
+(len_scale.npy, reg_coeff.npy, std_sur.npy, vert_eig_value.npy,
+vert_eig_vec.npy; length scales times --scale_factor) or, when they are
+missing, from the calibrated synthetic B with a WARNING on stderr, and
+builds no decoder. Each model role reads
 its checkpoint (--vae_ckpt: a full VAE or a decoder; --flow_ckpt;
 --forecast_ckpt: port checkpoints, see train/checkpoint.py), or without one
 takes random weights from --seed (the flow model from --seed + 1, the
@@ -20,9 +28,11 @@ solver grid (run_da.py:308), else the flow model at the solver grid; with
 States come from --data_dir (a LocalNpyStore, or with --data_layout
 reference the reference's per-variable archive) or, without it, from the
 synthetic source of --seed. An empty flag value counts as absent, as
-scripts/run_da.sh passes "" for unset checkpoints. --scale_factor (sc4dvar)
-and --filter_coeff (real-obs QC) are accepted and carried in the config;
-the vae4dvar synthetic-obs path reads neither. The run goes on the device of
+scripts/run_da.sh passes "" for unset checkpoints. --filter_coeff (real-obs
+QC) is accepted and carried in the config; no synthetic-obs path reads it.
+With --micro the decoder is the micro VAE preset of the checkpoint
+(run_train_vae --micro's six groups, or the converters' two) and the latent
+has the decoder's input channels. The run goes on the device of
 --device (default cuda) and fails if that device is missing; --device cpu
 runs on the CPU. run_da.py's --window_dispatch (XLA program granularity)
 does not apply here.
@@ -45,8 +55,10 @@ def arg_parser(argv=None):
     p.add_argument("--start_time", type=str, default="2022-01-01 00:00:00")
     p.add_argument("--end_time", type=str, default="2022-01-03 00:00:00")
     p.add_argument("--coeff_dir", type=str, default="dataset/bq_info_lr/",
-                   help="Q-matrix assets (new_q.npy, q<i>.npy); without them "
-                        "q_type 1 uses the synthetic Q linear in lead time")
+                   help="Q-matrix assets (new_q.npy, q<i>.npy; without them "
+                        "q_type 1 uses the synthetic Q linear in lead time) and "
+                        "sc4dvar's B coefficients (without them the calibrated "
+                        "synthetic B, with a warning)")
     p.add_argument("--da_mode", type=str, default="vae4dvar",
                    choices=["free_run", "interpolation", "sc4dvar", "vae4dvar"])
     p.add_argument("--da_win", type=int, default=1)
@@ -70,7 +82,7 @@ def arg_parser(argv=None):
     p.add_argument("--obs_type", type=str, default="column_random_0001")
     p.add_argument("--q_type", type=int, default=1)
     p.add_argument("--scale_factor", type=float, default=2.0,
-                   help="sc4dvar B length-scale factor (not read by this path)")
+                   help="sc4dvar B length-scale factor")
     p.add_argument("--modify_tp", type=int, default=2)
     p.add_argument("--save_interval", type=int, default=5)
     p.add_argument("--vae_ckpt", type=str, default=None,
@@ -120,14 +132,48 @@ def fit_grid(model_cfg, grid):
 
 
 def _check_supported(args):
-    if args.da_mode != "vae4dvar":
+    if args.da_mode not in ("vae4dvar", "sc4dvar"):
         raise NotImplementedError(
-            f"--da_mode {args.da_mode}: only vae4dvar is ported "
-            "(sc4dvar: ROADMAP A.10; free_run/interpolation: ROADMAP A.11b)")
+            f"--da_mode {args.da_mode}: only vae4dvar and sc4dvar are ported "
+            "(free_run/interpolation: ROADMAP A.11b)")
     if args.obs_type.startswith(("real", "prepbufr")):
         raise NotImplementedError(f"--obs_type {args.obs_type}: ROADMAP A.11b")
     if args.mesh:
         raise NotImplementedError("--mesh (sharded solve): ROADMAP A.13")
+
+
+def _load_b_assets(coeff_dir: str, scale_factor: float, device="cpu"):
+    """Real B coefficients (da_4dvar.py:520-526) when present; otherwise a
+    loud synthetic fallback, since a silently swapped B changes every sc4dvar
+    analysis (run_da.py:137-155)."""
+    from vaevar_tpu_torch.da.cvt import BMatrixAssets
+
+    if os.path.exists(os.path.join(coeff_dir, "len_scale.npy")):
+        return BMatrixAssets.load(coeff_dir, scale_factor)
+    print(
+        f"WARNING: B-matrix coefficient dir {coeff_dir!r} has no "
+        f"len_scale.npy — falling back to CALIBRATED SYNTHETIC B "
+        f"(BMatrixAssets.synthetic). Analyses will NOT match runs using "
+        f"the reference's dataset/bq_info_lr coefficients; pass "
+        f"--coeff_dir to use real assets.",
+        file=sys.stderr, flush=True,
+    )
+    return BMatrixAssets.synthetic(scale_factor, device=device)
+
+
+def _micro_decoder(shw, vae_ckpt):
+    """--micro's decoder config: the converters' micro VAE preset (two
+    groups, latent 8), or run_train_vae --micro's (six groups, latent 32)
+    when --vae_ckpt holds one of those."""
+    from vaevar_tpu_torch import config as cfgs
+    from vaevar_tpu_torch.train import checkpoint as ckpt
+
+    dec = cfgs.micro_vae_configs(img_size=shw)[1]
+    if vae_ckpt:
+        sd = ckpt.vae_decoder_params(ckpt.reference_state_dict(ckpt.restore(vae_ckpt)))
+        if any(k.startswith(f"enc.enc_list.{dec.n_groups}.") for k in sd):
+            dec = cfgs.micro_vae_train_configs(img_size=shw)[2]
+    return dec
 
 
 def main(argv=None):
@@ -157,6 +203,15 @@ def main(argv=None):
     hw = tuple(int(v) for v in args.grid.split("x"))
     shw = tuple(int(v) for v in args.solver_grid.split("x"))
     dtype = torch.bfloat16 if args.bf16 else None
+    for flag in ("vae_ckpt", "flow_ckpt", "forecast_ckpt", "data_dir"):
+        if getattr(args, flag) and not os.path.exists(getattr(args, flag)):
+            raise SystemExit(f"--{flag} {getattr(args, flag)}: no such file or directory")
+    flow_base = cfgs.micro_config(img_size=shw) if args.micro else fit_grid(cfgs.FLOW_140, shw)
+    latent = {}
+    if args.da_mode == "vae4dvar":  # sc4dvar's control is (69, *shw) and needs no decoder
+        dec_base = (_micro_decoder(shw, args.vae_ckpt) if args.micro
+                    else fit_grid(cfgs.VAE_DECODER, shw))
+        latent = {"latent_shape": (1, sum(dec_base.inchans_list), *shw)}
     cfg = cfgs.DAConfig(
         da_mode=args.da_mode, da_win=args.da_win, nit=args.Nit,
         obs_std=args.obs_std, obs_coeff=args.obs_coeff, filter_coeff=args.filter_coeff,
@@ -165,11 +220,8 @@ def main(argv=None):
         init_tp=args.init_tp, save_interval=args.save_interval,
         window_step_checkpoint=args.win_remat in ("both", "step"),
         lbfgs_max_evals=args.lbfgs_max_evals, lbfgs_linesearch=args.lbfgs_linesearch,
-        latent_shape=(1, 8 if args.micro else 32, *shw), grid_hw=hw, solver_hw=shw,
+        grid_hw=hw, solver_hw=shw, **latent,
     )
-    for flag in ("vae_ckpt", "flow_ckpt", "forecast_ckpt", "data_dir"):
-        if getattr(args, flag) and not os.path.exists(getattr(args, flag)):
-            raise SystemExit(f"--{flag} {getattr(args, flag)}: no such file or directory")
     if args.data_dir and args.data_layout == "reference":
         source = ReferenceLayoutStore(args.data_dir, hw)
     elif args.data_dir:
@@ -191,16 +243,18 @@ def main(argv=None):
         return model.to(device).eval().requires_grad_(False)
 
     t_models = time.perf_counter()
-    if args.micro:
-        dec_base = cfgs.micro_vae_configs(img_size=shw)[1]
-        flow_base = cfgs.micro_config(img_size=shw)
-    else:
-        dec_base, flow_base = fit_grid(cfgs.VAE_DECODER, shw), fit_grid(cfgs.FLOW_140, shw)
     # block remat of the decoder and the flow model when they run inside the
     # 4D-Var cost (run_da.py:284-300); 3D-Var keeps the faster backward
     block_remat = args.da_win > 1 and args.win_remat in ("both", "block")
-    decoder = build(dec_base.replace(dtype=dtype, remat=block_remat), args.seed,
-                    args.vae_ckpt, vae=True)
+    decoder = cvt = None
+    if args.da_mode == "vae4dvar":
+        decoder = build(dec_base.replace(dtype=dtype, remat=block_remat), args.seed,
+                        args.vae_ckpt, vae=True)
+    else:  # sc4dvar: run_da.py builds a decoder it never applies; no decoder here
+        from vaevar_tpu_torch.da.cvt import CVTransform
+
+        cvt = CVTransform(_load_b_assets(args.coeff_dir, args.scale_factor, device),
+                          solver_hw=shw, out_hw=hw, device=device)
     forecast_branch = bool(args.forecast_ckpt or (args.fast_init and hw != shw))
     flow = None
     # the flow model runs inside a window's cost or as the advance; else a
@@ -232,7 +286,7 @@ def main(argv=None):
     name = (f"run_stdmodify{args.modify_tp}_{args.obs_type}"
             f"_std{args.obs_std:.3f}_win{args.da_win}_Nit{args.Nit}")
     da = CycledDA(cfg, source, forecast_integrate, decoder,
-                  flow=flow if args.da_win > 1 else None, coeff_dir=args.coeff_dir,
+                  flow=flow if args.da_win > 1 else None, cvt=cvt, coeff_dir=args.coeff_dir,
                   work_dir=os.path.join(args.work_dir, name), seed=args.seed,
                   device=str(device))
     da.timings["models_s"] = models_s

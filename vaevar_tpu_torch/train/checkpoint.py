@@ -45,17 +45,27 @@ def exists(path: str) -> bool:
 # validation metric improves, checkpoint_best.
 
 
+def _optimizer_parts(opt_state):
+    """(optimizer, scheduler or None) of an OptState or a bare optimizer."""
+    if isinstance(opt_state, torch.optim.Optimizer):
+        return opt_state, None
+    return opt_state.optimizer, opt_state.scheduler
+
+
 def save_train_state(out_dir: str, trainable, opt_state, epoch: int, step: int = 0,
                      metric_best: float | None = None,
                      alias: str = "checkpoint_latest") -> str:
-    """Write the trainable ({"model": nn.Module, logvar bounds}) and the
-    optimizer state (forecast_trainer.OptState) under out_dir/alias."""
+    """Write the trainable ({"model": nn.Module, and any tensors such as
+    logvar bounds}) and the optimizer state (forecast_trainer.OptState, or
+    an optimizer without a scheduler) under out_dir/alias."""
     path = os.path.join(os.path.abspath(out_dir), alias)
     params = {k: (v.state_dict() if isinstance(v, torch.nn.Module) else v.detach())
               for k, v in trainable.items()}
-    save(path, {"params": params,
-                "opt_state": {"optimizer": opt_state.optimizer.state_dict(),
-                              "scheduler": opt_state.scheduler.state_dict()}})
+    optimizer, scheduler = _optimizer_parts(opt_state)
+    state = {"optimizer": optimizer.state_dict()}
+    if scheduler is not None:
+        state["scheduler"] = scheduler.state_dict()
+    save(path, {"params": params, "opt_state": state})
     meta = {"epoch": int(epoch), "step": int(step)}
     if metric_best is not None:
         meta["metric_best"] = float(metric_best)
@@ -78,8 +88,10 @@ def restore_train_state(out_dir: str, trainable, opt_state,
                 trainable[k].load_state_dict(v)
             else:
                 trainable[k].copy_(v)
-    opt_state.optimizer.load_state_dict(tree["opt_state"]["optimizer"])
-    opt_state.scheduler.load_state_dict(tree["opt_state"]["scheduler"])
+    optimizer, scheduler = _optimizer_parts(opt_state)
+    optimizer.load_state_dict(tree["opt_state"]["optimizer"])
+    if scheduler is not None:
+        scheduler.load_state_dict(tree["opt_state"]["scheduler"])
     meta = {"epoch": 0, "step": 0}
     if os.path.exists(path + ".meta.json"):
         with open(path + ".meta.json") as f:
