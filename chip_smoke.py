@@ -88,9 +88,22 @@ exits nonzero without its last line:
    decoder built, the synthetic-B WARNING on stderr, at most 5 L-BFGS
    iterations per segment, J lowered, finite fields; prints the resolved
    linesearch, spin-up and cycle seconds and peak memory.
+12. real_obs: the README's cycle with real observations (--obs_type real_simu
+   --use_eval: 2000 synthetic stations gridded onto the 204 observation-level
+   channels, the truth augmented on the card, QC, the 20 % holdout, the
+   full-grid cost with the augmentation inside J) at full width for 2 cycles
+   after the 8-step spin-up: 40 forward launches and no backward one,
+   `auto` -> jvp-zoom, J lowered, finite fields, obs gridded and kept by QC
+   in every cycle, error_obs.npy with 204 entries per cycle; prints the
+   spin-up and cycle seconds, the obs preparation split into truth reads,
+   gridding and copy + augment + QC, the solve seconds and peak memory. Then
+   one full-width prepbufr cycle (da_win 1, from the truth: 4 launches), one
+   full-width free_run cycle with --forecast_eval --forecast_eval_steps 2
+   (12 launches, forecast_wrmse.npy), a micro f32 real-obs window solve
+   (da_win 3) card vs CPU (norm-rel 1e-5), and interpolation at micro size.
 The second-to-last line is a JSON record of the kernels (launches summed
-over the DA, window, training, record, VAE-training and sc4dvar paths,
-each counted from 0; times with the main
+over the DA, window, training, record, VAE-training, sc4dvar and real-obs
+paths, each counted from 0; times with the main
 path's dtypes, and under "bf16" the all-bf16 ones; each bound from the
 function `bound_ms` below); the last line is {"ok": true, "device": {...}}.
 """
@@ -141,6 +154,10 @@ RECORD_FLAGS = ["--da_mode", "vae4dvar", "--da_win", "1", "--Nit", "4", "--obs_s
 # what run_da.sh's "$@" appends here: the store, and the end time cut to one
 # 6 h cycle after the spin-up
 RECORD_CUT = ["--end_time", "2022-01-01 06:00:00"]
+# the tentpole's real-obs cycle: the README cycle on a synthetic station network
+REAL_OBS_ARGS = MAIN_ARGS + ["--obs_type", "real_simu", "--use_eval"]
+# one 6 h cycle from the truth (--init_tp 1, no spin-up)
+ONE_CYCLE = FULL_WIDTH + ["--end_time", "2022-01-01 06:00:00", "--init_tp", "1"]
 TOTAL_STEPS = 200  # run_train_forecast's --steps x --epochs defaults
 
 
@@ -1054,6 +1071,192 @@ def check_record(fa):
     return counts[0]
 
 
+def micro_real_obs_problem(device, da_win=3, low=(16, 32), full=(47, 93)):
+    """(cost, to_state, parts, z0, bundle) of a micro f32 real-obs window
+    cost: the full-grid cost with the augmentation inside J, relbias decoder
+    and flow model (block and step remat) on a 16x32 solver grid under a
+    47x93 analysis grid, the 204 augmented channels, R of the channels'
+    squared std (so J is well conditioned). Inputs from numpy seeds, built on
+    the CPU and moved, so both devices see the same values."""
+    import numpy as np
+    import torch
+
+    from vaevar_tpu_torch import channels
+    from vaevar_tpu_torch import config as cfgs
+    from vaevar_tpu_torch.da import cost as cost_mod
+    from vaevar_tpu_torch.da import obs as obs_mod
+    from vaevar_tpu_torch.models.lgunet import LGUnet
+    from vaevar_tpu_torch.ops.interp import augment_levels, obs_level_interp_matrix
+    from vaevar_tpu_torch.utils.fast_init import fast_init
+
+    dec = fast_init(LGUnet(cfgs.micro_vae_configs(img_size=low)[1].replace(remat=True)), seed=1)
+    flow = fast_init(LGUnet(cfgs.micro_config(img_size=low, attn_type="relbias", remat=True)),
+                     seed=2)
+    dec, flow = (m.to(device).eval().requires_grad_(False) for m in (dec, flow))
+    rr = np.random.default_rng(0)
+    m, s = channels.MEAN.reshape(-1, 1, 1), channels.STD.reshape(-1, 1, 1)
+    interp = obs_level_interp_matrix(40)
+    truth = torch.as_tensor((m + s * rr.normal(size=(da_win, 69, *full))).astype(np.float32))
+    std_aug = obs_mod.std_layer_augmented(40).reshape(1, -1, 1, 1)
+    yo = augment_levels(truth, interp).numpy()
+    arrs = ((m + s * rr.normal(size=(69, *full))),
+            yo + 0.5 * std_aug * rr.normal(size=yo.shape),
+            rr.random(yo.shape) < 0.3,
+            std_aug ** 2 * (0.5 + rr.random((da_win, yo.shape[1], 1, 1))))
+    bundle = cost_mod.ObsBundle(*(torch.as_tensor(np.asarray(a, np.float32), device=device)
+                                  for a in arrs))
+    cost, to_state, parts = cost_mod.make_vae4dvar_cost(dec, flow, flow_hw=low, da_win=da_win,
+                                                        interp_matrix=interp)
+    z0 = torch.as_tensor(0.1 * rr.standard_normal((1, 8, *low)), dtype=torch.float32,
+                         device=device)
+    return cost, to_state, parts, z0, bundle
+
+
+def check_micro_real_obs():
+    """Phase 12, micro part: one f32 real-obs window solve (da_win 3, `auto`
+    linesearch) on the CPU and on the card; analyses within norm-rel 1e-5."""
+    import torch
+
+    from vaevar_tpu_torch.da.solver import VariationalSolver
+
+    out = {}
+    for dev in ("cpu", "cuda"):
+        cost, to_state, parts, z0, bundle = micro_real_obs_problem(dev)
+        solver = VariationalSolver(cost, to_state, parts, lbfgs_iters=4, history=4,
+                                   linesearch="auto")
+        x, xa, diag = solver.solve(z0, bundle, nit=2, verbose=False)
+        with torch.no_grad():
+            j = [float(sum(parts(q, bundle))) for q in (z0, x)]
+        out[dev] = (xa.cpu(), diag, j)
+    (xc, dc, _), (xg, dg, jg) = out["cpu"], out["cuda"]
+    nrel = float((xg - xc).norm() / xc.norm())
+    phase("real_obs", f"micro f32 real-obs window solve (da_win 3, 204 channels), card vs CPU: "
+          f"linesearch {dg.linesearch}/{dc.linesearch}; iterations {dg.n_iters}/{dc.n_iters}, "
+          f"evals {dg.n_evals}/{dc.n_evals}; J on the card {jg[0]:.7g} -> {jg[1]:.7g}; "
+          f"analyses norm-rel {nrel:.3g} (tol 1e-5)")
+    if not (nrel <= 1e-5 and jg[1] < jg[0]):
+        raise AssertionError("the micro real-obs window solve on the card disagrees with the CPU "
+                             "or did not lower J")
+
+
+def run_da_phase(fa, argv):
+    """run_da.main(argv) in a temporary work dir with the launch counts set
+    to 0 just before; returns (da, (fwd, dq, dkv) launches, seconds with the
+    model set-up, peak device memory in GiB, {output file: array})."""
+    import numpy as np
+    import torch
+
+    from vaevar_tpu_torch import run_da
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as work:
+        fa.flash_fwd_launches = fa.flash_dq_launches = fa.flash_dkv_launches = 0
+        t0 = time.perf_counter()
+        da = run_da.main(list(argv) + ["--work_dir", work])
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        counts = (fa.flash_fwd_launches, fa.flash_dq_launches, fa.flash_dkv_launches)
+        outs = {f: np.load(os.path.join(da.work_dir, f), allow_pickle=True)
+                for f in sorted(os.listdir(da.work_dir)) if f.endswith(".npy")}
+    return da, counts, total, torch.cuda.max_memory_allocated() / 2**30, outs
+
+
+def check_cycle_log(name, da, want_cycles, linesearch="jvp-zoom"):
+    """Per cycle: finite fields, J lowered (within the approximate-decrease
+    slack of the zoom, 1e-6 |J| per iteration) and the linesearch; prints
+    the cycle's seconds and, for station obs, its obs counts."""
+    if len(da.cycle_log) != want_cycles:
+        raise AssertionError(f"{name}: {len(da.cycle_log)} cycles; want {want_cycles}")
+    for c in da.cycle_log:
+        j = [b + o for b, o in zip(c["jb"], c["jo"])]
+        obs = ""
+        if "grid_s" in c:
+            obs = (f" (truth {c['truth_s']:.2f} s, gridding {c['grid_s']:.2f} s"
+                   + (f", copy + augment + QC {c['aug_qc_s']:.2f} s" if "aug_qc_s" in c else "")
+                   + f"); obs gridded {c['n_gridded']:.0f}"
+                   + (f", kept by QC {c['n_kept']:.0f}" if "n_kept" in c else ""))
+        phase(name, f"cycle {c['time']}: {c['seconds']:.2f} s: obs {c['obs_s']:.2f} s{obs}; "
+              f"solve {c['solve_s']:.2f} s; linesearch {c['linesearch'] or '-'}; iterations "
+              f"{c['n_iters']}, evals {c['n_evals']}, jvp probes {c['n_jvp']}"
+              + (f"; J {j[0]:.7g} -> {j[-1]:.7g}" if j else ""))
+        if not (c["xa_finite"] and c["xb_next_finite"]):
+            raise AssertionError(f"{name}: non-finite analysis or background at {c['time']}")
+        if "n_gridded" in c and not (c["n_gridded"] > 0 and c.get("n_kept", 1) > 0):
+            raise AssertionError(f"{name}: no obs gridded or kept at {c['time']}")
+        if linesearch is None:
+            continue
+        slack = 1e-6 * abs(j[0]) * c["n_iters"][-1]
+        if c["linesearch"] != linesearch or not (j[-1] < j[0] and max(j) <= j[0] + slack):
+            raise AssertionError(f"{name}: linesearch {c['linesearch']}, J {j} at {c['time']}")
+
+
+def check_real_obs(fa):
+    """Phase 12: real observations and the rest of the DA surface. Returns
+    the forward launches of its full-width runs."""
+    import numpy as np
+
+    from vaevar_tpu_torch import config as cfgs
+
+    per_step = cfgs.FORECAST_025.lg_depths[0]
+    da, counts, total, peak, outs = run_da_phase(fa, REAL_OBS_ARGS)
+    want = (da.cfg.init_lag + len(da.cycle_log)) * per_step
+    err = outs.get("error_obs.npy")
+    phase("real_obs", f"real_simu --use_eval, 2000 synthetic stations: {len(da.cycle_log)} cycles "
+          f"in {total:.2f} s (models {da.timings['models_s']:.2f} s); spin-up "
+          f"{da.timings['spin_up_s']:.2f} s; cycles "
+          + ", ".join(f"{v:.2f}" for v in da.timings["cycle_s"]) + f" s; peak memory "
+          f"{peak:.2f} GiB; error_obs {None if err is None else err.shape}; flash launches "
+          f"(fwd, dq, dkv) {counts}")
+    check_cycle_log("real_obs", da, 2)
+    if counts != (want, 0, 0):
+        raise AssertionError(f"real_obs launched (fwd, dq, dkv) {counts}; want ({want}, 0, 0)")
+    if err is None or err.shape != (2, 204) or not np.isfinite(err).all():
+        raise AssertionError(f"error_obs.npy: {None if err is None else err.shape}; want (2, 204)")
+    launches = counts[0]
+    del da, outs
+
+    da, counts, total, peak, _ = run_da_phase(fa, ONE_CYCLE + ["--obs_type", "prepbufr"])
+    phase("real_obs", f"prepbufr, 1 cycle from the truth: {total:.2f} s with the models; peak "
+          f"memory {peak:.2f} GiB; flash launches (fwd, dq, dkv) {counts}")
+    check_cycle_log("prepbufr", da, 1)
+    if counts != (per_step, 0, 0):
+        raise AssertionError(f"prepbufr launched {counts}; want ({per_step}, 0, 0)")
+    launches += counts[0]
+    del da
+
+    argv = ["--da_mode", "free_run"] + ONE_CYCLE[2:] + ["--forecast_eval",
+                                                         "--forecast_eval_steps", "2"]
+    da, counts, total, peak, outs = run_da_phase(fa, argv)
+    fw = outs.get("forecast_wrmse.npy")
+    phase("real_obs", f"free_run --forecast_eval_steps 2: {total:.2f} s with the models; peak "
+          f"memory {peak:.2f} GiB; decoder built {da.decoder is not None}; forecast_wrmse "
+          f"{None if fw is None else fw.shape}, z500 at +6 h and +12 h "
+          f"{None if fw is None else fw[0, :, 11]}; flash launches (fwd, dq, dkv) {counts}")
+    check_cycle_log("free_run", da, 1, linesearch=None)
+    if counts != (3 * per_step, 0, 0) or da.decoder is not None:
+        raise AssertionError(f"free_run launched {counts}; want ({3 * per_step}, 0, 0)")
+    if fw is None or fw.shape != (1, 2, 69) or not np.isfinite(fw).all():
+        raise AssertionError(f"forecast_wrmse.npy: {None if fw is None else fw.shape}")
+    launches += counts[0]
+    del da, outs
+
+    check_micro_real_obs()
+    argv = ["--micro", "--fast_init", "--grid", "32x64", "--solver_grid", "32x64",
+            "--init_lag", "1", "--end_time", "2022-01-01 06:00:00", "--da_mode",
+            "interpolation", "--obs_type", "real_simu", "--use_eval"]
+    da, counts, total, _, outs = run_da_phase(fa, argv)
+    err = outs.get("error_obs.npy")
+    phase("real_obs", f"interpolation, real_simu --use_eval at 32x64 (micro): {total:.2f} s; "
+          f"griddata {da.cycle_log[0]['solve_s']:.2f} s on the host; error_obs "
+          f"{None if err is None else err.shape}; ana z500 "
+          f"{outs['ana_wrmse.npy'][0, 11]:.6g} vs bg {outs['bg_wrmse.npy'][0, 11]:.6g}")
+    check_cycle_log("interpolation", da, 1, linesearch=None)
+    if err is None or err.shape != (1, 204) or not np.isfinite(err).all():
+        raise AssertionError("interpolation: error_obs.npy missing or not finite")
+    return launches
+
+
 def main():
     import torch
 
@@ -1146,6 +1349,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     sc4dvar_launches = check_sc4dvar(fa)
+    gc.collect()
+    torch.cuda.empty_cache()
+    real_obs_launches = check_real_obs(fa)
 
     stats = {"flash_fwd": fwd, "flash_dq": bwd["flash_dq"], "flash_dkv": bwd["flash_dkv"]}
     replaces = {"flash_fwd": ("flash_fwd.cu", "vaevar_tpu/ops/pallas_attn.py:47"),
@@ -1158,7 +1364,7 @@ def main():
             "replaces": tpu,
             "launches": train_counts[name] + (
                 launches + window_launches + record_launches + vae_launches + sc4dvar_launches
-                if name == "flash_fwd" else 0),
+                + real_obs_launches if name == "flash_fwd" else 0),
             "max_abs_err": stats[name]["max_abs_err"]}
         rec.update(main)
         rec["share_of_bound"] = main["bound_ms"] / main["ms"]

@@ -8,8 +8,9 @@ tables the port carries as copies (channel registry, model and DA configs
 and `from_reference_dict`, the ERA5 sources and stores, the native loader
 binding, `reference_state_dict`, `lgunet_block_from_yaml`, the
 relative-position index, the synthetic obs masks, R and the model error Q,
-the batch prefetcher, the SHT's quadrature weights and Legendre table) are
-held equal to the reference here."""
+the batch prefetcher, the SHT's quadrature weights and Legendre table, the
+observation-level ladder and matrices, the station and real-obs gridding
+and the report sources) are held equal to the reference here."""
 
 import dataclasses
 import inspect
@@ -30,6 +31,8 @@ from vaevar_tpu.utils import port_torch
 from vaevar_tpu import config as jcfg
 from vaevar_tpu.da import obs as jobs
 from vaevar_tpu.data import prefetch as jprefetch
+from vaevar_tpu.data import reports as jreports
+from vaevar_tpu.ops import interp as jinterp
 from vaevar_tpu.data.era5 import SyntheticEra5 as JaxEra5
 from vaevar_tpu.ops import sht as jsht
 from vaevar_tpu.ops.posenc import relative_position_index as j_rpi
@@ -41,6 +44,8 @@ from vaevar_tpu_torch.data import native_loader as tnative
 from vaevar_tpu_torch.train import checkpoint as tckpt
 from vaevar_tpu_torch.da import obs as tobs
 from vaevar_tpu_torch.data import prefetch as tprefetch
+from vaevar_tpu_torch.data import reports as treports
+from vaevar_tpu_torch.ops import interp as tinterp
 from vaevar_tpu_torch.data.era5 import SyntheticEra5 as TorchEra5
 from vaevar_tpu_torch.ops import sht as tsht
 from vaevar_tpu_torch.ops.posenc import relative_position_index as t_rpi
@@ -209,3 +214,21 @@ def test_sht_table_copies_equal_reference(n):
     if n <= 128:
         np.testing.assert_array_equal(tsht._legendre_table(n, n, n + 1),
                                       jsht._legendre_table(n, n, n + 1))
+
+
+@pytest.mark.parametrize("module, name", [
+    ("interp", "obs_height_levels"), ("interp", "obs_level_interp_matrix"),
+    ("interp", "obs_level_interp_matrix_inv"), ("interp", "_log_linear_matrix"),
+    ("obs", "make_obs_mask"), ("obs", "_report_fields"), ("obs", "_grid_indices"),
+    ("obs", "_time_slot"), ("obs", "station_mask_from_reports"),
+    ("obs", "_geopotential_coeff"), ("obs", "_temperature_coeff"), ("obs", "grid_real_obs"),
+    ("obs", "std_layer_augmented"), ("reports", "_stamp"),
+    ("reports", "LocalReportsStore"), ("reports", "SyntheticReports")])
+def test_real_obs_copies_equal_reference(module, name):
+    """The numpy code of the real-obs path, line for line (its behaviour is
+    held bitwise in tests/test_torch_real_obs.py)."""
+    port, ref = {"interp": (tinterp, jinterp), "obs": (tobs, jobs),
+                 "reports": (treports, jreports)}[module]
+    assert _src(getattr(port, name)) == inspect.getsource(getattr(ref, name))
+    if module == "obs":
+        np.testing.assert_array_equal(tobs._STATION_HEIGHT_BINS, jobs._STATION_HEIGHT_BINS)

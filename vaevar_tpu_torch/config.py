@@ -6,8 +6,7 @@ defaults are the reference's (tests/test_torch_import.py holds them equal);
 the port's modules read configs by attribute, so a reference config object
 works in their place too. `LGUnetConfig.from_reference_dict` maps a
 reference YAML `lgunet_all` block onto a config, as the reference's does.
-`DAConfig` keeps the fields of the vae4dvar path and the two flags of the
-configuration of record that it carries for later modes.
+`DAConfig` keeps the fields that the port's DA path reads.
 """
 
 from __future__ import annotations
@@ -162,25 +161,26 @@ def micro_vae_train_configs(img_size=(16, 32), **overrides):
 
 @dataclass(frozen=True)
 class DAConfig:
-    """Cycled vae4dvar configuration, 3D-Var and the 4D-Var window (the
-    fields of vaevar_tpu.config.DAConfig that this path reads, same
-    defaults)."""
+    """Cycled DA configuration, 3D-Var and the 4D-Var window (the fields of
+    vaevar_tpu.config.DAConfig that the port reads, same defaults)."""
 
-    da_mode: str = "vae4dvar"
+    da_mode: str = "vae4dvar"  # free_run | interpolation | sc4dvar | vae4dvar
     da_win: int = 1  # hourly slots in the window (1 => 3D-Var)
     nit: int = 4  # outer iterations (L-BFGS segments)
     lbfgs_iters: int = 10  # quasi-Newton iterations per segment
     lbfgs_history: int = 10
     obs_std: float = 0.005
     obs_coeff: float = 1.0
-    filter_coeff: float = 0.1  # real-obs quality control (ROADMAP A.11b)
+    filter_coeff: float = 0.1  # real-obs QC: keep |yo - gt| < filter_coeff * sigma
     obs_type: str = "column_random_0001"
     q_type: int = 1  # model error Q in R for slots >= 1 (da/obs.load_q_matrix)
     scale_factor: float = 2.0  # sc4dvar B length scales (ROADMAP A.10)
     modify_tp: int = 2
+    interp_dim: int = 40  # observation levels of real obs: 4 + 5 * interp_dim channels
     init_lag: int = 8
-    init_tp: int = 0
+    init_tp: int = 0  # spin-up: 0 forecast init_lag steps, 1 truth, 2 truth of 183 days before
     save_interval: int = 5
+    use_eval: bool = False  # hold out obs cells (mask_eval) and report error_obs
     latent_shape: tuple[int, ...] = (1, 32, 128, 256)
     grid_hw: tuple[int, int] = (721, 1440)  # analysis grid
     solver_hw: tuple[int, int] = (128, 256)  # latent grid

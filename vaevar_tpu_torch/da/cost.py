@@ -13,9 +13,12 @@ so the full-resolution obs term reduces exactly onto the solver grid once
 per cycle: `reduce_obs` for da_win = 1, `reduce_obs_window` for windows,
 where the rollout then runs natively on the solver grid through the static
 gather S = down o up. The full-grid windowed cost (`make_vae4dvar_cost`,
-`make_sc4dvar_cost`) is the reference the reduced form is held to and the
-path of a window without a flow model. Both modes share each form's code:
-only the map from the control to the low-res increment differs.
+`make_sc4dvar_cost`) is the reference the reduced form is held to, the
+path of a window without a flow model, and the path of real observations:
+there each slot's prediction is augmented to the 4 + 5 * dim_out
+observation-level channels (ops/interp.augment_levels) before the
+innovation (da_4dvar.py:1196-1206). Both modes share each form's code: only
+the map from the control to the low-res increment differs.
 """
 
 from __future__ import annotations
@@ -27,18 +30,16 @@ import torch
 
 from vaevar_tpu_torch import channels
 from vaevar_tpu_torch.da.dynamics import checkpointed, make_integrate, rollout_window
-from vaevar_tpu_torch.ops.interp import _nearest_idx, resize_nearest
-
-_A11 = "real observations on augmented levels (interp_matrix): ROADMAP A.11b"
+from vaevar_tpu_torch.ops.interp import _nearest_idx, augment_levels, resize_nearest
 
 
 class ObsBundle(NamedTuple):
     """Per-cycle data: background and observations."""
 
     xb: torch.Tensor  # (69, H, W)
-    yo: torch.Tensor  # (T, 69, H, W)
-    H: torch.Tensor  # (T, 69, H, W) 0/1 mask
-    R: torch.Tensor  # (T, 69, 1, 1) obs error variance, or full (T, 69, H, W)
+    yo: torch.Tensor  # (T, C_obs, H, W): C_obs 69, or 4 + 5 * dim_out for real obs
+    H: torch.Tensor  # (T, C_obs, H, W) 0/1 mask
+    R: torch.Tensor  # (T, C_obs, 1, 1) obs error variance, or full (T, C_obs, H, W)
 
 
 class ReducedObs(NamedTuple):
@@ -229,9 +230,10 @@ def make_sc4dvar_cost_window_reduced(increment: Callable, flow=None, da_win: int
 
 
 def obs_term(x_pred, bundle: ObsBundle, interp_matrix=None):
-    """1/2 sum H (x_pred - yo)^2 / R."""
+    """1/2 sum H (x_pred - yo)^2 / R, with x_pred first augmented to the
+    observation levels when `interp_matrix` is given."""
     if interp_matrix is not None:
-        raise NotImplementedError(_A11)
+        x_pred = augment_levels(x_pred, interp_matrix)
     return 0.5 * torch.sum(bundle.H * (x_pred - bundle.yo) ** 2 / bundle.R)
 
 
@@ -246,12 +248,16 @@ def _window_predict(x0, flow, flow_hw, da_win: int):
 
 def _make_window_obs(flow, flow_hw, da_win: int, interp_matrix=None):
     """Jo accumulated inside the rollout, one checkpoint per step, so the
-    live set is one slot (the reference's folded form)."""
-    if interp_matrix is not None:
-        raise NotImplementedError(_A11)
+    live set is one slot (the reference's folded form). With real obs
+    (`interp_matrix`) each slot's prediction is augmented to the observation
+    levels inside the step, so the backward recomputes the augmentation
+    with the flow step (da_4dvar.py:1196-1206)."""
 
     def jo_slot(x, yo_t, h_t, r_t):
-        return 0.5 * torch.sum(h_t * (x - yo_t) ** 2 / r_t)
+        p = x[None]
+        if interp_matrix is not None:
+            p = augment_levels(p, interp_matrix)
+        return 0.5 * torch.sum(h_t * (p[0] - yo_t) ** 2 / r_t)
 
     if da_win > 1 and flow is not None:
         integrate = make_integrate(flow, flow_hw)
@@ -264,7 +270,7 @@ def _make_window_obs(flow, flow_hw, da_win: int, interp_matrix=None):
     def window_obs(x0, bundle: ObsBundle):
         if flow is None and da_win > 1:
             # persistence: x0 scored against every slot
-            return obs_term(x0[None], bundle)
+            return obs_term(x0[None], bundle, interp_matrix)
         R = bundle.R.expand(bundle.yo.shape[0], *bundle.R.shape[1:])
         jo = jo_slot(x0, bundle.yo[0], bundle.H[0], R[0])
         x = x0
@@ -276,10 +282,10 @@ def _make_window_obs(flow, flow_hw, da_win: int, interp_matrix=None):
     return window_obs
 
 
-def _full_cost(to_state, flow, flow_hw, da_win, obs_coeff):
+def _full_cost(to_state, flow, flow_hw, da_win, obs_coeff, interp_matrix=None):
     """(cost, to_state, cost_parts) on a full-resolution ObsBundle for
     (x, bundle) -> the state on xb's grid."""
-    window_obs = _make_window_obs(flow, flow_hw, da_win)
+    window_obs = _make_window_obs(flow, flow_hw, da_win, interp_matrix)
 
     def cost(x, bundle: ObsBundle):
         return 0.5 * torch.sum(x ** 2) + obs_coeff * window_obs(to_state(x, bundle), bundle)
@@ -295,21 +301,21 @@ def make_vae4dvar_cost(decoder, flow=None, flow_hw=(128, 256), da_win: int = 1,
     """(cost, decode_to_state, cost_parts) on a full-resolution ObsBundle.
 
     decoder(z) -> (1, 69, h', w') is nearest-upsampled to xb's grid, scaled
-    by err_std * model_std and added to xb (da_4dvar.py:1185-1188)."""
-    if interp_matrix is not None:
-        raise NotImplementedError(_A11)
-    return _full_cost(_state_fn(_increment_fn(decoder)), flow, flow_hw, da_win, obs_coeff)
+    by err_std * model_std and added to xb (da_4dvar.py:1185-1188). With
+    `interp_matrix` (dim_out, 13) the obs are real obs on the 4 + 5 * dim_out
+    augmented channels: the only form for them, as QC'd level-augmented
+    innovations do not reduce onto the solver grid."""
+    return _full_cost(_state_fn(_increment_fn(decoder)), flow, flow_hw, da_win, obs_coeff,
+                      interp_matrix)
 
 
 def make_sc4dvar_cost(transform: Callable, flow=None, flow_hw=(128, 256), da_win: int = 1,
                       obs_coeff: float = 1.0, interp_matrix=None):
     """(cost, to_state, cost_parts) on a full-resolution ObsBundle, with the
     state transform(w, xb) = xb + up(B^1/2 w) (cvt.CVTransform); the form
-    of a window without a flow model."""
-    if interp_matrix is not None:
-        raise NotImplementedError(_A11)
+    of a window without a flow model and of real obs (`interp_matrix`)."""
     return _full_cost(lambda w, bundle: transform(w, bundle.xb), flow, flow_hw, da_win,
-                      obs_coeff)
+                      obs_coeff, interp_matrix)
 
 
 def _reduced_cost(increment, obs_coeff):

@@ -1,13 +1,24 @@
 """Cycled data assimilation loop: background -> analysis -> 6 h forecast.
 
-Port of vaevar_tpu/da/cycler.py for vae4dvar and sc4dvar with synthetic
-observations: spin-up (`get_initial_state`), per-cycle truth frames at 1 h
-steps over the window and obs masks drawn from one seeded generator in cycle
-order, R with the model error Q for the window's later slots, the solve
-through the VAE decoder (vae4dvar) or the control-variable transform B^1/2
-(sc4dvar, `cvt`), in 3D-Var or in 4D-Var with the hourly flow model inside
-J, the forecast advance, per-cycle metrics appended to `metrics_log.jsonl` and
-consolidated into `<metric>.npy` dumps, and a restartable on-disk state
+Port of vaevar_tpu/da/cycler.py: spin-up (`get_initial_state`, init_tp 0,
+1 or 2), per-cycle truth frames at 1 h steps over the window, and the
+observations of the obs type:
+- synthetic masks (free_, column_random_, mask files in `mask_dir`) drawn
+  from one seeded generator in cycle order, obs = truth at mask points;
+- prepbufr*: the 69-channel mask gridded from station reports, obs = truth;
+- real*: station reports (or `obs_from_numpy` arrays) gridded onto the
+  4 + 5 * interp_dim observation-level channels, the truth augmented to
+  them on the device, QC'd against it, and for real_simu* replaced by it;
+  R augmented likewise.
+R carries the model error Q for the window's later slots. The analysis comes
+from the solve through the VAE decoder (vae4dvar) or the control-variable
+transform B^1/2 (sc4dvar, `cvt`), in 3D-Var or in 4D-Var with the hourly
+flow model inside J (reduced onto the solver grid, or the full-grid cost for
+real obs), or from a baseline (free_run: the background; interpolation:
+griddata on the host). Then the forecast advance, per-cycle metrics appended
+to `metrics_log.jsonl` and consolidated into `<metric>.npy` dumps, with
+`use_eval` the obs-space error on held-out cells (`error_obs`), optional
+field dumps and a multi-step forecast score, and a restartable on-disk state
 (`xb.npy` + `current_time.txt`). Obs preparation runs serially (the
 reference's obs prefetch thread changes no number). The forecast model runs
 under torch.no_grad(): no cost differentiates through the advance.
@@ -27,9 +38,11 @@ import torch
 
 from vaevar_tpu_torch import channels
 from vaevar_tpu_torch.config import DAConfig
+from vaevar_tpu_torch.da import baselines
 from vaevar_tpu_torch.da import cost as cost_mod
 from vaevar_tpu_torch.da import obs as obs_mod
-from vaevar_tpu_torch.da.solver import VariationalSolver
+from vaevar_tpu_torch.da.solver import SolveDiagnostics, VariationalSolver
+from vaevar_tpu_torch.ops.interp import augment_levels, obs_level_interp_matrix
 from vaevar_tpu_torch.utils import metrics as M
 
 CYCLE = timedelta(hours=6)
@@ -73,25 +86,60 @@ class CycledDA:
     seed: int = 0
     device: str = "cpu"
     verbose: bool = True
+    reports_source: object = None  # .get_reports(datetime): station reports
+    # (data/reports.py) for the real* and prepbufr* obs types
+    mask_dir: str | None = None  # mask_<obs_type>.npy files
+    mask_eval: np.ndarray | None = None  # obs-space holdout (C_obs, H, W);
+    # with use_eval and none given, a synthetic 20 % holdout from seed + 7
+    save_field: bool = False  # dump xb/xa per cycle (da_4dvar.py:713-716)
+    save_gt: bool = False  # dump the truth per cycle (da_4dvar.py:717-719)
+    save_obs: bool = False  # dump the obs per cycle (da_4dvar.py:720-722)
+    forecast_eval: bool = False  # per-cycle forecast WRMSE from the analysis
+    forecast_eval_steps: int = 20  # leads of 6 h (20 = 5 days)
+    obs_from_numpy: str | None = None  # pre-gridded obs dir
+    # (obs.load_numpy_obs) in place of station gridding, real obs only
     metrics_list: dict = field(default_factory=lambda: {k: [] for k in _METRIC_KEYS})
 
     def __post_init__(self):
         cfg = self.cfg
-        if cfg.da_mode not in ("vae4dvar", "sc4dvar"):
-            raise NotImplementedError(
-                f"da_mode {cfg.da_mode!r}: only vae4dvar and sc4dvar are ported "
-                "(free_run/interpolation: ROADMAP A.11b)")
-        role = "decoder" if cfg.da_mode == "vae4dvar" else "cvt"
-        if getattr(self, role) is None:
-            raise ValueError(f"da_mode {cfg.da_mode!r} needs a {role}")
-        if cfg.init_tp not in (0, 1):
-            raise NotImplementedError(f"init_tp {cfg.init_tp}: ROADMAP A.11b")
+        if cfg.da_mode not in ("free_run", "interpolation", "vae4dvar", "sc4dvar"):
+            raise NotImplementedError(f"da_mode {cfg.da_mode!r}")
+        if cfg.da_mode in ("vae4dvar", "sc4dvar"):
+            role = "decoder" if cfg.da_mode == "vae4dvar" else "cvt"
+            if getattr(self, role) is None:
+                raise ValueError(f"da_mode {cfg.da_mode!r} needs a {role}")
+        self.is_real_obs = cfg.obs_type.startswith("real")
+        # station families fail at construction, not at the first cycle
+        if cfg.obs_type.startswith("prepbufr"):
+            if cfg.da_win not in (1, 6):
+                raise NotImplementedError("prepbufr obs: da_win must be 1 or 6 "
+                                          "(da_4dvar.py:192)")
+            if self.reports_source is None:
+                raise ValueError("obs_type=prepbufr* needs a reports_source "
+                                 "(LocalReportsStore/SyntheticReports)")
+        if self.is_real_obs and self.reports_source is None and not self.obs_from_numpy:
+            raise ValueError("obs_type=real* needs a reports_source or obs_from_numpy")
         os.makedirs(self.work_dir, exist_ok=True)
         self._rng = np.random.default_rng(self.seed)
-        q = obs_mod.load_q_matrix(self.coeff_dir or ".", cfg.q_type,
+        q = obs_mod.load_q_matrix(self.coeff_dir or self.mask_dir or ".", cfg.q_type,
                                   cfg.da_win) if cfg.da_win > 1 else None
         self.R = obs_mod.build_R(
             obs_mod.obs_error_variance(cfg.obs_std, cfg.modify_tp), q, cfg.da_win)
+        self._interp = None
+        if self.is_real_obs:
+            self._interp = obs_level_interp_matrix(cfg.interp_dim)
+            # R on the observation levels (da_4dvar.py:744-756)
+            self.R_aug = augment_levels(torch.as_tensor(self.R), self._interp).numpy()
+            self._std_aug = obs_mod.std_layer_augmented(cfg.interp_dim)
+        if cfg.use_eval and self.mask_eval is None:
+            # stand-in for the reference's dataset/mask_eval1.npy (not in its
+            # repo): hold out ~20 % of the obs cells for validation
+            c_obs = 4 + 5 * cfg.interp_dim if self.is_real_obs else channels.N_CHANNELS
+            self.mask_eval = (np.random.default_rng(self.seed + 7)
+                              .random((c_obs, *cfg.grid_hw)) < 0.2).astype(np.float32)
+        self._mask_eval_t = None  # its device copy, made at first use
+        if self.forecast_eval:
+            self.metrics_list["forecast_wrmse"] = []
         self._load_metrics()
         for model in (self.decoder, self.flow):
             if model is not None:
@@ -104,10 +152,13 @@ class CycledDA:
 
     @property
     def _reducible(self):
-        """Per-channel synthetic obs with a nearest upsample: the obs term
-        reduces exactly onto the solver grid (cost.ReducedObs for 3D-Var,
-        cost.ReducedWindowObs for windows); a window without a flow model
-        keeps the full windowed form."""
+        """Per-channel obs with a nearest upsample: the obs term reduces
+        exactly onto the solver grid (cost.ReducedObs for 3D-Var,
+        cost.ReducedWindowObs for windows). Real obs (level-augmented
+        innovations and QC masks) and a window without a flow model keep the
+        full windowed form."""
+        if self._interp is not None:
+            return False
         return not (self.cfg.da_win > 1 and self.flow is None)
 
     @property
@@ -119,8 +170,12 @@ class CycledDA:
         the reduced 3D-Var cost, the reduced window cost or the full windowed
         cost of the mode, with the obs reduction it takes
         (`self._reduce_obs`). sc4dvar runs at most 5 L-BFGS iterations per
-        segment (da_4dvar.py:1119), with the eval budget derived from them."""
+        segment (da_4dvar.py:1119), with the eval budget derived from them.
+        free_run and interpolation solve nothing (None)."""
         cfg = self.cfg
+        self._reduce_obs = None
+        if cfg.da_mode not in ("vae4dvar", "sc4dvar"):
+            return None
         sc = cfg.da_mode == "sc4dvar"
         if self._use_reduced_obs:
             c, to_state, parts = (
@@ -138,8 +193,7 @@ class CycledDA:
             make = cost_mod.make_sc4dvar_cost if sc else cost_mod.make_vae4dvar_cost
             c, to_state, parts = make(
                 self.cvt if sc else self.decoder, self.flow, flow_hw=cfg.solver_hw,
-                da_win=cfg.da_win, obs_coeff=cfg.obs_coeff)
-            self._reduce_obs = None
+                da_win=cfg.da_win, obs_coeff=cfg.obs_coeff, interp_matrix=self._interp)
         return VariationalSolver(
             c, to_state, parts, lbfgs_iters=min(cfg.lbfgs_iters, 5) if sc else cfg.lbfgs_iters,
             history=cfg.lbfgs_history, max_segment_evals=cfg.lbfgs_max_evals,
@@ -191,7 +245,11 @@ class CycledDA:
         if not consolidate:
             return
         for k, v in self.metrics_list.items():
-            np.save(os.path.join(self.work_dir, k), np.asarray(v))
+            try:
+                arr = np.asarray(v)
+            except ValueError:  # ragged (a forecast_eval row cut by the truth's end)
+                arr = np.array(v, dtype=object)
+            np.save(os.path.join(self.work_dir, k), arr)
         open(os.path.join(self.work_dir, "metrics_log.jsonl"), "w").close()
 
     def save_ckpt(self, current_time, xb):
@@ -218,8 +276,13 @@ class CycledDA:
 
     @torch.no_grad()
     def get_initial_state(self, start_time):
-        """Spin-up per init_tp (da_4dvar.py:649-664)."""
+        """Spin-up per init_tp (da_4dvar.py:649-664): 0 integrates the
+        forecast model init_lag steps from the truth init_lag cycles before
+        the start, 1 takes that truth, any other value the truth of 4 x 183
+        cycles (183 days) before the start."""
         cfg = self.cfg
+        if cfg.init_tp not in (0, 1):
+            return self._dev(self.state_source.get_state(start_time - 4 * 183 * CYCLE))
         x0 = self._dev(self.state_source.get_state(start_time - cfg.init_lag * CYCLE))
         if cfg.init_tp == 0:
             return self.forecast_integrate(x0, cfg.init_lag, True)
@@ -232,12 +295,60 @@ class CycledDA:
     # --- per-cycle pieces -------------------------------------------------
 
     def get_obs_info(self, current_time):
-        """(yo, H, R, gt): noiseless synthetic obs = truth at mask points, one
-        frame per hourly slot of the window."""
+        """(yo, H, R, gt) on the device, one truth frame per hourly slot of
+        the window. Synthetic families and prepbufr*: noiseless obs = truth
+        at the mask points (da_4dvar.py:449), 69 channels. real*: station
+        reports gridded onto the augmented obs-level channels
+        (da_4dvar.py:758-805), with a second report file for windows longer
+        than 3 h; the truth is augmented on the device, the obs QC'd against
+        it, and real_simu* replace the obs values by it. For the station
+        families `last_obs_info` records the phase seconds and obs counts."""
         cfg = self.cfg
+        self.last_obs_info = {}
+        t0 = time.perf_counter()
         gt = np.stack([self.state_source.get_state(current_time + t * STEP)
                        for t in range(cfg.da_win)])  # (T, 69, H, W)
-        H = obs_mod.make_obs_mask(cfg.obs_type, cfg.da_win, cfg.grid_hw, self._rng)
+        if self.is_real_obs:
+            t1 = time.perf_counter()
+            if self.obs_from_numpy:
+                yo, H = obs_mod.load_numpy_obs(self.obs_from_numpy, current_time, cfg.da_win)
+            else:
+                reports = [self.reports_source.get_reports(current_time)]
+                if cfg.da_win > 3:
+                    reports.append(self.reports_source.get_reports(current_time + CYCLE))
+                yo, H = obs_mod.grid_real_obs(reports, cfg.da_win, cfg.interp_dim, cfg.grid_hw)
+            t2 = time.perf_counter()
+            gt_d, yo, H = self._dev(gt), self._dev(yo), self._dev(H)
+            del gt
+            n_gridded = float(H.sum())
+            gt_aug = augment_levels(gt_d, self._interp)
+            H = obs_mod.qc_filter(yo, gt_aug, H, cfg.filter_coeff, cfg.obs_type,
+                                  self._std_aug)
+            if cfg.obs_type.startswith("real_simuz"):
+                yo[:, 4:44] = gt_aug[:, 4:44] * H[:, 4:44]
+            elif cfg.obs_type.startswith("real_simu"):
+                yo = gt_aug * H
+            del gt_aug
+            n_kept = float(H.sum())
+            self._sync()
+            self.last_obs_info = {"truth_s": t1 - t0, "grid_s": t2 - t1,
+                                  "aug_qc_s": time.perf_counter() - t2,
+                                  "n_gridded": n_gridded, "n_kept": n_kept}
+            return yo, H, self._dev(self.R_aug), gt_d
+        if cfg.obs_type.startswith("prepbufr"):
+            # station-report mask family (da_4dvar.py:190-274): da_win 1 or 6
+            t1 = time.perf_counter()
+            H = obs_mod.station_mask_from_reports(
+                self.reports_source.get_reports(current_time), cfg.da_win, cfg.grid_hw)
+            if cfg.da_win > 3:
+                H = obs_mod.station_mask_from_reports(
+                    self.reports_source.get_reports(current_time + CYCLE), cfg.da_win,
+                    cfg.grid_hw, second_file=True, H_out=H)
+            self.last_obs_info = {"truth_s": t1 - t0, "grid_s": time.perf_counter() - t1,
+                                  "n_gridded": float(H.sum())}
+        else:
+            H = obs_mod.make_obs_mask(cfg.obs_type, cfg.da_win, cfg.grid_hw, self._rng,
+                                      self.mask_dir)
         gt_d = self._dev(gt)
         return gt_d, self._dev(H), self._dev(self.R), gt_d
 
@@ -248,29 +359,90 @@ class CycledDA:
         self.metrics_list[f"{prefix}_mse"].append(mse)
         return wrmse
 
+    def _mask_eval_dev(self):
+        if self._mask_eval_t is None:
+            self._mask_eval_t = self._dev(self.mask_eval)
+        return self._mask_eval_t
+
+    @torch.no_grad()
+    def _obs_holdout_error(self, xa, yo0, H_old0):
+        """Obs-space RMSE per channel on the held-out cells
+        (da_4dvar.py:1285-1287), the analysis augmented for real obs."""
+        xhat = augment_levels(xa[None], self._interp)[0] if self.is_real_obs else xa
+        w = self._mask_eval_dev() * H_old0
+        num = torch.sum((xhat - yo0) ** 2 * w, dim=(1, 2))
+        den = torch.clamp(torch.sum(w, dim=(1, 2)), min=1e-10)
+        return torch.sqrt(num / den).cpu().numpy()
+
     def one_step_da(self, gt, xb, yo, H, R):
         cfg = self.cfg
+        H_old = H
+        if cfg.use_eval:
+            H = H * (1.0 - self._mask_eval_dev())[None]
         w_bg = self._score("bg", xb, gt[0])
         if self.verbose:
             print(f"  bg: z500 {w_bg[11]:.4g} t850 {w_bg[66]:.4g} t2m {w_bg[2]:.4g}",
                   flush=True)
         t0 = time.perf_counter()
-        bundle = cost_mod.ObsBundle(xb=xb, yo=yo, H=H, R=R)
-        if self._reduce_obs is not None:
-            bundle = self._reduce_obs(bundle, cfg.solver_hw)
-        self._sync()
-        self.last_reduce_s = time.perf_counter() - t0
-        shape = ((channels.N_CHANNELS, *cfg.solver_hw) if cfg.da_mode == "sc4dvar"
-                 else cfg.latent_shape)
-        x0 = torch.zeros(shape, dtype=torch.float32, device=self.device)
-        _, xa, diag = self._solver.solve(x0, bundle, nit=cfg.nit, gt=gt,
-                                         verbose=self.verbose, name=cfg.da_mode)
+        self.last_reduce_s = 0.0
+        if cfg.da_mode == "free_run":
+            xa = baselines.free_run_analysis(xb)
+            diag = SolveDiagnostics()
+        elif cfg.da_mode == "interpolation":
+            xa = self._dev(baselines.interpolation_analysis(
+                xb.cpu().numpy(), yo[0].cpu().numpy(), H[0].cpu().numpy(),
+                real_obs=self.is_real_obs, dim_out=cfg.interp_dim))
+            diag = SolveDiagnostics(seconds=time.perf_counter() - t0)
+        else:
+            bundle = cost_mod.ObsBundle(xb=xb, yo=yo, H=H, R=R)
+            if self._reduce_obs is not None:
+                bundle = self._reduce_obs(bundle, cfg.solver_hw)
+            self._sync()
+            self.last_reduce_s = time.perf_counter() - t0
+            shape = ((channels.N_CHANNELS, *cfg.solver_hw) if cfg.da_mode == "sc4dvar"
+                     else cfg.latent_shape)
+            x0 = torch.zeros(shape, dtype=torch.float32, device=self.device)
+            _, xa, diag = self._solver.solve(x0, bundle, nit=cfg.nit, gt=gt,
+                                             verbose=self.verbose, name=cfg.da_mode)
+            del bundle
         self.last_diag = diag
+        if cfg.use_eval:
+            self.metrics_list["error_obs"].append(self._obs_holdout_error(xa, yo[0], H_old[0]))
         w_ana = self._score("ana", xa, gt[0])
         if self.verbose:
             print(f"  ana: z500 {w_ana[11]:.4g} t850 {w_ana[66]:.4g} "
                   f"t2m {w_ana[2]:.4g}", flush=True)
         return xa
+
+    def _save_intermediate(self, current_time, xb, xa, gt, yo):
+        """Optional per-cycle field dumps (da_4dvar.py:713-722; the reference
+        writes the truth and obs under intermediate/ground_truth, here
+        everything lands in work_dir)."""
+        stamp = str(current_time).replace(" ", "_")
+        dumps = {"xb": (self.save_field, xb), "xa": (self.save_field, xa),
+                 "gt": (self.save_gt, gt), "obs": (self.save_obs, yo)}
+        for name, (on, x) in dumps.items():
+            if on:
+                np.save(os.path.join(self.work_dir, f"{name}_{stamp}"), x.detach().cpu().numpy())
+
+    def _forecast_eval(self, xa, current_time):
+        """Multi-step forecast WRMSE from the analysis: per lead a (69,)
+        physical-unit WRMSE against the truth, one (leads, 69) row per cycle
+        in metrics_list["forecast_wrmse"]. Stops where the truth ends."""
+        x, t, rows = xa, current_time, []
+        for _ in range(self.forecast_eval_steps):
+            x = self.advance(x)
+            t = t + CYCLE
+            has = getattr(self.state_source, "has", None)
+            if has is not None and not has(t):
+                break
+            try:
+                gt = self.state_source.get_state(t)
+            except FileNotFoundError:
+                break
+            rows.append(score(x, self._dev(gt))[0])
+        if rows:
+            self.metrics_list["forecast_wrmse"].append(np.stack(rows))
 
     # --- main loop --------------------------------------------------------
 
@@ -287,7 +459,12 @@ class CycledDA:
             self._sync()
             obs_s = time.perf_counter() - t0
             xa = self.one_step_da(gt, xb, yo, H, R)
+            self._save_intermediate(current_time, xb, xa, gt, yo)
             del yo, H, R, gt
+            if self.forecast_eval:
+                # before the on-disk snapshot, so a preemption never leaves
+                # forecast_wrmse a row behind ana_wrmse
+                self._forecast_eval(xa, current_time)
             self.save_eval_result()
             xb = self.advance(xa)
             nxt = current_time + CYCLE
@@ -300,6 +477,7 @@ class CycledDA:
             d = self.last_diag
             self.cycle_log.append({
                 "time": str(current_time), "seconds": secs, "obs_s": obs_s,
+                **self.last_obs_info,
                 "reduce_s": self.last_reduce_s, "solve_s": d.seconds,
                 "jb": list(d.loss_reg), "jo": list(d.loss_obs),
                 "linesearch": d.linesearch, "n_iters": list(d.n_iters),

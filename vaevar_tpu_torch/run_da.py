@@ -1,18 +1,32 @@
-"""Cycled vae4dvar and sc4dvar runner on PyTorch (CLI): 3D-Var, or 4D-Var
-with --da_win.
+"""Cycled variational DA runner on PyTorch (CLI): vae4dvar and sc4dvar in
+3D-Var, or 4D-Var with --da_win, and the free_run and interpolation
+baselines.
 
     python -m vaevar_tpu_torch.run_da --da_mode vae4dvar --fast_init
     python -m vaevar_tpu_torch.run_da --da_mode vae4dvar --fast_init --da_win 6
     python -m vaevar_tpu_torch.run_da --da_mode sc4dvar --fast_init
+    python -m vaevar_tpu_torch.run_da --da_mode vae4dvar --fast_init \
+        --obs_type real_simu --use_eval
     python -m vaevar_tpu_torch.run_da --da_mode vae4dvar --vae_ckpt vae.pt \
         --flow_ckpt flow.pt --forecast_ckpt forecast.pt --data_dir era5 \
         --data_layout reference
 
-The vae4dvar and sc4dvar, synthetic-obs subset of run_da.py, with its flag
-names and defaults and its choice of models (run_da.py:268-328). vae4dvar
-solves through the VAE decoder; sc4dvar through the control-variable
-transform B^1/2 (da/cvt.py) built from the B coefficients in --coeff_dir
-(len_scale.npy, reg_coeff.npy, std_sur.npy, vert_eig_value.npy,
+run_da.py's flag names and defaults and its choice of models
+(run_da.py:268-365). Observations: the synthetic families (free_XXXX,
+column_random_XXXX), prepbufr* (a 69-channel mask from station reports) and
+real* (station reports gridded onto 4 + 5 * --interp_dim observation
+levels, QC'd with --filter_coeff; real_simu* take the augmented truth as
+the obs values). The reports come from --reports_dir (one
+`%Y-%m-%d_%H.json` per time) or, without it, from a synthetic network of
+--n_stations stations (seed + 3, report times spread over +-3 h when
+--da_win > 1); --obs_from_numpy reads pre-gridded real obs instead.
+--use_eval holds out the cells of --mask_eval (or a synthetic 20 %) and
+writes error_obs.npy; --forecast_eval scores --forecast_eval_steps 6 h
+forecasts from each analysis (forecast_wrmse.npy); --save_field,
+--save_gt and --save_obs dump fields per cycle. The work dir is
+<work_dir>/<prefix>_stdmodify..._Nit<Nit>. vae4dvar solves through the VAE
+decoder; sc4dvar through the control-variable transform B^1/2 (da/cvt.py)
+built from the B coefficients in --coeff_dir (len_scale.npy, reg_coeff.npy, std_sur.npy, vert_eig_value.npy,
 vert_eig_vec.npy; length scales times --scale_factor) or, when they are
 missing, from the calibrated synthetic B with a WARNING on stderr, and
 builds no decoder. Each model role reads
@@ -28,14 +42,17 @@ solver grid (run_da.py:308), else the flow model at the solver grid; with
 States come from --data_dir (a LocalNpyStore, or with --data_layout
 reference the reference's per-variable archive) or, without it, from the
 synthetic source of --seed. An empty flag value counts as absent, as
-scripts/run_da.sh passes "" for unset checkpoints. --filter_coeff (real-obs
-QC) is accepted and carried in the config; no synthetic-obs path reads it.
-With --micro the decoder is the micro VAE preset of the checkpoint
-(run_train_vae --micro's six groups, or the converters' two) and the latent
-has the decoder's input channels. The run goes on the device of
+scripts/run_da.sh passes "" for unset checkpoints. With --micro the decoder
+is the micro VAE preset of the checkpoint (run_train_vae --micro's six
+groups, or the converters' two) and the latent has the decoder's input
+channels. The run goes on the device of
 --device (default cuda) and fails if that device is missing; --device cpu
-runs on the CPU. run_da.py's --window_dispatch (XLA program granularity)
-does not apply here.
+runs on the CPU. Two flags of run_da.py are not taken: --window_dispatch
+sets how many L-BFGS iterations go into one XLA program, which an eager
+solve does not have, and --no_prefetch turns off the thread that prepares
+the next cycle's obs under the solve, which the port does not run yet (its
+obs preparation is serial, as with --no_prefetch). --mesh raises
+(ROADMAP A.13).
 
 Matrix products and convolutions run in full float32 where the model asks
 for float32: TF32 is switched off for both cuBLAS and cuDNN (cuDNN
@@ -62,13 +79,15 @@ def arg_parser(argv=None):
     p.add_argument("--da_mode", type=str, default="vae4dvar",
                    choices=["free_run", "interpolation", "sc4dvar", "vae4dvar"])
     p.add_argument("--da_win", type=int, default=1)
+    p.add_argument("--interp_dim", type=int, default=40,
+                   help="observation levels of real obs (4 + 5 * interp_dim channels)")
     p.add_argument("--init_lag", type=int, default=8)
     p.add_argument("--init_tp", type=int, default=0)
     p.add_argument("--Nit", type=int, default=4)
     p.add_argument("--obs_std", type=float, default=0.005)
     p.add_argument("--obs_coeff", type=float, default=1.0)
     p.add_argument("--filter_coeff", type=float, default=0.1,
-                   help="real-obs quality control (not read by this path)")
+                   help="real-obs quality control: keep |yo - truth| < filter_coeff * sigma")
     p.add_argument("--lbfgs_max_evals", type=int, default=None,
                    help="closure-eval budget per L-BFGS segment (default: "
                         "torch's max_iter*5//4)")
@@ -80,6 +99,16 @@ def arg_parser(argv=None):
                         "zoom; explicit jvp-zoom fails on a cost with the flash "
                         "attention op")
     p.add_argument("--obs_type", type=str, default="column_random_0001")
+    p.add_argument("--use_eval", action="store_true",
+                   help="hold out obs cells and report the obs-space error (error_obs.npy)")
+    p.add_argument("--mask_eval", type=str, default=None,
+                   help="eval-holdout mask .npy (C_obs, H, W); synthetic 20%% holdout "
+                        "if omitted")
+    p.add_argument("--reports_dir", type=str, default=None,
+                   help="station-report JSON dir for real* and prepbufr* obs; "
+                        "synthetic station network if omitted")
+    p.add_argument("--n_stations", type=int, default=2000)
+    p.add_argument("--prefix", type=str, default="run")
     p.add_argument("--q_type", type=int, default=1)
     p.add_argument("--scale_factor", type=float, default=2.0,
                    help="sc4dvar B length-scale factor")
@@ -114,6 +143,19 @@ def arg_parser(argv=None):
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device of the run (default cuda; cpu for CPU runs)")
     p.add_argument("--mesh", type=str, default=None, help="not ported yet (ROADMAP A.13)")
+    p.add_argument("--save_field", action="store_true",
+                   help="dump xb/xa per cycle to the work dir")
+    p.add_argument("--save_gt", action="store_true",
+                   help="dump the truth per cycle to the work dir")
+    p.add_argument("--save_obs", action="store_true",
+                   help="dump the observations per cycle to the work dir")
+    p.add_argument("--forecast_eval", action="store_true",
+                   help="per-cycle multi-step forecast WRMSE from the analysis "
+                        "(forecast_wrmse.npy)")
+    p.add_argument("--forecast_eval_steps", type=int, default=20)
+    p.add_argument("--obs_from_numpy", type=str, default=None,
+                   help="directory of pre-gridded obs ({year}/{YYYY-MM-DDTHH}-obs.npy "
+                        "and -mask.npy) used instead of station gridding for real obs")
     return p.parse_args(argv)
 
 
@@ -132,12 +174,6 @@ def fit_grid(model_cfg, grid):
 
 
 def _check_supported(args):
-    if args.da_mode not in ("vae4dvar", "sc4dvar"):
-        raise NotImplementedError(
-            f"--da_mode {args.da_mode}: only vae4dvar and sc4dvar are ported "
-            "(free_run/interpolation: ROADMAP A.11b)")
-    if args.obs_type.startswith(("real", "prepbufr")):
-        raise NotImplementedError(f"--obs_type {args.obs_type}: ROADMAP A.11b")
     if args.mesh:
         raise NotImplementedError("--mesh (sharded solve): ROADMAP A.13")
 
@@ -181,6 +217,7 @@ def main(argv=None):
     the model set-up under "models_s", and its cycle_log)."""
     args = arg_parser(argv)
     _check_supported(args)
+    import numpy as np
     import torch
 
     device = torch.device(args.device)
@@ -203,7 +240,8 @@ def main(argv=None):
     hw = tuple(int(v) for v in args.grid.split("x"))
     shw = tuple(int(v) for v in args.solver_grid.split("x"))
     dtype = torch.bfloat16 if args.bf16 else None
-    for flag in ("vae_ckpt", "flow_ckpt", "forecast_ckpt", "data_dir"):
+    for flag in ("vae_ckpt", "flow_ckpt", "forecast_ckpt", "data_dir", "reports_dir",
+                 "obs_from_numpy", "mask_eval"):
         if getattr(args, flag) and not os.path.exists(getattr(args, flag)):
             raise SystemExit(f"--{flag} {getattr(args, flag)}: no such file or directory")
     flow_base = cfgs.micro_config(img_size=shw) if args.micro else fit_grid(cfgs.FLOW_140, shw)
@@ -215,8 +253,9 @@ def main(argv=None):
     cfg = cfgs.DAConfig(
         da_mode=args.da_mode, da_win=args.da_win, nit=args.Nit,
         obs_std=args.obs_std, obs_coeff=args.obs_coeff, filter_coeff=args.filter_coeff,
-        obs_type=args.obs_type, q_type=args.q_type, scale_factor=args.scale_factor,
-        modify_tp=args.modify_tp, init_lag=args.init_lag,
+        obs_type=args.obs_type, use_eval=args.use_eval, q_type=args.q_type,
+        scale_factor=args.scale_factor, modify_tp=args.modify_tp,
+        interp_dim=args.interp_dim, init_lag=args.init_lag,
         init_tp=args.init_tp, save_interval=args.save_interval,
         window_step_checkpoint=args.win_remat in ("both", "step"),
         lbfgs_max_evals=args.lbfgs_max_evals, lbfgs_linesearch=args.lbfgs_linesearch,
@@ -250,7 +289,7 @@ def main(argv=None):
     if args.da_mode == "vae4dvar":
         decoder = build(dec_base.replace(dtype=dtype, remat=block_remat), args.seed,
                         args.vae_ckpt, vae=True)
-    else:  # sc4dvar: run_da.py builds a decoder it never applies; no decoder here
+    elif args.da_mode == "sc4dvar":  # run_da.py builds a decoder it never applies
         from vaevar_tpu_torch.da.cvt import CVTransform
 
         cvt = CVTransform(_load_b_assets(args.coeff_dir, args.scale_factor, device),
@@ -259,7 +298,8 @@ def main(argv=None):
     flow = None
     # the flow model runs inside a window's cost or as the advance; else a
     # --flow_ckpt goes unread, as run_da.py restores it and never applies it
-    if args.da_win > 1 or not forecast_branch:
+    in_cost = args.da_win > 1 and args.da_mode in ("vae4dvar", "sc4dvar")
+    if in_cost or not forecast_branch:
         flow = build(flow_base.replace(dtype=dtype, remat=block_remat), args.seed + 1,
                      args.flow_ckpt)
 
@@ -283,12 +323,33 @@ def main(argv=None):
     models_s = time.perf_counter() - t_models
     print(f"models ready in {models_s:.2f}s", flush=True)
 
-    name = (f"run_stdmodify{args.modify_tp}_{args.obs_type}"
+    reports_source = None
+    if args.obs_type.startswith(("real", "prepbufr")):
+        # both station families read prepbufr-style JSON reports: real*
+        # grids values onto the augmented obs-level space, prepbufr* only
+        # the 69-channel mask (da_4dvar.py:190-274 vs :301-440)
+        from vaevar_tpu_torch.data.reports import LocalReportsStore, SyntheticReports
+
+        reports_source = (
+            LocalReportsStore(args.reports_dir) if args.reports_dir
+            else SyntheticReports(
+                source, n_stations=args.n_stations, seed=args.seed + 3,
+                # report times spread across the window, so that the slots
+                # after the first see obs (run_da.py:354-358)
+                dt_range=(-3.0, 3.0) if args.da_win > 1 else (0.0, 0.0)))
+
+    name = (f"{args.prefix}_stdmodify{args.modify_tp}_{args.obs_type}"
             f"_std{args.obs_std:.3f}_win{args.da_win}_Nit{args.Nit}")
     da = CycledDA(cfg, source, forecast_integrate, decoder,
-                  flow=flow if args.da_win > 1 else None, cvt=cvt, coeff_dir=args.coeff_dir,
+                  flow=flow if in_cost else None, cvt=cvt, coeff_dir=args.coeff_dir,
                   work_dir=os.path.join(args.work_dir, name), seed=args.seed,
-                  device=str(device))
+                  device=str(device), reports_source=reports_source,
+                  mask_eval=(np.load(args.mask_eval).astype(np.float32)
+                             if args.mask_eval else None),
+                  save_field=args.save_field, save_gt=args.save_gt, save_obs=args.save_obs,
+                  forecast_eval=args.forecast_eval,
+                  forecast_eval_steps=args.forecast_eval_steps,
+                  obs_from_numpy=args.obs_from_numpy)
     da.timings["models_s"] = models_s
     da.run_assimilation(args.start_time, args.end_time)
     print("DA complete", flush=True)
