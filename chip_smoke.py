@@ -101,9 +101,26 @@ exits nonzero without its last line:
    full-width free_run cycle with --forecast_eval --forecast_eval_steps 2
    (12 launches, forecast_wrmse.npy), a micro f32 real-obs window solve
    (da_win 3) card vs CPU (norm-rel 1e-5), and interpolation at micro size.
+13. osse: the OSSE (vaevar_tpu_torch/osse.py) on the card: the micro VAE
+   trained 120 epochs on SharedModeEra5's NMC errors (its loss must fall
+   below 0.35 of its first value), then free_run, vae4dvar, sc4dvar and
+   the da_win 3 window cycled for 2 days at 32x64, all with torch's
+   deterministic algorithms (so they repeat bit for bit from run to run);
+   prints the first and last loss, the trained decoder's checksum, the
+   seconds of the training and of each run, and every ratio of
+   tests/test_osse_science.py beside its bound; a missed bound fails.
+14. dp: data-parallel training (parallel/mesh.py, DDP). (a) 2 ranks on the
+   one card over gloo (nccl refuses two ranks on one device), in 2 worker
+   processes (`--dp-worker`): FORECAST_025 at 721x1440, b1 per rank, bf16,
+   remat, Possloss, 2 steps; prints seconds per step, peak memory and the
+   launches per rank (8, 4, 4 per step), the all-reduce of the gradients
+   alone and its share of the step; the ranks' checksums must be bitwise
+   equal. (b) one micro f32 dp=2 step against a dp=1 step on the same
+   global batch (loss rel 1e-5, gradients 1e-3 x max|grad|). (c)
+   run_train_forecast --mesh 1 through torch.distributed.run with nccl.
 The second-to-last line is a JSON record of the kernels (launches summed
-over the DA, window, training, record, VAE-training, sc4dvar and real-obs
-paths, each counted from 0; times with the main
+over the DA, window, training, record, VAE-training, sc4dvar, real-obs and
+dp paths (both ranks), each counted from 0; times with the main
 path's dtypes, and under "bf16" the all-bf16 ones; each bound from the
 function `bound_ms` below); the last line is {"ok": true, "device": {...}}.
 """
@@ -154,7 +171,7 @@ RECORD_FLAGS = ["--da_mode", "vae4dvar", "--da_win", "1", "--Nit", "4", "--obs_s
 # what run_da.sh's "$@" appends here: the store, and the end time cut to one
 # 6 h cycle after the spin-up
 RECORD_CUT = ["--end_time", "2022-01-01 06:00:00"]
-# the tentpole's real-obs cycle: the README cycle on a synthetic station network
+# the real-obs cycle: the README cycle on a synthetic station network
 REAL_OBS_ARGS = MAIN_ARGS + ["--obs_type", "real_simu", "--use_eval"]
 # one 6 h cycle from the truth (--init_tp 1, no spin-up)
 ONE_CYCLE = FULL_WIDTH + ["--end_time", "2022-01-01 06:00:00", "--init_tp", "1"]
@@ -678,7 +695,7 @@ def check_forecast_training(fa):
     if got != (4, 0, 0) or not (np.isfinite(loss) and torch.isfinite(pred).all()):
         raise AssertionError(f"eval step: launches {got}, loss {loss}")
     counts["flash_fwd"] += got[0]
-    return counts
+    return counts, secs[-1]
 
 
 def check_cli():
@@ -744,6 +761,7 @@ def check_vae_train(fa):
     from vaevar_tpu_torch.models.vae import VAE
     from vaevar_tpu_torch.train import checkpoint as ckpt
     from vaevar_tpu_torch.train import vae_trainer as vt
+    from vaevar_tpu_torch.utils import jax_random
     from vaevar_tpu_torch.utils.fast_init import fast_init
 
     rng = np.random.default_rng(6)
@@ -779,13 +797,18 @@ def check_vae_train(fa):
         torch.cuda.synchronize()
         marks.append((time.perf_counter(), msg))
 
+    def latent_noise(seed, err):
+        """A noise draw of the latent's shape for the batch of `err`."""
+        return jax_random.normal(jax_random.prng_key(seed), (
+            err.shape[0], sum(vae.dec.cfg.inchans_list), *err.shape[-2:]), "cuda")
+
     def fixed_noise_loss():
         """The loss on the batch at one fixed noise draw: the 3 steps each
         draw their own, so only this shows that the steps lowered it."""
         vae.eval()
         with torch.no_grad():
             err = vt.nmc_error_sample(torch.as_tensor(batch).cuda(), flow, hw)
-            return vt.vae_loss(vae, err, 2.0, vt.step_generator("cuda", 0, 99))[0].item()
+            return vt.vae_loss(vae, err, 2.0, eps=latent_noise(99, err))[0].item()
 
     loss_before = fixed_noise_loss()
     params_before = [p.detach().cpu() for p in vae.parameters()]  # off the card's peak
@@ -835,7 +858,7 @@ def check_vae_train(fa):
         torch.cuda.synchronize()
         t.append(time.perf_counter())
         opt.zero_grad(set_to_none=True)
-        vt.vae_loss(vae, err, 2.0, vt.step_generator("cuda", 0, 1, k))[0].backward()
+        vt.vae_loss(vae, err, 2.0, eps=latent_noise(k, err))[0].backward()
         torch.cuda.synchronize()
         t.append(time.perf_counter())
         opt.step()
@@ -1257,6 +1280,235 @@ def check_real_obs(fa):
     return launches
 
 
+def check_osse():
+    """Phase 13: the OSSE (vaevar_tpu_torch/osse.py) on the card: the micro
+    VAE trained 120 epochs on the world's NMC errors, then free_run,
+    vae4dvar, sc4dvar and the da_win 3 window cycled for 2 days at 32x64,
+    every bound of tests/test_osse_science.py checked."""
+    import torch
+
+    from vaevar_tpu_torch import osse
+
+    from vaevar_tpu_torch.train.vae_trainer import replicated_checksum
+
+    world = osse.build_world("cuda")
+    h = world.history
+    phase("osse", f"micro VAE trained {len(h)} steps (120 epochs of 6, deterministic algorithms) "
+          f"in {world.train_s:.2f} s: loss {h[0]['loss']:.6g} -> {h[-1]['loss']!r} (ratio "
+          f"{h[-1]['loss'] / h[0]['loss']:.4f}, bound 0.35); decoder checksum "
+          f"{replicated_checksum(world.decoder)!r}")
+    if not h[-1]["loss"] < 0.35 * h[0]["loss"]:
+        raise AssertionError("the OSSE's VAE did not learn its error distribution")
+    with tempfile.TemporaryDirectory() as root:
+        cycled = osse.run_cycles(world, root, device="cuda")
+    phase("osse", "seconds per 2-day run: " + ", ".join(
+        f"{m} {v[2]:.2f}" for m, v in cycled.items()))
+    rows = osse.ratios(cycled)
+    for name, v, b in rows:
+        phase("osse", f"{name} {v!r} ({'>=' if 'share' in name else '<'} {b})")
+    osse.check(cycled)
+    del world
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def dp_worker(d):
+    """One rank of the dp phase: 2 ranks on the one card over gloo (nccl
+    refuses two ranks on one device). (a) FORECAST_025 at full width, b1
+    per rank, bf16, remat, Possloss: 2 DDP steps with their seconds and
+    launches, the ranks' checksums compared, then the gradient all-reduce
+    alone; (b) one micro f32 DDP step, whose loss and gradients the parent
+    holds against a dp=1 step on the global batch. Writes rank<r>.json and
+    micro<r>.pt under `d`."""
+    from datetime import datetime, timedelta
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from vaevar_tpu_torch import channels
+    from vaevar_tpu_torch import config as cfgs
+    from vaevar_tpu_torch.data.era5 import SyntheticEra5
+    from vaevar_tpu_torch.models.lgunet import LGUnet
+    from vaevar_tpu_torch.ops import flash_attn as fa
+    from vaevar_tpu_torch.parallel import mesh as pmesh
+    from vaevar_tpu_torch.train import forecast_trainer as ft
+    from vaevar_tpu_torch.utils.fast_init import fast_init
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = pmesh.init_distributed(backend="gloo", device="cuda")
+    mesh = pmesh.mesh_from_arg("2", "cuda")
+    out = {"rank": rank, "device": str(mesh.device), "backend": dist.get_backend()}
+
+    t0 = time.perf_counter()
+    cfg = cfgs.FORECAST_025.replace(dtype=torch.bfloat16)  # remat on
+    model = fast_init(LGUnet(cfg), seed=0).to(mesh.device).train()
+    hw = cfg.img_size
+    src = SyntheticEra5(hw=hw, seed=0)
+    mean, std = channels.MEAN.reshape(-1, 1, 1), channels.STD.reshape(-1, 1, 1)
+    t = datetime(2022, 1, 1) + rank * timedelta(hours=6)  # this rank's row of the global batch
+    inp, tar = (torch.from_numpy(((src.get_state(ts) - mean) / std).astype(np.float32)[None])
+                .to(mesh.device) for ts in (t, t + timedelta(hours=6)))
+    init_fn, step = ft.make_forecast_train_step(model, "Possloss", lr=LR,
+                                                total_steps=TOTAL_STEPS,
+                                                out_shape=(2 * channels.N_CHANNELS, *hw),
+                                                mesh=mesh)
+    trainable, opt_state = init_fn()
+    torch.cuda.synchronize()
+    out["setup_s"] = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    out.update(losses=[], secs=[], launches=[])
+    for _ in range(2):
+        dist.barrier()
+        fa.flash_fwd_launches = fa.flash_dq_launches = fa.flash_dkv_launches = 0
+        t0 = time.perf_counter()
+        trainable, opt_state, loss = step(trainable, opt_state, inp, [tar])
+        out["losses"].append(loss.item())
+        torch.cuda.synchronize()
+        out["secs"].append(time.perf_counter() - t0)
+        out["launches"].append([fa.flash_fwd_launches, fa.flash_dq_launches,
+                                fa.flash_dkv_launches])
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["checksum"] = ft.trainable_checksum(trainable)
+    pmesh.check_replicas(out["checksum"])
+    # the all-reduce alone: the last step's gradients (model and bounds)
+    # summed over the ranks the way DDP's buckets are, not overlapped
+    grads = [p.grad for p in ft.trainable_parameters(trainable)]
+    out["grad_bytes"] = sum(g.numel() * g.element_size() for g in grads)
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flat = torch.cat([g.flatten() for g in grads])
+    for chunk in flat.split(25 * 2 ** 20 // 4):
+        dist.all_reduce(chunk)
+    torch.cuda.synchronize()
+    out["allreduce_s"] = time.perf_counter() - t0
+    del model, trainable, opt_state, grads, flat, step, init_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) one micro f32 step on this rank's row of the parent's global batch
+    batch = torch.load(os.path.join(d, "micro_batch.pt"))
+    micro = micro_model(remat=True).to(mesh.device).train()
+    init_fn, step = ft.make_forecast_train_step(micro, "Possloss", lr=1e-4, total_steps=10,
+                                                out_shape=(138, 32, 64), mesh=mesh)
+    trainable, opt_state = init_fn()
+    x, y = (batch[k][rank:rank + 1].to(mesh.device) for k in ("inp", "tar"))
+    _, _, loss = step(trainable, opt_state, x, [y])
+    torch.save({"loss": loss.item(), "grads": torch.cat(
+        [p.grad.flatten() for p in ft.trainable_parameters(trainable)]).cpu()},
+        os.path.join(d, f"micro{rank}.pt"))
+    with open(os.path.join(d, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def check_dp(fa, single_step_s):
+    """Phase 14: data-parallel training (parallel/mesh.py, DDP). (a) and (b)
+    in 2 worker processes on the one card over gloo (`dp_worker`), (b)'s
+    dp=1 reference on the global batch here; (c) run_train_forecast --mesh 1
+    through torch.distributed.run with nccl. Returns the launch counts of
+    (a), summed over the ranks."""
+    import numpy as np
+    import torch
+
+    from vaevar_tpu_torch.train import forecast_trainer as ft
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(6)
+    batch = {k: torch.from_numpy(rng.standard_normal((2, 69, 32, 64), dtype=np.float32))
+             for k in ("inp", "tar")}
+    with tempfile.TemporaryDirectory() as d:
+        torch.save(batch, os.path.join(d, "micro_batch.pt"))
+        env = dict(os.environ, WORLD_SIZE="2", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                   MASTER_PORT=str(_free_port()))
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-worker", d],
+                                  env=dict(env, RANK=str(r)), stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        try:
+            logs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        wall = time.perf_counter() - t0
+        for p, log in zip(procs, logs):
+            if p.returncode != 0:
+                raise AssertionError(f"dp worker failed ({p.returncode}):\n{log[-4000:]}")
+        ranks = [json.load(open(os.path.join(d, f"rank{r}.json"))) for r in range(2)]
+        micro = [torch.load(os.path.join(d, f"micro{r}.pt")) for r in range(2)]
+
+    for r in ranks:
+        phase("dp", f"(a) rank {r['rank']} on {r['device']} ({r['backend']}): FORECAST_025 "
+              f"721x1440 b1 per rank bf16 remat, set-up {r['setup_s']:.2f} s; losses "
+              + ", ".join(f"{v:.6g}" for v in r["losses"]) + "; seconds "
+              + ", ".join(f"{v:.3f}" for v in r["secs"]) + f"; peak memory "
+              f"{r['peak_gib']:.2f} GiB; launches per step (fwd, dq, dkv) {r['launches']}; "
+              f"checksum {r['checksum']!r}")
+    r0 = ranks[0]
+    share = r0["allreduce_s"] / r0["secs"][-1]
+    phase("dp", f"(a) gradient all-reduce alone (gloo, {r0['grad_bytes'] / 1e9:.2f} GB of f32 "
+          f"gradients, model and logvar bounds): {r0['allreduce_s']:.3f} s, {100 * share:.1f} % "
+          f"of the dp step {r0['secs'][-1]:.3f} s; the single-process b1 step "
+          f"{single_step_s:.3f} s; {wall:.1f} s with the workers' start")
+    bad = [r for r in ranks if any(tuple(c) != (8, 4, 4) for c in r["launches"])
+           or not all(np.isfinite(r["losses"]))]
+    if bad or ranks[0]["checksum"] != ranks[1]["checksum"] or \
+            ranks[0]["losses"] != ranks[1]["losses"]:
+        raise AssertionError(f"dp run: launches, losses or checksums wrong: {ranks}")
+
+    # (b) the dp=1 step on the global batch, here
+    micro_ref = micro_model(remat=True).cuda().train()
+    init_fn, step = ft.make_forecast_train_step(micro_ref, "Possloss", lr=1e-4, total_steps=10,
+                                                out_shape=(138, 32, 64))
+    trainable, opt_state = init_fn()
+    _, _, loss = step(trainable, opt_state, batch["inp"].cuda(), [batch["tar"].cuda()])
+    g = torch.cat([p.grad.flatten() for p in ft.trainable_parameters(trainable)]).cpu()
+    scale = g.abs().max().item()
+    lerr = max(abs(m["loss"] - loss.item()) / abs(loss.item()) for m in micro)
+    gerr = max((m["grads"] - g).abs().max().item() for m in micro)
+    phase("dp", f"(b) micro f32 dp=2 step vs dp=1 on the global batch, on the card: loss "
+          f"{micro[0]['loss']:.7g} vs {loss.item():.7g} (rel {lerr:.3g}, tol 1e-5); gradients "
+          f"max|d| {gerr:.3g} <= {1e-3 * scale:.3g} (1e-3 x max|grad|)")
+    if not (lerr <= 1e-5 and gerr <= 1e-3 * scale):
+        raise AssertionError("the dp=2 micro step disagrees with dp=1 on the global batch")
+    del micro_ref, trainable, opt_state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the CLI through torch.distributed.run, nccl, world size 1
+    with tempfile.TemporaryDirectory() as out:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+               "--nproc_per_node", "1", "--master_addr", "localhost", "--master_port",
+               str(_free_port()), "-m", "vaevar_tpu_torch.run_train_forecast", "--mesh", "1",
+               "--micro", "--grid", "32x64", "--batch_size", "2", "--steps", "2",
+               "--end_time", "2022-01-04 00:00:00", "--out_dir", out, "--log_every", "1"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+        files = set(os.listdir(out))
+        log = open(os.path.join(out, "run.log")).read() if "run.log" in files else ""
+    nccl = "mesh: dp 1, rank 0 on cuda:0 (nccl)" in log
+    phase("dp", f"(c) torch.distributed.run --nproc_per_node 1 run_train_forecast --mesh 1: "
+          f"exit {proc.returncode} in {time.perf_counter() - t0:.1f} s; nccl process group "
+          f"{nccl}; files {sorted(files)}")
+    if proc.returncode != 0 or not nccl or "params_latest" not in files:
+        raise AssertionError(f"the nccl CLI run failed:\n{proc.stdout[-2000:]}\n"
+                             f"{proc.stderr[-4000:]}")
+    counts = np.sum([r["launches"] for r in ranks], axis=(0, 1))
+    return dict(zip(("flash_fwd", "flash_dq", "flash_dkv"), map(int, counts)))
+
+
 def main():
     import torch
 
@@ -1336,7 +1588,7 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
-    train_counts = check_forecast_training(fa)
+    train_counts, step_s = check_forecast_training(fa)
     gc.collect()
     torch.cuda.empty_cache()
     check_cli()
@@ -1352,6 +1604,10 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     real_obs_launches = check_real_obs(fa)
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_osse()
+    dp_counts = check_dp(fa, step_s)
 
     stats = {"flash_fwd": fwd, "flash_dq": bwd["flash_dq"], "flash_dkv": bwd["flash_dkv"]}
     replaces = {"flash_fwd": ("flash_fwd.cu", "vaevar_tpu/ops/pallas_attn.py:47"),
@@ -1362,7 +1618,7 @@ def main():
         main, rec = stats[name]["main"], {
             "name": name, "route": "cuda", "source": f"vaevar_tpu_torch/csrc/{src}",
             "replaces": tpu,
-            "launches": train_counts[name] + (
+            "launches": train_counts[name] + dp_counts[name] + (
                 launches + window_launches + record_launches + vae_launches + sc4dvar_launches
                 + real_obs_launches if name == "flash_fwd" else 0),
             "max_abs_err": stats[name]["max_abs_err"]}
@@ -1381,4 +1637,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-worker"]:
+        sys.exit(dp_worker(sys.argv[2]))
     sys.exit(main())

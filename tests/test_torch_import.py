@@ -10,7 +10,8 @@ binding, `reference_state_dict`, `lgunet_block_from_yaml`, the
 relative-position index, the synthetic obs masks, R and the model error Q,
 the batch prefetcher, the SHT's quadrature weights and Legendre table, the
 observation-level ladder and matrices, the station and real-obs gridding
-and the report sources) are held equal to the reference here."""
+and the report sources, the OSSE's SharedModeEra5 and the training meters)
+are held equal to the reference here."""
 
 import dataclasses
 import inspect
@@ -186,6 +187,33 @@ def test_checkpoint_helper_copies_equal_reference():
 
     assert _src(tconvert.lgunet_block_from_yaml) == \
         inspect.getsource(jconvert.lgunet_block_from_yaml)
+
+
+def test_shared_mode_source_copy_equals_reference():
+    """SharedModeEra5's numpy code and `_smooth_noise`, line for line (its
+    states and models are held bitwise in tests/test_torch_osse.py); its
+    advect_model and hourly_apply are the port's own torch rolls."""
+    assert _src(tera5._smooth_noise) == inspect.getsource(jera5._smooth_noise)
+    for name in ("__init__", "_to_hours", "get_state"):
+        assert _src(getattr(tera5.SharedModeEra5, name)) == \
+            inspect.getsource(getattr(jera5.SharedModeEra5, name)), name
+    assert tera5.SharedModeEra5.__doc__ == jera5.SharedModeEra5.__doc__
+
+
+def test_parallel_and_meters_copies_equal_reference():
+    """The port's parallel package imports no JAX (the subprocess check
+    above covers it) and has the counterparts of the JAX package's dp
+    surface. The meters module keeps only its ScalarWriter: the JAX
+    package's SmoothedValue and MetricLogger have no caller in either
+    package (ROADMAP A.15)."""
+    from vaevar_tpu_torch.parallel import mesh as tmesh
+    from vaevar_tpu_torch.utils import meters as tmeters
+
+    assert "vaevar_tpu_torch.parallel.mesh" in _modules()
+    for name in ("process_index", "process_count", "init_distributed", "mesh_from_arg",
+                 "global_batch", "check_replicas"):
+        assert callable(getattr(tmesh, name)), name
+    assert callable(tmeters.ScalarWriter)
 
 
 def test_store_and_native_binding_copies_equal_reference():

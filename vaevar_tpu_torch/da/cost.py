@@ -176,11 +176,14 @@ def _make_window_obs_reduced(increment: Callable, flow, da_win: int,
     return window_obs
 
 
-def _increment_fn(decoder):
-    """z -> the decoder's physical low-res increment (69, h, w) in f32."""
+def _increment_fn(decoder, err_std=None):
+    """z -> the decoder's physical low-res increment (69, h, w) in f32, the
+    decoder's output scaled by err_std (default channels.ERR_STD, the
+    reference's stdTr table) and the model std."""
+    err_std = channels.ERR_STD if err_std is None else np.asarray(err_std)
 
     def increment(z):
-        err = torch.as_tensor(channels.ERR_STD, dtype=torch.float32, device=z.device)
+        err = torch.as_tensor(err_std, dtype=torch.float32, device=z.device)
         mstd = torch.as_tensor(channels.STD, dtype=torch.float32, device=z.device)
         return decoder(z)[0].float() * err.reshape(-1, 1, 1) * mstd.reshape(-1, 1, 1)
 
@@ -212,12 +215,12 @@ def _window_reduced_cost(increment, flow, da_win, obs_coeff, step_checkpoint):
 
 
 def make_vae4dvar_cost_window_reduced(decoder, flow=None, da_win: int = 1,
-                                      obs_coeff: float = 1.0,
+                                      obs_coeff: float = 1.0, err_std=None,
                                       step_checkpoint: bool = True):
     """(cost, to_state, cost_parts) of the 4D-Var vae4dvar cost on a
     ReducedWindowObs: the same J as make_vae4dvar_cost up to float
     associativity, with no full-resolution tensor inside the solve."""
-    return _window_reduced_cost(_increment_fn(decoder), flow, da_win, obs_coeff,
+    return _window_reduced_cost(_increment_fn(decoder, err_std), flow, da_win, obs_coeff,
                                 step_checkpoint)
 
 
@@ -297,7 +300,7 @@ def _full_cost(to_state, flow, flow_hw, da_win, obs_coeff, interp_matrix=None):
 
 
 def make_vae4dvar_cost(decoder, flow=None, flow_hw=(128, 256), da_win: int = 1,
-                       obs_coeff: float = 1.0, interp_matrix=None):
+                       obs_coeff: float = 1.0, interp_matrix=None, err_std=None):
     """(cost, decode_to_state, cost_parts) on a full-resolution ObsBundle.
 
     decoder(z) -> (1, 69, h', w') is nearest-upsampled to xb's grid, scaled
@@ -305,8 +308,8 @@ def make_vae4dvar_cost(decoder, flow=None, flow_hw=(128, 256), da_win: int = 1,
     `interp_matrix` (dim_out, 13) the obs are real obs on the 4 + 5 * dim_out
     augmented channels: the only form for them, as QC'd level-augmented
     innovations do not reduce onto the solver grid."""
-    return _full_cost(_state_fn(_increment_fn(decoder)), flow, flow_hw, da_win, obs_coeff,
-                      interp_matrix)
+    return _full_cost(_state_fn(_increment_fn(decoder, err_std)), flow, flow_hw, da_win,
+                      obs_coeff, interp_matrix)
 
 
 def make_sc4dvar_cost(transform: Callable, flow=None, flow_hw=(128, 256), da_win: int = 1,
@@ -336,12 +339,12 @@ def _reduced_cost(increment, obs_coeff):
     return cost, _state_fn(increment), cost_parts
 
 
-def make_vae4dvar_cost_reduced(decoder, obs_coeff: float = 1.0):
+def make_vae4dvar_cost_reduced(decoder, obs_coeff: float = 1.0, err_std=None):
     """(cost, decode_to_state, cost_parts) on a ReducedObs bundle.
 
     `decoder` maps z (1, C_lat, h, w) to the normalised increment
-    (1, 69, h, w)."""
-    return _reduced_cost(_increment_fn(decoder), obs_coeff)
+    (1, 69, h, w); `err_std` (69,) scales it (default channels.ERR_STD)."""
+    return _reduced_cost(_increment_fn(decoder, err_std), obs_coeff)
 
 
 def make_sc4dvar_cost_reduced(increment: Callable, obs_coeff: float = 1.0):

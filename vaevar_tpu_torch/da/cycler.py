@@ -26,6 +26,7 @@ under torch.no_grad(): no cost differentiates through the advance.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import time
@@ -82,6 +83,9 @@ class CycledDA:
     flow: torch.nn.Module | None = None  # hourly model for 4D-Var windows
     cvt: object = None  # sc4dvar: cvt.CVTransform, B^1/2 with .increment
     coeff_dir: str | None = None  # Q-matrix asset dir (q_type 0 and 1)
+    err_std: np.ndarray | None = None  # per-channel decoder scaling for
+    # vae4dvar (None => channels.ERR_STD, the reference stdTr table; an OSSE
+    # passes the empirical error std its VAE was trained on)
     work_dir: str = "da_cycle_results/run"
     seed: int = 0
     device: str = "cpu"
@@ -180,17 +184,19 @@ class CycledDA:
         if self._use_reduced_obs:
             c, to_state, parts = (
                 cost_mod.make_sc4dvar_cost_reduced(self.cvt.increment, cfg.obs_coeff) if sc
-                else cost_mod.make_vae4dvar_cost_reduced(self.decoder, cfg.obs_coeff))
+                else cost_mod.make_vae4dvar_cost_reduced(self.decoder, cfg.obs_coeff,
+                                                         err_std=self.err_std))
             self._reduce_obs = cost_mod.reduce_obs
         elif self._reducible:  # da_win > 1
-            make = (cost_mod.make_sc4dvar_cost_window_reduced if sc
-                    else cost_mod.make_vae4dvar_cost_window_reduced)
+            make = (cost_mod.make_sc4dvar_cost_window_reduced if sc else functools.partial(
+                cost_mod.make_vae4dvar_cost_window_reduced, err_std=self.err_std))
             c, to_state, parts = make(
                 self.cvt.increment if sc else self.decoder, self.flow, da_win=cfg.da_win,
                 obs_coeff=cfg.obs_coeff, step_checkpoint=cfg.window_step_checkpoint)
             self._reduce_obs = cost_mod.reduce_obs_window
         else:
-            make = cost_mod.make_sc4dvar_cost if sc else cost_mod.make_vae4dvar_cost
+            make = cost_mod.make_sc4dvar_cost if sc else functools.partial(
+                cost_mod.make_vae4dvar_cost, err_std=self.err_std)
             c, to_state, parts = make(
                 self.cvt if sc else self.decoder, self.flow, flow_hw=cfg.solver_hw,
                 da_win=cfg.da_win, obs_coeff=cfg.obs_coeff, interp_matrix=self._interp)

@@ -10,7 +10,11 @@ the reference, and tests/test_torch_data.py their reads, bit for bit):
   when it builds (its `reader` says which reader is in use);
 - `SyntheticEra5`: deterministic, time-coherent band-limited fields advected
   zonally at channel-dependent speeds, in physical units through the
-  channel mean/std registry; the same seed gives the reference's states.
+  channel mean/std registry; the same seed gives the reference's states;
+- `SharedModeEra5`: the OSSE's truth, 69 channels loading on a few shared
+  advecting modes, with its imperfect model (a roll at the mode-0 speed) as
+  the cycler's forecast integrate, the NMC trainer's one-step model and the
+  window's hourly flow, all `torch.roll` on the tensor's own device.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import os
 from datetime import datetime
 
 import numpy as np
+import torch
 
 from vaevar_tpu_torch import channels
 
@@ -147,7 +152,6 @@ class ReferenceLayoutStore:
             np.save(p, field.astype(np.float32))
 
 
-
 def _smooth_noise(rng: np.random.Generator, hw, cutoff_frac=0.12) -> np.ndarray:
     """Band-limited unit-variance random field."""
     H, W = hw
@@ -155,9 +159,110 @@ def _smooth_noise(rng: np.random.Generator, hw, cutoff_frac=0.12) -> np.ndarray:
     F = np.fft.rfft2(f)
     ky = np.fft.fftfreq(H)[:, None]
     kx = np.fft.rfftfreq(W)[None, :]
-    F = F * ((np.abs(ky) < cutoff_frac) & (kx < cutoff_frac))
+    keep = (np.abs(ky) < cutoff_frac) & (kx < cutoff_frac)
+    F = F * keep
     g = np.fft.irfft2(F, s=(H, W))
     return (g / (g.std() + 1e-12)).astype(np.float32)
+
+
+class _Roll(torch.nn.Module):
+    """Parameter-free model on normalized (B, C, H, W) fields: a zonal roll
+    by `shift` pixels, on the input's own device."""
+
+    def __init__(self, shift: int):
+        super().__init__()
+        self.shift = int(shift)
+
+    def forward(self, x):
+        return torch.roll(x, self.shift, dims=-1)
+
+
+class SharedModeEra5:
+    """Cross-channel-correlated synthetic truth for OSSE experiments.
+
+    All 69 channels load on a few SHARED advecting spatial modes:
+
+        state_c(t) = mean_c + std_c * sum_m load[m, c] * roll(P_m, v_m * t)
+
+    Real background errors are strongly cross-correlated (the reference's
+    CVT regression/EOF coefficients and the VAE prior both exist to
+    exploit exactly that, da_4dvar.py:890-906 / :1185); `SyntheticEra5`'s
+    channels are statistically independent, which makes its model-error
+    distribution incompressible for a small-latent VAE. This source gives
+    OSSE tests an error distribution a VAE can actually learn: a model
+    that advects everything at the mode-0 speed has an error field of
+    rank `n_modes - 1` across channels."""
+
+    def __init__(self, hw=(32, 64), seed: int = 0, speeds=(2, 1),
+                 cutoffs=(0.12, 0.06), amp: float = 1.0):
+        # defaults validated for cycled-DA experiments: the mode-1
+        # mismatch drifts 1 px/h relative to the model against ~16 px
+        # features, so analysis gains PERSIST into the next background
+        # (a fast-decorrelating world injects a saturation-sized fresh
+        # error every cycle and no assimilation can beat a free run)
+        self.hw = hw
+        rng = np.random.default_rng(seed)
+        C = channels.N_CHANNELS
+        self.speeds = tuple(int(s) for s in speeds)
+        self.patterns = np.stack(
+            [_smooth_noise(rng, hw, c) for c in cutoffs[: len(speeds)]]
+        )
+        # mode 0 dominates (the "flow"); later modes are the model-error
+        # carriers. Random signs keep channels +/- correlated.
+        scales = [0.9] + [0.45] * (len(self.speeds) - 1)
+        self.load = np.stack([
+            s * rng.uniform(0.6, 1.0, size=C)
+            * rng.choice([-1.0, 1.0], size=C)
+            for s in scales
+        ]).astype(np.float32)  # (n_modes, C)
+        self.amp = amp
+
+    def _to_hours(self, ts) -> int:
+        if hasattr(ts, "to_pydatetime") or isinstance(ts, datetime) \
+                or hasattr(ts, "timestamp"):
+            epoch = datetime(2000, 1, 1)
+            t = ts.to_pydatetime() if hasattr(ts, "to_pydatetime") else ts
+            if t.tzinfo is not None:
+                t = t.replace(tzinfo=None)
+            return int((t - epoch).total_seconds() // 3600)
+        return int(ts)
+
+    def get_state(self, ts) -> np.ndarray:
+        h = self._to_hours(ts)
+        f = np.zeros((channels.N_CHANNELS, *self.hw), np.float32)
+        for m, v in enumerate(self.speeds):
+            rolled = np.roll(self.patterns[m], h * v, axis=1)
+            f += self.load[m][:, None, None] * rolled[None]
+        return (
+            channels.MEAN.reshape(-1, 1, 1)
+            + self.amp * channels.STD.reshape(-1, 1, 1) * f
+        ).astype(np.float32)
+
+    def advect_model(self):
+        """The OSSE's imperfect forecast model: advances 6 h by rolling the
+        normalized anomaly at the MODE-0 speed (exact for mode 0, wrong for
+        every other mode). Returns (integrate, fengwu):
+        `integrate(x, steps, interpolation=False)` on physical (69, H, W)
+        fields, the cycler's `forecast_integrate`, and `fengwu`, the
+        matching normalized one-step model (B, C, H, W) -> (B, C, H, W) of
+        the NMC trainer (train/vae_trainer.nmc_error_sample)."""
+        shift6 = 6 * self.speeds[0]
+
+        def integrate(x, steps, interpolation=False):
+            del interpolation
+            mean = torch.as_tensor(channels.MEAN, dtype=torch.float32,
+                                   device=x.device).reshape(-1, 1, 1)
+            return torch.roll(x - mean, steps * shift6, dims=-1) + mean
+
+        return integrate, _Roll(shift6)
+
+    def hourly_apply(self):
+        """Normalized-space 1-HOUR step of the same imperfect model, the
+        4D-Var window's flow model (cycler STEP cadence, reference hourly
+        rollout da_4dvar.py:1190-1194), as a parameter-free module. Like
+        `advect_model`, it advects at the mode-0 speed only, so window slots
+        accumulate the same mode-1 model error the NMC-trained VAE learns."""
+        return _Roll(self.speeds[0])
 
 
 class SyntheticEra5:

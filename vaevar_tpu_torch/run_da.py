@@ -51,8 +51,8 @@ runs on the CPU. Two flags of run_da.py are not taken: --window_dispatch
 sets how many L-BFGS iterations go into one XLA program, which an eager
 solve does not have, and --no_prefetch turns off the thread that prepares
 the next cycle's obs under the solve, which the port does not run yet (its
-obs preparation is serial, as with --no_prefetch). --mesh raises
-(ROADMAP A.13).
+obs preparation is serial, as with --no_prefetch). --mesh, the spatially
+sharded solve, raises (ROADMAP A.13b): every DA configuration fits one card.
 
 Matrix products and convolutions run in full float32 where the model asks
 for float32: TF32 is switched off for both cuBLAS and cuDNN (cuDNN
@@ -142,7 +142,8 @@ def arg_parser(argv=None):
                         "rollout step")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device of the run (default cuda; cpu for CPU runs)")
-    p.add_argument("--mesh", type=str, default=None, help="not ported yet (ROADMAP A.13)")
+    p.add_argument("--mesh", type=str, default=None,
+                   help="sharded solve: not ported yet (ROADMAP A.13b)")
     p.add_argument("--save_field", action="store_true",
                    help="dump xb/xa per cycle to the work dir")
     p.add_argument("--save_gt", action="store_true",
@@ -175,7 +176,7 @@ def fit_grid(model_cfg, grid):
 
 def _check_supported(args):
     if args.mesh:
-        raise NotImplementedError("--mesh (sharded solve): ROADMAP A.13")
+        raise NotImplementedError("--mesh (sharded solve): ROADMAP A.13b")
 
 
 def _load_b_assets(coeff_dir: str, scale_factor: float, device="cpu"):

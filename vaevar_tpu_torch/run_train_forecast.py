@@ -11,12 +11,26 @@ weights are random from --seed unless --model_ckpt names a port checkpoint.
 States come from --data_dir (a LocalNpyStore: one (69, H, W) npy per
 timestamp) or, without it, from the synthetic source of --seed. The run
 goes on the device of --device (default cuda) and fails if that device is
-missing; --device cpu runs on the CPU. --mesh is not ported yet and raises.
+missing; --device cpu runs on the CPU.
+
+--mesh N trains data-parallel with DDP over N processes, one per card, as
+the reference's NCCL DDP: launch with
+
+    python -m torch.distributed.run --nproc_per_node N \
+        -m vaevar_tpu_torch.run_train_forecast --mesh N ...
+
+Each rank owns cuda:LOCAL_RANK (nccl; gloo with --device cpu) and takes
+every N-th batch of the time-ordered stream (`rank_strided`), so
+--batch_size is the per-rank batch and the global batch is N times it. Rank
+0 alone writes the log file, the scalars, the checkpoints and params_latest.
+--mesh N in a run not launched as N processes raises, and so does
+--mesh DPxSHxSW (spatial sharding, ROADMAP A.13b).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 from datetime import datetime, timedelta
@@ -41,7 +55,9 @@ def arg_parser(argv=None):
     p.add_argument("--val_end", type=str, default=None)
     p.add_argument("--no_resume", action="store_true",
                    help="ignore an existing checkpoint_latest in --out_dir")
-    p.add_argument("--mesh", type=str, default=None, help="not ported yet (ROADMAP A.13)")
+    p.add_argument("--mesh", type=str, default=None,
+                   help="'N': data-parallel over N processes launched by torch.distributed.run "
+                   "(DPxSHxSW: ROADMAP A.13b)")
     p.add_argument("--lr", type=float, default=5e-6)
     p.add_argument("--loss_type", type=str, default="Possloss",
                    choices=["Possloss", "LpLoss"])
@@ -67,18 +83,43 @@ def _time(s: str) -> datetime:
     return datetime.fromisoformat(s)
 
 
+def rank_strided(it, rank: int, world: int):
+    """Each process takes a disjoint stride of the time-ordered batch
+    stream (DistributedSampler analogue for the sequential forecast
+    loader): its local batch becomes that rank's dp slice of the global
+    batch, so a multi-process run sees world_size x the data. The ragged
+    tail (fewer than world_size batches) is dropped on EVERY rank: unequal
+    step counts would hang the collective (the JAX CLI's rank_strided,
+    run_train_forecast.py:205-234)."""
+    if world == 1:
+        yield from it
+        return
+    group = []
+    for b in it:
+        group.append(b)
+        if len(group) == world:
+            yield group[rank]
+            group = []
+
+
 def main(argv=None):
     """Run the task; returns (trainable, per-step losses) for `train`."""
     args = arg_parser(argv)
-    if args.mesh:
-        raise NotImplementedError("--mesh (data-parallel training): ROADMAP A.13")
     import numpy as np
     import torch
+
+    from vaevar_tpu_torch.parallel import mesh as pmesh
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device is available; pass "
                          "--device cpu to run on the CPU")
+    mesh = None
+    if args.mesh:
+        pmesh.init_distributed(device=args.device)
+        mesh = pmesh.mesh_from_arg(args.mesh, args.device)
+        device = mesh.device
+    rank, world = pmesh.process_index(), pmesh.process_count()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -95,7 +136,10 @@ def main(argv=None):
     from vaevar_tpu_torch.utils.meters import ScalarWriter
 
     hw = tuple(int(v) for v in args.grid.split("x"))
-    logger = get_logger("train_forecast", args.out_dir)
+    logger = get_logger("train_forecast", args.out_dir, rank=rank)
+    if mesh is not None:
+        logger.info(f"mesh: dp {mesh.dp}, rank {rank} on {device}"
+                    + (f" ({torch.distributed.get_backend()})" if mesh.distributed else ""))
     source = (LocalNpyStore(args.data_dir, hw) if args.data_dir
               else SyntheticEra5(hw=hw, seed=args.seed))
     mean = channels.MEAN.reshape(-1, 1, 1)
@@ -134,11 +178,12 @@ def main(argv=None):
     if args.task == "calculate_q":
         pairs = ((inp, tars[0]) for inp, tars in pair_iter(args.batch_size, args.q_lead_hours))
         q_phys = ft.calculate_q(model, pairs) * std ** 2  # physical-units variance
-        os.makedirs(args.out_dir, exist_ok=True)
         path = os.path.join(args.out_dir, "new_q.npy")
-        # (T-1, 69) per-lead channel means, the load_q_matrix q_type=1 format
-        np.save(path, q_phys.mean(axis=(1, 2))[None])
-        np.save(os.path.join(args.out_dir, "q_full.npy"), q_phys)
+        if rank == 0:
+            os.makedirs(args.out_dir, exist_ok=True)
+            # (T-1, 69) per-lead channel means, the load_q_matrix q_type=1 format
+            np.save(path, q_phys.mean(axis=(1, 2))[None])
+            np.save(os.path.join(args.out_dir, "q_full.npy"), q_phys)
         logger.info(f"Q-matrix saved to {path}; channel-mean q[z500]="
                     f"{float(q_phys.mean(axis=(1, 2))[11]):.4g}")
         return None
@@ -169,19 +214,21 @@ def main(argv=None):
 
     def train_factory(epoch):
         del epoch  # time-ordered stream, sequential over the archive
-        return prefetched(pair_iter(args.batch_size, 6, n_targets, t0, train_end))
+        return prefetched(rank_strided(pair_iter(args.batch_size, 6, n_targets, t0, train_end),
+                                       rank, world))
 
     def val_factory():
-        return prefetched(pair_iter(args.batch_size, 6, n_targets, v0, v1))
+        return prefetched(rank_strided(pair_iter(args.batch_size, 6, n_targets, v0, v1),
+                                       rank, world))
 
-    with ScalarWriter(args.out_dir) as writer:
+    with (ScalarWriter(args.out_dir) if rank == 0 else contextlib.nullcontext()) as writer:
         trainable, history = ft.train_forecast(
             model, train_factory, val_factory=val_factory, epochs=args.epochs,
             steps_per_epoch=args.steps, loss_type=args.loss_type, lr=args.lr,
             two_step=args.two_step, out_shape=(2 * channels.N_CHANNELS, *hw),
             ckpt_dir=args.out_dir, resume=not args.no_resume,
             recorder=M.MetricsRecorder(["MSE", "WRMSE"]), data_std=channels.STD,
-            logger=logger.info, log_every=args.log_every, writer=writer)
+            logger=logger.info, log_every=args.log_every, mesh=mesh, writer=writer)
     # bare-params alias for downstream consumers (--model_ckpt)
     ckpt.save(os.path.join(args.out_dir, "params_latest"), model.state_dict())
     logger.info(f"saved train state to {args.out_dir}/checkpoint_latest "

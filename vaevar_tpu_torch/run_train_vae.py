@@ -16,8 +16,18 @@ or a reference VAE .pth) warm-starts the whole VAE strictly. Training resumes fr
 the reference `enc.`/`dec.` keys, which `run_da --vae_ckpt` reads as it is.
 States come from --data_dir (a LocalNpyStore) or the synthetic source of
 --seed. The run goes on the device of --device (default cuda) and fails if
-that device is missing; --device cpu runs on the CPU. --mesh is not ported
-yet and raises.
+that device is missing; --device cpu runs on the CPU.
+
+--mesh N trains data-parallel with DDP over N processes, one per card:
+
+    python -m torch.distributed.run --nproc_per_node N \
+        -m vaevar_tpu_torch.run_train_vae --mesh N ...
+
+Each rank owns cuda:LOCAL_RANK (nccl; gloo with --device cpu) and reads its
+shard of every epoch's permutation (`batched_loader(..., rank, world_size)`),
+so --batch_size is the per-rank batch. Rank 0 alone writes the log file, the
+checkpoints and vae_latest. --mesh N in a run not launched as N processes
+raises, and so does --mesh DPxSHxSW (spatial sharding, ROADMAP A.13b).
 """
 
 from __future__ import annotations
@@ -44,7 +54,9 @@ def arg_parser(argv=None):
                    help="warm-start the VAE from a bare state_dict checkpoint")
     p.add_argument("--no_resume", action="store_true",
                    help="ignore an existing checkpoint_latest in --out_dir")
-    p.add_argument("--mesh", type=str, default=None, help="not ported yet (ROADMAP A.13)")
+    p.add_argument("--mesh", type=str, default=None,
+                   help="'N': data-parallel over N processes launched by torch.distributed.run "
+                   "(DPxSHxSW: ROADMAP A.13b)")
     p.add_argument("--out_dir", type=str, default="output/vae")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--bf16", action=argparse.BooleanOptionalAction, default=True,
@@ -64,14 +76,20 @@ def arg_parser(argv=None):
 def main(argv=None):
     """Train; returns (vae, per-step metrics of this run)."""
     args = arg_parser(argv)
-    if args.mesh:
-        raise NotImplementedError("--mesh (data-parallel training): ROADMAP A.13")
     import torch
+
+    from vaevar_tpu_torch.parallel import mesh as pmesh
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device is available; pass "
                          "--device cpu to run on the CPU")
+    mesh = None
+    if args.mesh:
+        pmesh.init_distributed(device=args.device)
+        mesh = pmesh.mesh_from_arg(args.mesh, args.device)
+        device = mesh.device
+    rank, world = pmesh.process_index(), pmesh.process_count()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -92,7 +110,7 @@ def main(argv=None):
     for flag in ("fengwu_ckpt", "vae_ckpt", "data_dir"):
         if getattr(args, flag) and not os.path.exists(getattr(args, flag)):
             raise SystemExit(f"--{flag} {getattr(args, flag)}: no such file or directory")
-    logger = get_logger("train_vae", args.out_dir)
+    logger = get_logger("train_vae", args.out_dir, rank=rank)
 
     source = (LocalNpyStore(args.data_dir, hw) if args.data_dir
               else SyntheticEra5(hw=hw, seed=args.seed))
@@ -122,13 +140,16 @@ def main(argv=None):
     vae.to(device)
 
     def loader_factory(epoch: int):
-        # reshuffles each epoch; one process, so no sharding (ROADMAP A.13)
-        return prefetched(batched_loader(ds, args.batch_size, seed=args.seed, epoch=epoch))
+        # reshuffles each epoch and shards the sample stream across ranks
+        # (DistributedSampler analogue)
+        return prefetched(batched_loader(ds, args.batch_size, seed=args.seed, epoch=epoch,
+                                         rank=rank, world_size=world))
 
     vae, history = train_vae(
         vae, flow, loader_factory, epochs=args.epochs, sigma=args.sigma, lr=args.lr,
         latent_hw=hw, nmc_steps=args.nmc_steps, seed=args.seed, logger=logger.info,
-        ckpt_dir=args.out_dir, resume=not args.no_resume, init_params=init_params)
+        mesh=mesh, ckpt_dir=args.out_dir, resume=not args.no_resume,
+        init_params=init_params)
     # the bare VAE state_dict too (the reference's raw VAE files)
     ckpt.save(os.path.join(args.out_dir, "vae_latest"), vae.state_dict())
     logger.info(f"saved VAE checkpoint to {args.out_dir}/vae_latest")

@@ -2,7 +2,8 @@
 
 Port of vaevar_tpu/train/checkpoint.py:17-93. A checkpoint is one
 `torch.save` file (the JAX package writes an orbax directory) with the same
-`<path>.meta.json` sidecar for the scalars: {epoch, step, metric_best}.
+`<path>.meta.json` sidecar for the scalars: {epoch, step, metric_best}. In a
+data-parallel run only rank 0 writes, and a barrier follows the write.
 Files are loaded with `weights_only=True`, so a checkpoint holds tensors and
 plain containers only.
 
@@ -19,15 +20,33 @@ import json
 import os
 
 import torch
+import torch.distributed as dist
+
+from vaevar_tpu_torch.parallel import mesh
+
+
+def _on_rank0(write) -> None:
+    """write() on rank 0 only (the JAX trainers' rank-0 save); in a
+    data-parallel run every rank then waits at a barrier, so no rank reads a
+    file before it is there."""
+    if mesh.process_index() == 0:
+        write()
+    if dist.is_initialized():
+        dist.barrier()
 
 
 def save(path: str, tree) -> None:
-    """torch.save `tree` to `path`, replacing any older file atomically."""
+    """torch.save `tree` to `path`, replacing any older file atomically; in
+    a data-parallel run rank 0 writes and the others wait for it."""
     path = os.path.abspath(path)
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save(tree, tmp)
-    os.replace(tmp, path)
+
+    def write():
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        torch.save(tree, tmp)
+        os.replace(tmp, path)
+
+    _on_rank0(write)
 
 
 def restore(path: str, map_location="cpu"):
@@ -57,7 +76,9 @@ def save_train_state(out_dir: str, trainable, opt_state, epoch: int, step: int =
                      alias: str = "checkpoint_latest") -> str:
     """Write the trainable ({"model": nn.Module, and any tensors such as
     logvar bounds}) and the optimizer state (forecast_trainer.OptState, or
-    an optimizer without a scheduler) under out_dir/alias."""
+    an optimizer without a scheduler) under out_dir/alias. In a
+    data-parallel run every rank calls this; rank 0 writes, and the others
+    wait at a barrier until it has."""
     path = os.path.join(os.path.abspath(out_dir), alias)
     params = {k: (v.state_dict() if isinstance(v, torch.nn.Module) else v.detach())
               for k, v in trainable.items()}
@@ -65,19 +86,24 @@ def save_train_state(out_dir: str, trainable, opt_state, epoch: int, step: int =
     state = {"optimizer": optimizer.state_dict()}
     if scheduler is not None:
         state["scheduler"] = scheduler.state_dict()
-    save(path, {"params": params, "opt_state": state})
     meta = {"epoch": int(epoch), "step": int(step)}
     if metric_best is not None:
         meta["metric_best"] = float(metric_best)
-    with open(path + ".meta.json", "w") as f:
-        json.dump(meta, f)
+
+    def write_meta():
+        with open(path + ".meta.json", "w") as f:
+            json.dump(meta, f)
+
+    save(path, {"params": params, "opt_state": state})
+    _on_rank0(write_meta)
     return path
 
 
 def restore_train_state(out_dir: str, trainable, opt_state,
                         alias: str = "checkpoint_latest"):
     """Load out_dir/alias into `trainable` and `opt_state` in place; returns
-    (trainable, opt_state, meta) or None if there is no checkpoint."""
+    (trainable, opt_state, meta) or None if there is no checkpoint. In a
+    data-parallel run every rank restores the same file."""
     path = os.path.join(os.path.abspath(out_dir), alias)
     if not exists(path):
         return None

@@ -17,6 +17,16 @@ with torch: AdamW with eps 1e-8 and weight decay 1e-4 on every parameter
 (biases, norms and both logvar bounds), and the cosine decay in closed form
 through `LambdaLR`, stepped after each update so that update k uses the
 rate at count k, as optax counts.
+
+Data parallelism (`mesh`, parallel/mesh.py) is the reference's DDP
+(training_options.yaml:7): the objective, the model with both logvar bounds
+(which live outside the model), runs under DistributedDataParallel, so one
+all-reduce averages every gradient, the bounds' included; each rank's loss
+is its local batch's mean, so the average is the global batch's gradient, as
+the JAX package's dp axis computes it. Validation all-gathers pred and
+target, so every rank computes the same metrics and keeps the same
+checkpoint_best; the ranks' checksums (model and bounds) must agree bit for
+bit at every epoch end.
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ import numpy as np
 import torch
 
 from vaevar_tpu_torch import channels
+from vaevar_tpu_torch.parallel import mesh as pmesh
 
 
 def lp_loss(pred, target):
@@ -89,37 +100,85 @@ def make_forecast_train_step(
     total_steps: int = 10_000,
     two_step: bool = False,
     out_shape=None,  # (out_chans, H, W) needed for Possloss logvar bounds
+    mesh=None,
 ):
     """-> (init_fn, train_step). `init_fn()` builds the trainable around
     `model` (on its device) and its optimizer state; `train_step(trainable,
     opt_state, inp, tars)` takes one AdamW step in place and returns
-    (trainable, opt_state, loss)."""
+    (trainable, opt_state, loss). With a distributed `mesh` the step runs
+    under DDP on this rank's local batch and the loss is the global batch's."""
+
+    objective = None  # the loss module (under DDP with a distributed mesh)
 
     def init_fn():
+        nonlocal objective
         trainable = {"model": model}
         if loss_type == "Possloss":
             c, h, w = out_shape
             n = c * h * w // 2
             dev = next(model.parameters()).device
-            trainable["max_logvar"] = torch.full((1, n), 0.5, device=dev, requires_grad=True)
-            trainable["min_logvar"] = torch.full((1, n), -10.0, device=dev, requires_grad=True)
-        params = list(model.parameters()) + [
-            trainable[k] for k in ("max_logvar", "min_logvar") if k in trainable]
-        opt = torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.9), eps=1e-8,
-                                weight_decay=1e-4)
+            trainable["max_logvar"] = torch.nn.Parameter(torch.full((1, n), 0.5, device=dev))
+            trainable["min_logvar"] = torch.nn.Parameter(torch.full((1, n), -10.0, device=dev))
+        objective = _Objective(trainable, loss_type, two_step)
+        if mesh is not None and mesh.distributed:
+            from torch.nn.parallel import DistributedDataParallel
+
+            dev = next(model.parameters()).device
+            objective = DistributedDataParallel(
+                objective, device_ids=[dev] if dev.type == "cuda" else None)
+        opt = torch.optim.AdamW(trainable_parameters(trainable), lr=lr, betas=(0.9, 0.9),
+                                eps=1e-8, weight_decay=1e-4)
         sched = torch.optim.lr_scheduler.LambdaLR(
             opt, lambda s: cosine_decay(s, total_steps))
         return trainable, OptState(opt, sched)
 
     def train_step(trainable, opt_state, inp, tars):
         opt_state.optimizer.zero_grad(set_to_none=True)
-        loss, _ = _loss(trainable, inp, tars, loss_type, two_step)
+        loss = objective(inp, tars)
         loss.backward()
         opt_state.optimizer.step()
         opt_state.scheduler.step()
-        return trainable, opt_state, loss.detach()
+        return trainable, opt_state, _global_mean(loss.detach(), mesh)
 
     return init_fn, train_step
+
+
+class _Objective(torch.nn.Module):
+    """The training loss as one module over the model and the logvar bounds,
+    so that DDP all-reduces the bounds' gradients with the model's."""
+
+    def __init__(self, trainable, loss_type, two_step):
+        super().__init__()
+        self.model = trainable["model"]
+        for k in ("max_logvar", "min_logvar"):
+            if k in trainable:
+                self.register_parameter(k, trainable[k])
+        self.loss_type, self.two_step = loss_type, two_step
+
+    def forward(self, inp, tars):
+        trainable = {"model": self.model, **dict(self.named_parameters(recurse=False))}
+        return _loss(trainable, inp, tars, self.loss_type, self.two_step)[0]
+
+
+def trainable_parameters(trainable):
+    """The model's parameters, then the logvar bounds when there are any."""
+    return list(trainable["model"].parameters()) + [
+        trainable[k] for k in ("max_logvar", "min_logvar") if k in trainable]
+
+
+def trainable_checksum(trainable) -> float:
+    """Sum of |value| over the model and the logvar bounds: the quantity the
+    ranks of a data-parallel run compare (utils/misc.py:408-420)."""
+    with torch.no_grad():
+        return float(sum(p.detach().float().abs().sum() for p in trainable_parameters(trainable)))
+
+
+def _global_mean(x, mesh):
+    """The mean of a per-rank scalar over the ranks: the global batch's
+    value of a batch-mean loss (equal local batches)."""
+    if mesh is None or not mesh.distributed:
+        return x
+    return pmesh.all_reduce(x) / pmesh.process_count()
 
 
 def make_eval_step(loss_type: str = "Possloss", two_step: bool = False):
@@ -144,20 +203,26 @@ def _put(batch, device):
 
 
 def evaluate(eval_step, trainable, val_iter: Iterable, recorder=None,
-             data_std=None) -> dict:
+             data_std=None, mesh=None) -> dict:
     """Run the validation loop; returns mean scalars over batches (the
     reference's basemodel.test, model/model.py:414-431). `recorder` is a
     utils.metrics.MetricsRecorder, evaluated on the normalized fields with
-    data_std scaling to physical units."""
+    data_std scaling to physical units. With a distributed `mesh` each batch
+    is this rank's local batch: the loss is averaged over the ranks, and pred
+    and target are all-gathered into the global batch before the recorder
+    sees them, so every rank computes the same numbers."""
     device = _device_of(trainable)
+    dp = mesh is not None and mesh.distributed
     sums, n = {}, 0
     for inp, tars in val_iter:
         tars_t = [_put(t, device) for t in tars]
         loss, pred = eval_step(trainable, _put(inp, device), tars_t)
-        scalars = {"loss": float(loss)}
+        scalars = {"loss": float(_global_mean(loss, mesh))}
         if recorder is not None:
-            scalars.update(recorder.evaluate_batch(
-                {"pred": pred, "gt": tars_t[0], "std": data_std}))
+            gt = tars_t[0]
+            if dp:
+                pred, gt = pmesh.global_batch(pred), pmesh.global_batch(gt)
+            scalars.update(recorder.evaluate_batch({"pred": pred, "gt": gt, "std": data_std}))
         for k, v in scalars.items():
             sums[k] = sums.get(k, 0.0) + v
         n += 1
@@ -181,6 +246,7 @@ def train_forecast(
     data_std=None,
     logger=print,
     log_every: int = 10,
+    mesh=None,
     writer=None,
 ):
     """Epoch-loop trainer with validation-driven best-checkpoint selection
@@ -193,14 +259,17 @@ def train_forecast(
     checkpoint_best is refreshed whenever the epoch's mean validation
     `save_best_param` improves, checkpoint_latest after every epoch.
     `writer` (a meters.ScalarWriter) logs the per-step train loss at the
-    true global step, so a resumed run continues the scalar stream. The
-    JAX version's `mesh` (data-parallel training) waits for ROADMAP A.13."""
+    true global step on rank 0, so a resumed run continues the scalar
+    stream. With a distributed `mesh` (parallel/mesh.DPMesh) each batch is
+    this rank's local batch and the step runs under DDP (see the module
+    docstring); rank 0 writes the checkpoints and every rank resumes from
+    them."""
     from vaevar_tpu_torch.train import checkpoint as ckpt
 
     total = (steps_per_epoch or 1000) * epochs
     init_fn, train_step = make_forecast_train_step(
         model, loss_type=loss_type, lr=lr, total_steps=total,
-        two_step=two_step, out_shape=out_shape)
+        two_step=two_step, out_shape=out_shape, mesh=mesh)
     trainable, opt_state = init_fn()
     eval_step = make_eval_step(loss_type, two_step)
     device = _device_of(trainable)
@@ -229,20 +298,22 @@ def train_forecast(
             if (j + 1) % log_every == 0:
                 logger(f"epoch {epoch} iter {j} loss {loss:.4f}")
             history.append(loss)
-            if writer is not None:
+            if writer is not None and pmesh.process_index() == 0:
                 writer.add_scalar("loss", loss, gstep)
             gstep += 1
         val = {}
         if val_factory is not None:
             model.eval()
-            val = evaluate(eval_step, trainable, val_factory(), recorder, data_std)
+            val = evaluate(eval_step, trainable, val_factory(), recorder, data_std, mesh)
             shown = {k: v for k, v in val.items() if not k[-1].isdigit()}
-            if writer is not None:
+            if writer is not None and pmesh.process_index() == 0:
                 writer.add_scalars({f"val_{k}": v for k, v in shown.items()}, epoch)
             shown.update({  # the reference's channels of record
                 k: val[k] for k in ("WRMSE11", "WRMSE66", "WRMSE2") if k in val})
             logger(f"epoch {epoch} val: " + " ".join(
                 f"{k} {v:.4g}" for k, v in sorted(shown.items())))
+        if mesh is not None:
+            pmesh.check_replicas(trainable_checksum(trainable))
         if ckpt_dir:
             metric_now = val.get(save_best_param)
             if metric_now is not None and (metric_best is None or metric_now < metric_best):

@@ -4,7 +4,7 @@ Port of vaevar_tpu/train/vae_trainer.py, itself the reference
 `vae_nmc_model.train` (model/model.py:571-659): per batch of 5 six-hourly
 normalized frames, the error sample is
 
-    err = (frame[4] - fengwu^4(frame[0])) / ERR_STD,  nearest-resized to the
+    err = (frame[4] - fengwu^4(frame[0])) / err_std,  nearest-resized to the
     latent grid,
 
 with the flow model run without gradients, and the VAE minimizes
@@ -12,11 +12,23 @@ recon / (2 sigma^2) + KLD with Adam (lr 1e-4, betas (0.9, 0.999), eps
 1e-8: builder.make_optimizer's torch.optim.Adam computes optax.adam's
 update). The VAE is an `nn.Module` on its device that the steps update in
 place. The
-reparameterization noise of step j of epoch e comes from a torch.Generator
-seeded from (seed, e, j), so a resumed run replays the uninterrupted run's
-trajectory; it is not the JAX package's `fold_in` draw, and a caller that
-needs given noise passes `eps`. The JAX version's `mesh` (data-parallel
-training) waits for ROADMAP A.13.
+reparameterization noise of step j of epoch e is the JAX trainer's draw,
+jax.random.normal(fold_in(fold_in(PRNGKey(seed), e), j)), computed on the
+VAE's device by utils/jax_random.py: a resumed run replays the uninterrupted
+run's trajectory, and the port replays a JAX run's noise on any device.
+`err_std` replaces ERR_STD where a run has its own error scale (the OSSE's
+empirical 24 h error std).
+
+Data parallelism (`mesh`, parallel/mesh.py) is the reference's DDP: the VAE
+is wrapped in DistributedDataParallel, the flow model stays a replicated
+module without gradients, and every rank draws its own rows of the GLOBAL
+batch's noise (the counter-based draw computes just those rows), as the
+JAX trainer's dp axis shards one draw, so a dp=N run computes what a dp=1
+run computes on the global batch (the ranks' local batches in rank order). The ELBO is a sum over the batch, and DDP averages gradients, so
+each rank's loss is scaled by N before the backward: the all-reduced
+gradient is then the global sum's, as the JAX package's. Losses are logged
+as global sums, and the ranks' parameter checksums must agree bit for bit at
+every epoch end.
 """
 
 from __future__ import annotations
@@ -29,56 +41,72 @@ import torch
 from vaevar_tpu_torch import channels
 from vaevar_tpu_torch.models.vae import elbo_loss
 from vaevar_tpu_torch.ops.interp import resize_nearest
+from vaevar_tpu_torch.parallel import mesh as pmesh
 from vaevar_tpu_torch.train.builder import make_optimizer
+from vaevar_tpu_torch.utils import jax_random
 
 
-def nmc_error_sample(frames, fengwu, latent_hw, nmc_steps: int = 4):
-    """frames: (B, >nmc_steps, C, H, W) normalized. Returns (B, C, *latent_hw)."""
+def nmc_error_sample(frames, fengwu, latent_hw, nmc_steps: int = 4, err_std=None):
+    """frames: (B, >nmc_steps, C, H, W) normalized. Returns (B, C, *latent_hw).
+    `err_std` (C,) defaults to channels.ERR_STD[:C]."""
     C = frames.shape[2]
     with torch.no_grad():
         pred = frames[:, 0]
         for _ in range(nmc_steps):
             pred = fengwu(pred)[:, :C]
-    err_std = torch.as_tensor(channels.ERR_STD[:C], dtype=torch.float32,
+    if err_std is None:
+        err_std = channels.ERR_STD[:C]
+    err_std = torch.as_tensor(np.asarray(err_std), dtype=torch.float32,
                               device=frames.device).reshape(1, -1, 1, 1)
     err = (frames[:, nmc_steps] - pred) / err_std
     return resize_nearest(err, latent_hw)
 
 
-def vae_loss(vae, err, sigma: float, generator=None, eps=None):
-    """(total, reconstruction sse, kld) of one VAE pass over `err`."""
-    recon, mu, logvar = vae(err, generator, eps)
+def vae_loss(vae, err, sigma: float, eps=None):
+    """(total, reconstruction sse, kld) of one VAE pass over `err` with the
+    reparameterization noise `eps` (torch's default generator when None)."""
+    recon, mu, logvar = vae(err, eps=eps)
     return elbo_loss(recon, err, mu, logvar, sigma)
 
 
 def make_vae_train_step(vae, fengwu, sigma: float = 2.0, lr: float = 1e-4,
-                        latent_hw=(128, 256), nmc_steps: int = 4):
+                        latent_hw=(128, 256), nmc_steps: int = 4, err_std=None, mesh=None):
     """-> (init_fn, train_step). `init_fn(params=None)` loads `params` (a VAE
     state_dict, strictly) when given and returns a fresh Adam over the VAE's
-    parameters; `train_step(optimizer, frames, generator=None, eps=None)`
-    takes one step in place and returns {"loss", "rec_sse", "kld"} as device
-    scalars."""
+    parameters; `train_step(optimizer, frames, eps=None)` takes one step in
+    place and returns {"loss", "rec_sse", "kld"} as device scalars; `eps`
+    is the reparameterization noise of `frames` (torch's default generator
+    draws it when None). With a distributed `mesh` the VAE runs under DDP,
+    `frames` and `eps` are this rank's rows of the global batch, and the
+    metrics are global sums."""
+    model, world = vae, 1
+    if mesh is not None and mesh.distributed:
+        from torch.nn.parallel import DistributedDataParallel
+
+        dev = next(vae.parameters()).device
+        model = DistributedDataParallel(vae, device_ids=[dev] if dev.type == "cuda" else None)
+        world = pmesh.process_count()
 
     def init_fn(params=None):
         if params is not None:
             vae.load_state_dict(params, strict=True)
         return make_optimizer(vae.parameters(), "Adam", lr)
 
-    def train_step(optimizer, frames, generator=None, eps=None):
-        err = nmc_error_sample(frames, fengwu, latent_hw, nmc_steps)
+    def train_step(optimizer, frames, eps=None):
+        err = nmc_error_sample(frames, fengwu, latent_hw, nmc_steps, err_std)
         optimizer.zero_grad(set_to_none=True)
-        total, sse, kld = vae_loss(vae, err, sigma, generator, eps)
-        total.backward()
+        if eps is not None:
+            eps = eps.to(err.device)
+        total, sse, kld = vae_loss(model, err, sigma, eps=eps)
+        # DDP averages gradients over the ranks; the ELBO sums over the batch
+        (total * world if world > 1 else total).backward()
         optimizer.step()
-        return {"loss": total.detach(), "rec_sse": sse.detach(), "kld": kld.detach()}
+        m = torch.stack([total.detach(), sse.detach(), kld.detach()])
+        if world > 1:
+            m = pmesh.all_reduce(m)
+        return dict(zip(("loss", "rec_sse", "kld"), m))
 
     return init_fn, train_step
-
-
-def step_generator(device, seed: int, *keys: int) -> torch.Generator:
-    """A generator on `device` seeded from (seed, *keys)."""
-    s = int(np.random.SeedSequence([seed, *keys]).generate_state(1, np.uint64)[0])
-    return torch.Generator(device=device).manual_seed(s)
 
 
 def _check_batch(batch, vae, nmc_steps):
@@ -103,25 +131,35 @@ def train_vae(
     seed: int = 0,
     log_every: int = 10,
     logger=print,
+    sample_at_epoch_end: bool = True,
+    mesh=None,
     ckpt_dir: str | None = None,
     resume: bool = True,
     init_params=None,
+    err_std=None,
 ):
     """Full training loop over host batches, on the VAE's device; returns
     (vae, per-step metrics of this run).
 
     `data_iter` is a plain iterable (reused every epoch) or a factory
-    `epoch -> iterable` for per-epoch reshuffling. With `init_params` (a VAE
-    state_dict) the VAE is warm-started from it; otherwise one batch of
-    epoch 0 is probed for its shapes, and the probe's iterator is closed.
+    `epoch -> iterable` for per-epoch reshuffling. With `init_params` (a VAE state_dict) the VAE is
+    warm-started from it; otherwise one batch of epoch 0 is probed for its
+    shapes, and the probe's iterator is closed. With `sample_at_epoch_end`
+    each epoch ends with a prior sample's std in the log. With a
+    distributed `mesh` (parallel/mesh.DPMesh) each batch is this rank's
+    local batch and the VAE trains under DDP (see the module docstring).
     With `ckpt_dir`, {VAE, Adam state} is saved at every epoch end as
     checkpoint_latest (after checkpoint_best when the epoch's mean loss
-    improves), and training resumes from checkpoint_latest when one exists."""
+    improves; rank 0 writes), and training resumes from checkpoint_latest
+    when one exists (every rank reads it)."""
     from vaevar_tpu_torch.train import checkpoint as ckpt
 
-    init_fn, train_step = make_vae_train_step(vae, fengwu, sigma, lr, latent_hw, nmc_steps)
+    init_fn, train_step = make_vae_train_step(vae, fengwu, sigma, lr, latent_hw, nmc_steps,
+                                              err_std, mesh)
     device = next(vae.parameters()).device
     factory = data_iter if callable(data_iter) else (lambda _e: data_iter)
+    key, latent_c = jax_random.prng_key(seed), sum(vae.dec.cfg.inchans_list)
+    world, rank = (pmesh.process_count(), pmesh.process_index()) if mesh is not None else (1, 0)
 
     if init_params is None:
         probe = iter(factory(0))
@@ -151,20 +189,27 @@ def train_vae(
         epoch_losses = []
         for j, batch in enumerate(factory(epoch)):
             frames = torch.as_tensor(np.asarray(batch), dtype=torch.float32).to(device)
-            m = train_step(optimizer, frames, step_generator(device, seed, epoch, j))
+            b = frames.shape[0]
+            eps = jax_random.normal(jax_random.fold_in(jax_random.fold_in(key, epoch), j),
+                                    (world * b, latent_c, *latent_hw), device,
+                                    rows=(rank * b, (rank + 1) * b))
+            m = train_step(optimizer, frames, eps)
             rec = {k: float(v) for k, v in m.items()}
             if (j + 1) % log_every == 0:
                 logger(f"epoch {epoch} iter {j} loss {rec['loss']:.3f} "
                        f"rec {rec['rec_sse']:.3f} kld {rec['kld']:.3f}")
             history.append(rec)
             epoch_losses.append(rec["loss"])
-        # prior sample sanity check (model/model.py:648-653)
-        vae.eval()
-        z = torch.randn((1, sum(vae.dec.cfg.inchans_list), *latent_hw),
-                        generator=step_generator(device, seed, 10_000 + epoch), device=device)
-        with torch.no_grad():
-            y = vae.decoder(z)
-        logger(f"epoch {epoch} prior-sample std {float(y.float().std(correction=0)):.3f}")
+        if sample_at_epoch_end:
+            # prior sample sanity check (model/model.py:648-653)
+            vae.eval()
+            z = jax_random.normal(jax_random.fold_in(key, 10_000 + epoch),
+                                  (1, latent_c, *latent_hw), device)
+            with torch.no_grad():
+                y = vae.decoder(z)
+            logger(f"epoch {epoch} prior-sample std {float(y.float().std(correction=0)):.3f}")
+        if mesh is not None:
+            pmesh.check_replicas(replicated_checksum(vae))
         if ckpt_dir:
             epoch_mean = float(np.mean(epoch_losses)) if epoch_losses else float("inf")
             if epoch_mean < metric_best:
