@@ -118,9 +118,24 @@ exits nonzero without its last line:
    equal. (b) one micro f32 dp=2 step against a dp=1 step on the same
    global batch (loss rel 1e-5, gradients 1e-3 x max|grad|). (c)
    run_train_forecast --mesh 1 through torch.distributed.run with nccl.
+15. sd_zoo: SD_attn's general path and the layer zoo (models/zoo.py).
+   (a) FORECAST_025-SD: FORECAST_025 with lg_window_size (1, 6, 12) and
+   dilated_size (1, 1, 3) (its LG stages 1-2 run 3-D windows with rope3,
+   every encoder and decoder window is dilated; LG stage 0 stays the
+   full-grid flash stage) at 721x1440, b1, bf16, remat, Possloss, random
+   weights from the seed: one forward (4 flash forward launches), 2 train
+   steps (8, 4, 4 each) and an eval step (4), the eval loss below the
+   first step's, LG stage 1's qkv gradient finite and nonzero; prints
+   set-up, forward and step seconds and peak memory. (b) the micro SD
+   model card vs CPU in f32 (forward atol 1e-4, one train step's gradients
+   1e-3 x max|grad|). (c) every zoo module card vs CPU at micro size in f32
+   (outputs atol 1e-4, MoE expert indices equal except at counted
+   near-ties), then forward and backward of each at the backbone's widths
+   (dim 192, 6 heads, window 6x12, grid 90x180, b1, bf16): finite, seconds
+   printed.
 The second-to-last line is a JSON record of the kernels (launches summed
-over the DA, window, training, record, VAE-training, sc4dvar, real-obs and
-dp paths (both ranks), each counted from 0; times with the main
+over the DA, window, training, record, VAE-training, sc4dvar, real-obs,
+sd_zoo (a) and dp paths (both ranks), each counted from 0; times with the main
 path's dtypes, and under "bf16" the all-bf16 ones; each bound from the
 function `bound_ms` below); the last line is {"ok": true, "device": {...}}.
 """
@@ -465,28 +480,35 @@ def micro_model(seed=3, **kw):
 def check_model(fa):
     """Phase 5: micro rope model with a flash stage, card against CPU: the
     forward, then one train step (f32, remat, Possloss)."""
+    model_card_vs_cpu(fa, micro_model, "model", "micro rope LGUnet")
+
+
+def model_card_vs_cpu(fa, build, name, what):
+    """A micro model from `build(**kw)`, card against CPU in f32: the
+    forward (atol 1e-4), then one Possloss train step with remat (loss atol
+    1e-4, gradients 1e-3 x max|grad|); the step must launch dq and dkv."""
     import numpy as np
     import torch
 
     from vaevar_tpu_torch.train import forecast_trainer as ft
 
-    model = micro_model().eval()
+    model = build().eval()
     x = torch.from_numpy(np.random.default_rng(4).standard_normal(
         (1, 69, 32, 64), dtype=np.float32))
     with torch.no_grad():
         y_cpu = model(x)
         y_gpu = model.cuda()(x.cuda()).cpu()
     err = (y_gpu - y_cpu).abs().max().item()
-    phase("model", f"micro rope LGUnet card vs CPU: max|d| {err:.3g} (atol 1e-4), "
+    phase(name, f"{what} card vs CPU: max|d| {err:.3g} (atol 1e-4), "
           f"finite {bool(torch.isfinite(y_gpu).all())}")
     if not (err <= 1e-4 and torch.isfinite(y_gpu).all()):
-        raise AssertionError("model on the card disagrees with the CPU path")
+        raise AssertionError(f"{what} on the card disagrees with the CPU path")
 
     tar = torch.from_numpy(np.random.default_rng(5).standard_normal(
         (1, 69, 32, 64), dtype=np.float32))
     losses, grads = {}, {}
     for dev in ("cpu", "cuda"):
-        model = micro_model(remat=True).to(dev).train()
+        model = build(remat=True).to(dev).train()
         init_fn, step = ft.make_forecast_train_step(model, "Possloss", lr=1e-4, total_steps=10,
                                                     out_shape=(138, 32, 64))
         trainable, opt_state = init_fn()
@@ -502,11 +524,291 @@ def check_model(fa):
     lerr = abs(losses["cuda"] - losses["cpu"])
     # f32 through ~40 layers in another summation order: the forward's 1e-4
     # and the gradients to 1e-3 of their largest entry
-    phase("model", f"micro train step card vs CPU: loss {losses['cuda']:.6g} vs "
+    phase(name, f"{what} train step card vs CPU: loss {losses['cuda']:.6g} vs "
           f"{losses['cpu']:.6g} (|d| {lerr:.3g}, atol 1e-4); gradients max|d| {gerr:.3g} "
           f"<= {1e-3 * scale:.3g} (1e-3 x max|grad|); dq/dkv launches {launched}")
     if not (lerr <= 1e-4 and gerr <= 1e-3 * scale and min(launched) > 0):
-        raise AssertionError("the micro train step on the card disagrees with the CPU path")
+        raise AssertionError(f"the {what} train step on the card disagrees with the CPU path")
+
+
+def micro_sd_model(seed=3, **kw):
+    """`micro_model` with SD_attn's general path on: dilation (1, 1, 2) on
+    the 4x4 encoder and decoder windows (total windows 4x8) and a (1, 4, 4)
+    3-D window with rope3 in LG stage 1 (its shifted block masked); LG stage
+    0 stays the full-grid flash stage (128 tokens, head dim 32)."""
+    from vaevar_tpu_torch import config as cfgs
+    from vaevar_tpu_torch.models.lgunet import LGUnet
+    from vaevar_tpu_torch.utils.fast_init import fast_init
+
+    cfg = cfgs.micro_config(img_size=(32, 64), flash_min_seq=16, enc_dim=32, embed_dim=64,
+                            lg_depths=(1, 2), lg_heads=(2, 2), lg_window_size=(1, 4, 4),
+                            dilated_size=(1, 1, 2), **kw)
+    return fast_init(LGUnet(cfg), seed=seed)
+
+
+def zoo_cases(dim, heads, win, grid, dil, tokens, dtype=None):
+    """(label, constructor, input shapes) for every module of models/zoo.py
+    at one width: (1, *grid, dim) inputs, or (1, tokens, dim) for the ViT
+    blocks (their context: tokens // 8)."""
+    from vaevar_tpu_torch.models import zoo
+
+    X = (1, *grid, dim)
+    N = win[0] * win[1]
+    shift = (win[0] // 2, win[1] // 2)
+    s = min(128, dim)
+    T, ctx = (1, tokens, dim), (1, tokens // 8, dim)
+    kw = dict(dtype=dtype)
+    return [
+        ("ScaleOffset", lambda: zoo.ScaleOffset(dim), [X]),
+        ("SEBlock", lambda: zoo.SEBlock(dim, **kw), [X]),
+        ("RelativePositionalBias", lambda: zoo.RelativePositionalBias(win, heads),
+         [(16, heads, N, N)]),
+        ("CrossAttention", lambda: zoo.CrossAttention(dim, win, heads, **kw), [X, X]),
+        ("ConvAttention", lambda: zoo.ConvAttention(dim, win, heads, **kw), [X]),
+        ("DilatedAttention", lambda: zoo.DilatedAttention(dim, win, heads, dil, **kw), [X]),
+        ("GAUAttention-lin", lambda: zoo.GAUAttention(dim, win, s=s, **kw), [X]),
+        ("GAUAttention-quad", lambda: zoo.GAUAttention(dim, win, s=s, attn_type="quad", **kw),
+         [X]),
+        ("HydraAttention-local", lambda: zoo.HydraAttention(dim, win, heads, **kw), [X]),
+        ("HydraAttention-global", lambda: zoo.HydraAttention(dim, win, heads, local=False, **kw),
+         [X]),
+        ("HydraAttention-hydra", lambda: zoo.HydraAttention(dim, win, heads, use_attn=False,
+                                                            **kw), [X]),
+        ("HiLoAttention", lambda: zoo.HiLoAttention(dim, heads, win, 0.5, **kw), [X]),
+        ("MoEDense-cf0.5", lambda: zoo.MoEDense(dim, 4, dim, expert_capacity=0.5, **kw), [X]),
+        ("MoEMlp", lambda: zoo.MoEMlp(dim, 4 * dim, 4, **kw), [X]),
+        ("MoEWindowAttention", lambda: zoo.MoEWindowAttention(dim, win, heads, 4, shift, **kw),
+         [X]),
+        ("GluMlp", lambda: zoo.GluMlp(dim, 4 * dim, **kw), [X]),
+        ("GatedMlp", lambda: zoo.GatedMlp(dim, grid, **kw), [X]),
+        ("ConvMlp", lambda: zoo.ConvMlp(dim, 4 * dim, **kw), [X]),
+        ("MAGMlp", lambda: zoo.MAGMlp(dim, win, **kw), [X]),
+        ("RCAB", lambda: zoo.RCAB(dim, **kw), [X]),
+        ("RDCAB", lambda: zoo.RDCAB(dim, **kw), [X]),
+        ("DWMlp", lambda: zoo.DWMlp(dim, 4 * dim, **kw), [X]),
+        ("ConvNeXtBlock", lambda: zoo.ConvNeXtBlock(dim, (4, 8), 12, 0.5, **kw), [X]),
+        ("HiLoBlock", lambda: zoo.HiLoBlock(dim, win, heads, alpha=0.5, **kw), [X]),
+        ("ConvFFNBlock", lambda: zoo.ConvFFNBlock(dim, **kw), [X]),
+        ("MoEWindowBlock", lambda: zoo.MoEWindowBlock(dim, win, heads, 4, 4, shift, **kw), [X]),
+        ("ViTAttention", lambda: zoo.ViTAttention(dim, heads, **kw), [T]),
+        ("ViTCrossAttention", lambda: zoo.ViTCrossAttention(dim, heads, **kw), [T, ctx]),
+        ("ViTBlock", lambda: zoo.ViTBlock(dim, heads, **kw), [T]),
+        ("ViTDecoderBlock", lambda: zoo.ViTDecoderBlock(dim, heads, **kw), [T, ctx]),
+    ]
+
+
+ZOO_MICRO = dict(dim=48, heads=2, win=(2, 4), grid=(8, 16), dil=(2, 2), tokens=40)
+# the backbone's LG-stage widths: FORECAST_025's encoder dim 192 and 6 heads,
+# its 6x12 window, the 90x180 LG grid (16200 tokens)
+ZOO_WIDE = dict(dim=192, heads=6, win=(6, 12), grid=(90, 180), dil=(1, 3), tokens=16200)
+
+
+def _outputs(out):
+    """A zoo module's output as (y, [scalar losses])."""
+    if not isinstance(out, tuple):
+        return out, []
+    y, *rest = out
+    return y, [t for r in rest for t in (r if isinstance(r, tuple) else (r,))]
+
+
+def zoo_card_vs_cpu():
+    """Every zoo module at micro size in f32, the same weights on the card
+    and on the CPU: outputs within atol 1e-4, and every MoE router's expert
+    indices equal except at a near-tie (the top two CPU probabilities within
+    1e-5), which is counted. Returns (modules, largest |d|, routed tokens,
+    near-tie flips)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from vaevar_tpu_torch.ops import moe
+
+    real_route = moe.top1_route
+    worst, n_routed, flips = 0.0, 0, 0
+    cases = zoo_cases(**ZOO_MICRO)
+    try:
+        for i, (label, build, shapes) in enumerate(cases):
+            torch.manual_seed(i)
+            m_cpu = build().eval()
+            m_gpu = copy.deepcopy(m_cpu).cuda()
+            xs = [torch.from_numpy(np.random.default_rng(i + j).standard_normal(sh, np.float32))
+                  for j, sh in enumerate(shapes)]
+            outs, routes = {}, {}
+            for dev, m in (("cpu", m_cpu), ("cuda", m_gpu)):
+                routes[dev] = []
+                moe.top1_route = (lambda *a, _r=routes[dev], **k:
+                                  _r.append(real_route(*a, **k)) or _r[-1])
+                with torch.no_grad():
+                    y, extra = _outputs(m(*(x.to(dev) for x in xs)))
+                outs[dev] = [t.cpu() for t in (y, *extra)]
+            errs = [(a - b).abs().max().item() for a, b in zip(outs["cuda"], outs["cpu"])]
+            if not (max(errs) <= 1e-4 and all(torch.isfinite(t).all() for t in outs["cuda"])):
+                raise AssertionError(f"zoo {label} on the card disagrees with the CPU: {errs}")
+            worst = max(worst, *errs)
+            for (ic, pc, _), (ig, _, _) in zip(routes["cpu"], routes["cuda"]):
+                differ = ic.cpu() != ig.cpu()
+                top2 = pc.cpu().topk(2, dim=-1).values
+                near = (top2[..., 0] - top2[..., 1]) < 1e-5
+                if bool((differ & ~near).any()):
+                    raise AssertionError(f"zoo {label}: expert indices differ off a near-tie")
+                n_routed += ic.numel()
+                flips += int(differ.sum())
+    finally:
+        moe.top1_route = real_route
+    return len(cases), worst, n_routed, flips
+
+
+def zoo_at_width():
+    """Forward and backward of every zoo module at the backbone's widths
+    (ZOO_WIDE, b1, bf16 compute with f32 parameters) on the card, twice:
+    the output and every parameter gradient finite; returns {label: (first,
+    second) seconds of forward + backward} (host clock, synchronized; the
+    first call of a shape pays the library's first-use set-up) and the peak
+    memory."""
+    import numpy as np
+    import torch
+
+    secs = {}
+    torch.cuda.reset_peak_memory_stats()
+    for i, (label, build, shapes) in enumerate(zoo_cases(**ZOO_WIDE, dtype=torch.bfloat16)):
+        torch.manual_seed(i)
+        with torch.device("cuda"):
+            m = build().cuda().train()
+        xs = [torch.from_numpy(np.random.default_rng(i + j).standard_normal(sh, np.float32))
+              .cuda() for j, sh in enumerate(shapes)]
+        secs[label] = []
+        for _ in range(2):
+            m.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y, extra = _outputs(m(*xs))
+            (y.float().square().mean() + sum(extra)).backward()
+            torch.cuda.synchronize()
+            secs[label].append(time.perf_counter() - t0)
+        ok = bool(torch.isfinite(y).all()) and all(
+            p.grad is not None and bool(torch.isfinite(p.grad).all()) for p in m.parameters())
+        if not ok:
+            raise AssertionError(f"zoo {label} at backbone width: a non-finite output or "
+                                 "gradient")
+        del m, xs, y, extra
+    return secs, torch.cuda.max_memory_allocated()
+
+
+def check_sd_zoo(fa):
+    """Phase 15 (sd_zoo): SD_attn's general path and the layer zoo. (a)
+    FORECAST_025-SD at 721x1440 (FORECAST_025 with lg_window_size (1, 6, 12)
+    and dilated_size (1, 1, 3)), b1, bf16, remat, Possloss, random weights
+    from the seed: one forward (4 flash forward launches: LG stage 0), then
+    2 train steps (8, 4, 4 each) and an eval step (4) on one synthetic ERA5
+    pair; finite losses, the eval loss below the first step's, and a finite
+    nonzero gradient at LG stage 1's first qkv (the 3-D windowed stage).
+    (b) the micro SD model card vs CPU (`model_card_vs_cpu`). (c) every zoo
+    module card vs CPU at micro size, then forward and backward at the
+    backbone's widths. Returns the launch counts of (a)."""
+    from datetime import datetime, timedelta
+
+    import numpy as np
+    import torch
+
+    from vaevar_tpu_torch import channels
+    from vaevar_tpu_torch import config as cfgs
+    from vaevar_tpu_torch.data.era5 import SyntheticEra5
+    from vaevar_tpu_torch.models.lgunet import LGUnet, WindowAttention
+    from vaevar_tpu_torch.train import forecast_trainer as ft
+    from vaevar_tpu_torch.utils.fast_init import fast_init
+
+    t0 = time.perf_counter()
+    cfg = cfgs.FORECAST_025.replace(lg_window_size=(1, 6, 12), dilated_size=(1, 1, 3),
+                                    dtype=torch.bfloat16)
+    model = fast_init(LGUnet(cfg), seed=0).cuda().train()
+    n_model = sum(p.numel() for p in model.parameters())
+    attns = [m for m in model.modules() if isinstance(m, WindowAttention)]
+    n3d = sum(len(m.win) == 3 for m in attns)
+    ndil = sum(m.dil == (1, 3) for m in attns)
+    # LG stages 1-2 (4 + 4 blocks) and every encoder and decoder block (6
+    # groups x 2 x (2 + 2 + 2)) take the general path
+    if (n3d, ndil) != (8, 72) or not all(m.general for m in attns if len(m.win) == 3):
+        raise AssertionError(f"FORECAST_025-SD built {n3d} 3-D and {ndil} dilated blocks")
+    hw = cfg.img_size
+    src = SyntheticEra5(hw=hw, seed=0)
+    mean, std = channels.MEAN.reshape(-1, 1, 1), channels.STD.reshape(-1, 1, 1)
+    t = datetime(2022, 1, 1)
+    inp, tar = (torch.from_numpy(((src.get_state(ts) - mean) / std).astype(np.float32)[None])
+                .cuda() for ts in (t, t + timedelta(hours=6)))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    counts = dict.fromkeys(("flash_fwd", "flash_dq", "flash_dkv"), 0)
+
+    def launched():
+        """The launches since the last call, added to the phase's counts."""
+        got = (fa.flash_fwd_launches, fa.flash_dq_launches, fa.flash_dkv_launches)
+        fa.flash_fwd_launches = fa.flash_dq_launches = fa.flash_dkv_launches = 0
+        for name, n in zip(counts, got):
+            counts[name] += n
+        return got
+
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_fwd_launches = fa.flash_dq_launches = fa.flash_dkv_launches = 0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        y = model(inp)
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    got = launched()
+    if got != (4, 0, 0) or tuple(y.shape) != (1, 138, *hw) or not torch.isfinite(y).all():
+        raise AssertionError(f"SD forward: launches {got}, shape {tuple(y.shape)}")
+    del y
+
+    init_fn, step = ft.make_forecast_train_step(model, "Possloss", lr=LR,
+                                                total_steps=TOTAL_STEPS,
+                                                out_shape=(2 * channels.N_CHANNELS, *hw))
+    trainable, opt_state = init_fn()
+    losses, secs = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        trainable, opt_state, loss = step(trainable, opt_state, inp, [tar])
+        losses.append(loss.item())
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        got = launched()
+        if got != (8, 4, 4):
+            raise AssertionError(f"SD train step launched (fwd, dq, dkv) {got}; want (8, 4, 4)")
+    g = model.net.layers[1].blocks[0].attn.qkv.weight.grad
+    qkv_ok = g is not None and bool(torch.isfinite(g).all()) and g.abs().max().item() > 0
+    peak = torch.cuda.max_memory_allocated()
+    after = ft.make_eval_step("Possloss")(trainable, inp, [tar])[0].item()
+    got = launched()
+    phase("sd_zoo", f"(a) FORECAST_025-SD {hw[0]}x{hw[1]} b1 bf16 remat (lg_window_size "
+          f"(1, 6, 12), dilated_size (1, 1, 3)): {n_model / 1e6:.1f} M model parameters, "
+          f"{n3d} 3-D window blocks, {ndil} dilated blocks; set-up "
+          f"{setup_s:.2f} s; forward {fwd_s:.3f} s; 2 steps: losses "
+          + ", ".join(f"{v:.6g}" for v in losses) + f"; seconds {secs[0]:.3f} (first), "
+          f"{secs[1]:.3f}; eval loss after {after:.6g}; peak memory {peak / 2**30:.2f} GiB; "
+          f"LG stage-1 (3-D window) qkv gradient finite and nonzero: {qkv_ok}; launches "
+          f"(fwd, dq, dkv) forward (4, 0, 0), per step (8, 4, 4), eval {got}; phase total "
+          f"{counts}")
+    if got != (4, 0, 0) or not (all(np.isfinite(losses)) and after < losses[0] and qkv_ok):
+        raise AssertionError(f"SD training went wrong: losses {losses}, after {after}, "
+                             f"qkv gradient ok {qkv_ok}, eval launches {got}")
+    del model, trainable, opt_state, inp, tar
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model_card_vs_cpu(fa, micro_sd_model, "sd_zoo", "(b) micro SD LGUnet")
+
+    t0 = time.perf_counter()
+    n, worst, routed, flips = zoo_card_vs_cpu()
+    phase("sd_zoo", f"(c) {n} zoo modules at micro size (dim 48, 2 heads, window 2x4, grid "
+          f"8x16), f32, card vs CPU: max|d| {worst:.3g} (atol 1e-4); MoE routes equal on "
+          f"{routed - flips} of {routed} tokens, {flips} flips at near-ties (top-2 gap < 1e-5); "
+          f"{time.perf_counter() - t0:.2f} s")
+    secs, peak = zoo_at_width()
+    phase("sd_zoo", "(c) forward + backward at backbone widths (dim 192, 6 heads, window "
+          "6x12, grid 90x180, b1, bf16), seconds of the first and second call: "
+          + ", ".join(f"{k} {a:.3f} {b:.3f}" for k, (a, b) in secs.items())
+          + f"; peak memory {peak / 2**30:.2f} GiB; all finite")
+    return counts
 
 
 def check_window(fa, extra=()):
@@ -1607,6 +1909,11 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     check_osse()
+    gc.collect()
+    torch.cuda.empty_cache()
+    sd_counts = check_sd_zoo(fa)
+    gc.collect()
+    torch.cuda.empty_cache()
     dp_counts = check_dp(fa, step_s)
 
     stats = {"flash_fwd": fwd, "flash_dq": bwd["flash_dq"], "flash_dkv": bwd["flash_dkv"]}
@@ -1618,7 +1925,7 @@ def main():
         main, rec = stats[name]["main"], {
             "name": name, "route": "cuda", "source": f"vaevar_tpu_torch/csrc/{src}",
             "replaces": tpu,
-            "launches": train_counts[name] + dp_counts[name] + (
+            "launches": train_counts[name] + dp_counts[name] + sd_counts[name] + (
                 launches + window_launches + record_launches + vae_launches + sc4dvar_launches
                 + real_obs_launches if name == "flash_fwd" else 0),
             "max_abs_err": stats[name]["max_abs_err"]}

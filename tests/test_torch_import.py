@@ -10,8 +10,9 @@ binding, `reference_state_dict`, `lgunet_block_from_yaml`, the
 relative-position index, the synthetic obs masks, R and the model error Q,
 the batch prefetcher, the SHT's quadrature weights and Legendre table, the
 observation-level ladder and matrices, the station and real-obs gridding
-and the report sources, the OSSE's SharedModeEra5 and the training meters)
-are held equal to the reference here."""
+and the report sources, the OSSE's SharedModeEra5 and the training meters,
+the positional encodings, rope3's tables and the SD_attn mask) are held
+equal to the reference here."""
 
 import dataclasses
 import inspect
@@ -35,7 +36,10 @@ from vaevar_tpu.data import prefetch as jprefetch
 from vaevar_tpu.data import reports as jreports
 from vaevar_tpu.ops import interp as jinterp
 from vaevar_tpu.data.era5 import SyntheticEra5 as JaxEra5
+from vaevar_tpu.ops import posenc as jposenc
+from vaevar_tpu.ops import rope as jrope
 from vaevar_tpu.ops import sht as jsht
+from vaevar_tpu.ops import windows as jwindows
 from vaevar_tpu.ops.posenc import relative_position_index as j_rpi
 from vaevar_tpu_torch import channels as tch
 from vaevar_tpu_torch import config as tcfg
@@ -48,7 +52,10 @@ from vaevar_tpu_torch.data import prefetch as tprefetch
 from vaevar_tpu_torch.data import reports as treports
 from vaevar_tpu_torch.ops import interp as tinterp
 from vaevar_tpu_torch.data.era5 import SyntheticEra5 as TorchEra5
+from vaevar_tpu_torch.ops import posenc as tposenc
+from vaevar_tpu_torch.ops import rope as trope
 from vaevar_tpu_torch.ops import sht as tsht
+from vaevar_tpu_torch.ops import windows as twindows
 from vaevar_tpu_torch.ops.posenc import relative_position_index as t_rpi
 
 REPO = Path(__file__).resolve().parent.parent
@@ -260,3 +267,29 @@ def test_real_obs_copies_equal_reference(module, name):
     assert _src(getattr(port, name)) == inspect.getsource(getattr(ref, name))
     if module == "obs":
         np.testing.assert_array_equal(tobs._STATION_HEIGHT_BINS, jobs._STATION_HEIGHT_BINS)
+
+
+@pytest.mark.parametrize("name, args", [
+    ("_axis_emb", (7, 5)), ("positional_encoding_1d", (10, 6)),
+    ("positional_encoding_2d", (4, 8, 10)), ("positional_encoding_3d", (2, 4, 8, 12)),
+    ("build_2d_sincos_posemb", (4, 8, 64)), ("relative_position_onehot", ((2, 3, 4),)),
+    ("relative_position_index", ((6, 12),))])
+def test_posenc_copy_equals_reference(name, args):
+    """ops/posenc.py is a copy of the reference module, function for
+    function: the same source and bitwise the same tables."""
+    assert inspect.getsource(getattr(tposenc, name)) == inspect.getsource(getattr(jposenc, name))
+    np.testing.assert_array_equal(getattr(tposenc, name)(*args), getattr(jposenc, name)(*args))
+
+
+def test_sd_attn_copies_equal_reference():
+    """rope3_tables, sd_attention_mask and the config's validation of the
+    SD_attn fields, line for line (their values are held bitwise in
+    tests/test_torch_sd_attn.py)."""
+    assert inspect.getsource(trope.rope3_tables) == inspect.getsource(jrope.rope3_tables)
+    assert inspect.getsource(twindows.sd_attention_mask) == \
+        inspect.getsource(jwindows.sd_attention_mask)
+    assert inspect.getsource(tcfg.LGUnetConfig.__post_init__) == \
+        inspect.getsource(jcfg.LGUnetConfig.__post_init__)
+    for bad in (dict(window_size=(1, 2, 2)), dict(lg_window_size=(2, 2, 4))):
+        with pytest.raises(ValueError):
+            tcfg.LGUnetConfig(**bad)

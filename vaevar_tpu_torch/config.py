@@ -40,6 +40,21 @@ class LGUnetConfig:
     dilated_size: tuple[int, ...] = (1, 1)
     lg_window_size: tuple[int, ...] | None = None
 
+    def __post_init__(self):
+        if len(self.window_size) != 2:
+            raise ValueError(
+                "window_size is the enc/dec window and must be 2-D; use "
+                "lg_window_size for a 3-D LG-stage window (the reference "
+                "encoder cannot take 3-D windows either: SD_attn would "
+                "mis-unpack 4-D input, Attention.py:577)"
+            )
+        if self.lg_window_size is not None and len(self.lg_window_size) == 3 \
+                and self.lg_window_size[0] != 1:
+            raise ValueError(
+                "3-D LG windows run at T=1 (LG_net.forward hardcodes T=1, "
+                "networks/LGUnet_all.py:728): lg_window_size[0] must be 1"
+            )
+
     @property
     def lg_window(self) -> tuple[int, ...]:
         return self.lg_window_size or self.window_size

@@ -1,11 +1,13 @@
 """LGUnet: Swin-transformer U-Net backbone (PyTorch, channel-last inside).
 
-Port of vaevar_tpu/models/lgunet.py:58-688 for the 2-D window paths: the
-old-gen relbias blocks (VAE decoder, 1.4 deg flow model) and the new-gen rope
-blocks with a full-grid first LG stage (0.25 deg forecast model). Macro
-topology: per-variable-group encoders -> linear fuse -> LG stack at the
-coarse grid -> linear split -> per-group decoders with U-Net skips -> conv
-heads; output (B, C_out, H, W) float32 laid out as mean || std.
+Port of vaevar_tpu/models/lgunet.py:58-688: the old-gen relbias blocks (VAE
+decoder, 1.4 deg flow model), the new-gen rope blocks with a full-grid first
+LG stage (0.25 deg forecast model), and SD_attn's general path: dilated
+token groups (`dilated_size`) and 3-D (T=1, H, W) LG windows with rope3
+(`lg_window_size` of length 3). Macro topology: per-variable-group encoders
+-> linear fuse -> LG stack at the coarse grid -> linear split -> per-group
+decoders with U-Net skips -> conv heads; output (B, C_out, H, W) float32
+laid out as mean || std.
 
 The state_dict uses the reference torch key names that
 vaevar_tpu/utils/port_torch.py reads (`enc.enc_list.{g}...`,
@@ -22,6 +24,8 @@ last LayerNorm before a head run in f32; the output is cast to f32.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -32,9 +36,6 @@ from vaevar_tpu_torch.ops import rope as rope_ops
 from vaevar_tpu_torch.ops import windows as win_ops
 from vaevar_tpu_torch.ops.attention import window_attention_core
 from vaevar_tpu_torch.ops.posenc import relative_position_index
-
-_GENERAL_PATH = ("dilated and 3-D windows (WindowAttention._call_general) are "
-                 "not ported yet: ROADMAP A.9")
 
 
 def torch_dtype(dt):
@@ -71,23 +72,27 @@ def _promote_cat(xs, dim=-1):
 
 
 class WindowAttention(nn.Module):
-    """Shifted-window MHSA over (B, H, W, C) with rope or relative-position
-    bias (lgunet.py:58-278, 2-D windows)."""
+    """Shifted-window MHSA over (B, *grid, C) with rope or relative-position
+    bias (lgunet.py:58-278). 2-D undilated windows take the Swin path (dense
+    or flash); dilated token groups or a 3-D window take SD_attn's general
+    path (`_forward_general`, rope only), a dense attention over groups."""
 
     def __init__(self, dim, num_heads, window_size, shift_size, resolution,
-                 attn_type="rope", lora_rank=0, dtype=None, flash_min_seq=4096):
+                 attn_type="rope", lora_rank=0, dtype=None, flash_min_seq=4096,
+                 dilated_size=None):
         super().__init__()
-        if len(window_size) != 2:
-            raise NotImplementedError(_GENERAL_PATH)
-        H, W = resolution
-        wh, ww = window_size
-        sh, sw = shift_size
-        if attn_type == "relbias" and min(H, W) <= min(wh, ww):
+        nd = len(window_size)
+        dil = tuple(dilated_size) if dilated_size else (1,) * nd
+        self.general = nd == 3 or any(d > 1 for d in dil)
+        if self.general and attn_type != "rope":
+            raise ValueError("dilated/3-D windows exist only in SD_attn (attn_type='rope'); "
+                             "the old-gen relbias block has neither")
+        win, shift = tuple(window_size), tuple(shift_size)
+        if attn_type == "relbias" and min(resolution) <= min(win):
             # old-gen clamp: the window cannot exceed the grid (lgunet.py:95-100)
-            wh = ww = min(H, W)
-            sh = sw = 0
-        self.win, self.shift = (wh, ww), (sh, sw)
-        self.resolution = (H, W)
+            win = (min(resolution),) * 2
+            shift = (0, 0)
+        self.win, self.shift, self.dil = win, shift, dil
         self.num_heads = num_heads
         self.attn_type = attn_type
         self.lora_rank = lora_rank
@@ -98,51 +103,63 @@ class WindowAttention(nn.Module):
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
         if lora_rank > 0:
-            if attn_type != "relbias":
-                raise NotImplementedError("LoRA q exists only in old-gen blocks")
             self.qA = nn.Linear(dim, lora_rank, bias=False)
             self.qB = nn.Linear(lora_rank, dim, bias=False)
         if attn_type == "rope":
-            for name, t in zip(("sin1", "cos1", "sin2", "cos2"),
-                               rope_ops.rope2_tables(self.win, head_dim)):
+            tables = (rope_ops.rope3_tables(win, head_dim) if nd == 3
+                      else rope_ops.rope2_tables(win, head_dim))
+            self.table_names = [f"rope{i}" for i in range(len(tables))]
+            for name, t in zip(self.table_names, tables):
                 self.register_buffer(name, torch.from_numpy(t), persistent=False)
             neg = -np.inf
         elif attn_type == "relbias":
-            T = (2 * wh - 1) * (2 * ww - 1)
+            T = (2 * win[0] - 1) * (2 * win[1] - 1)
             self.relative_position_bias_table = nn.Parameter(torch.zeros(T, num_heads))
             self.register_buffer(
-                "rel_index",
-                torch.from_numpy(relative_position_index((wh, ww)).reshape(-1)),
+                "rel_index", torch.from_numpy(relative_position_index(win).reshape(-1)),
                 persistent=False)
             neg = -100.0  # old-gen fill (swinblock.py:258)
         else:
             raise ValueError(f"attn_type {attn_type!r}")
-        mask = win_ops.swin_attention_mask(H, W, self.win, self.shift, neg=neg)
+        if self.general:
+            mask = win_ops.sd_attention_mask(tuple(resolution), win, shift, dil, neg=neg)
+        else:
+            mask = win_ops.swin_attention_mask(*resolution, win, shift, neg=neg)
         self.register_buffer(
             "mask", None if mask is None else torch.from_numpy(mask), persistent=False)
 
+    def _qkv(self, xw, C):
+        """(B_, N, C) tokens -> q, k, v (B_, h, N, hd), LoRA q added."""
+        qkv = dense(xw, self.qkv, self.dtype)
+        if self.lora_rank > 0:
+            q_lora = dense(dense(xw, self.qA, self.dtype), self.qB, self.dtype)
+            qkv = torch.cat([qkv[..., :C] + q_lora, qkv[..., C:]], dim=-1)
+        B_, N = xw.shape[:2]
+        qkv = qkv.reshape(B_, N, 3, self.num_heads, C // self.num_heads)
+        return qkv.permute(2, 0, 3, 1, 4)
+
+    def _rope(self, t):
+        tables = tuple(getattr(self, n) for n in self.table_names)
+        apply = rope_ops.apply_rope3 if len(tables) == 6 else rope_ops.apply_rope2
+        return apply(t, tables)
+
     def forward(self, x):
+        if self.general:
+            return self._forward_general(x)
         B, H, W, C = x.shape
         wh, ww = self.win
         sh, sw = self.shift
         N = wh * ww
         h = self.num_heads
-        hd = C // h
         if sh or sw:
             x = win_ops.shift2d(x, -sh, -sw)
         xw = win_ops.window_partition(x, self.win)
         B_ = xw.shape[0]
-        qkv = dense(xw, self.qkv, self.dtype)
-        if self.lora_rank > 0:
-            q_lora = dense(dense(xw, self.qA, self.dtype), self.qB, self.dtype)
-            qkv = torch.cat([qkv[..., :C] + q_lora, qkv[..., C:]], dim=-1)
-        qkv = qkv.reshape(B_, N, 3, h, hd).permute(2, 0, 3, 1, 4)
-        q, k, v = qkv[0], qkv[1], qkv[2]  # (B_, h, N, hd)
+        q, k, v = self._qkv(xw, C)  # (B_, h, N, hd)
 
         if self.attn_type == "rope":
-            tables = (self.sin1, self.cos1, self.sin2, self.cos2)
-            q = rope_ops.apply_rope2(q, tables) * self.scale
-            k = rope_ops.apply_rope2(k, tables)
+            q = self._rope(q) * self.scale
+            k = self._rope(k)
             out = window_attention_core(q, k, v, self.mask, self.flash_min_seq)
         else:
             q = q * self.scale
@@ -162,6 +179,46 @@ class WindowAttention(nn.Module):
             x = win_ops.shift2d(x, sh, sw)
         return dense(x, self.proj, self.dtype)
 
+    def _forward_general(self, x):
+        """SD_attn's general path (lgunet.py:160-225) on x (B, *grid, C),
+        grid of len(window) axes. Each grid axis splits into (n, w, d): a
+        group is one (n..., d...) pair, in window-raster then
+        dilated-offset-raster order, its tokens the (w...) raster. The roll
+        engages only when the longitude shift is nonzero. Logits in f32,
+        softmax weights cast to v's dtype."""
+        win, dil, shift = self.win, self.dil, self.shift
+        nd = len(win)
+        B, grid, C = x.shape[0], tuple(x.shape[1:-1]), x.shape[-1]
+        h = self.num_heads
+        N = math.prod(win)
+        axes = tuple(range(1, 1 + nd))
+        engage = shift[-1] > 0
+        if engage:
+            x = torch.roll(x, tuple(-s for s in shift), axes)
+        rs = [B]
+        for g, w, d in zip(grid, win, dil):
+            rs += [g // (w * d), w, d]
+        perm = ([0] + [1 + 3 * i for i in range(nd)] + [3 + 3 * i for i in range(nd)]
+                + [2 + 3 * i for i in range(nd)] + [1 + 3 * nd])
+        xw = x.reshape(*rs, C).permute(perm).reshape(-1, N, C)
+        B_ = xw.shape[0]
+        q, k, v = self._qkv(xw, C)
+        q = self._rope(q) * self.scale
+        k = self._rope(k)
+        logits = q.float() @ k.float().transpose(-1, -2)
+        if self.mask is not None:
+            nW = self.mask.shape[0]
+            logits = (logits.reshape(B_ // nW, nW, h, N, N)
+                      + self.mask[None, :, None]).reshape(B_, h, N, N)
+        w = torch.softmax(logits, dim=-1).to(v.dtype)
+        out = (w @ v).transpose(1, 2)  # (B_, N, h, hd)
+        out = out.reshape(B, *(g // (w_ * d_) for g, w_, d_ in zip(grid, win, dil)),
+                          *dil, *win, C)
+        x = out.permute([perm.index(i) for i in range(len(perm))]).reshape(B, *grid, C)
+        if engage:
+            x = torch.roll(x, shift, axes)
+        return dense(x, self.proj, self.dtype)
+
 
 class Mlp(nn.Module):
     def __init__(self, dim, hidden, dtype=None):
@@ -179,7 +236,7 @@ class Block(nn.Module):
     """Pre-norm window-attention block (lgunet.py:293-342). Old-gen blocks
     name their first norm `norm1` with eps 1e-5, new-gen `norm` with 1e-6."""
 
-    def __init__(self, cfg, dim, num_heads, window, shift, resolution):
+    def __init__(self, cfg, dim, num_heads, window, shift, resolution, dilated_size=None):
         super().__init__()
         self.dtype = cfg.dtype
         eps = 1e-5 if cfg.attn_type == "relbias" else 1e-6
@@ -187,7 +244,7 @@ class Block(nn.Module):
         setattr(self, self.norm_name, nn.LayerNorm(dim, eps=eps))
         self.attn = WindowAttention(
             dim, num_heads, window, shift, resolution, cfg.attn_type,
-            cfg.lora_rank, cfg.dtype, cfg.flash_min_seq)
+            cfg.lora_rank, cfg.dtype, cfg.flash_min_seq, dilated_size)
         self.norm2 = nn.LayerNorm(dim, eps=eps)
         self.mlp = Mlp(dim, int(dim * cfg.mlp_ratio), cfg.dtype)
 
@@ -198,19 +255,30 @@ class Block(nn.Module):
 
 class BasicLayer(nn.Module):
     """One stage: `depth` blocks, with odd blocks shifted by half a window
-    when `shifted` (the flax scan over unshifted/shifted pairs,
+    per axis when `shifted` (the flax scan over unshifted/shifted pairs,
     lgunet.py:373-432), plus an optional `downsample` applied first or
-    `upsample` applied last (the reference's stage key layout)."""
+    `upsample` applied last (the reference's stage key layout). With
+    `dilated`, `cfg.dilated_size` is trimmed to the window's rank
+    (lgunet.py:394-397); the full-grid LG stage passes dilated=False."""
 
     def __init__(self, cfg, dim, num_heads, depth, resolution, window,
-                 shifted=True, downsample=None, upsample=None):
+                 shifted=True, dilated=True, downsample=None, upsample=None):
         super().__init__()
-        if any(d > 1 for d in cfg.dilated_size) or len(window) != 2:
-            raise NotImplementedError(_GENERAL_PATH)
-        half = tuple(w // 2 for w in window)
+        dil = None
+        if dilated and any(d > 1 for d in cfg.dilated_size):
+            dil = tuple(cfg.dilated_size[-len(window):])
+            if len(dil) != len(window):
+                # the JAX package fails here too (a TypeError in the reshape
+                # of _call_general): refuse at construction
+                raise ValueError(
+                    f"dilated_size {tuple(cfg.dilated_size)} has fewer entries than the "
+                    f"{len(window)}-D window {tuple(window)} it applies to (window_size "
+                    f"{tuple(cfg.window_size)}, lg_window_size {cfg.lg_window_size}); "
+                    "give dilated_size one entry per window axis")
+        zero, half = (0,) * len(window), tuple(w // 2 for w in window)
         self.blocks = nn.ModuleList(
-            Block(cfg, dim, num_heads, window,
-                  half if shifted and j % 2 else (0, 0), resolution)
+            Block(cfg, dim, num_heads, window, half if shifted and j % 2 else zero,
+                  resolution, dil)
             for j in range(depth))
         self.downsample = downsample
         self.upsample = upsample
@@ -347,26 +415,38 @@ class Encoder(nn.Module):
 
 class LGStack(nn.Module):
     """Coarse-grid transformer (lgunet.py:541-580): stage 0 attends the full
-    grid unshifted when `lg_full_attn_first`, later stages are windowed."""
+    grid unshifted when `lg_full_attn_first`, later stages are windowed. A
+    3-D `lg_window_size` runs the windowed stages on x[:, None], a
+    (B, 1, Hg, Wg, C) grid, with 3-D windows and rope3 (shift w // 2 per
+    axis); the full-grid stage stays 2-D and undilated."""
 
     def __init__(self, cfg):
         super().__init__()
-        if cfg.lg_window_size is not None and len(cfg.lg_window_size) != 2:
-            raise NotImplementedError(_GENERAL_PATH)
         Hg, Wg = cfg.lg_resolution
+        self.win3d = len(cfg.lg_window) == 3
+        self.full_first = cfg.lg_full_attn_first
         self.pos_embed = nn.Parameter(torch.zeros(1, Hg, Wg, cfg.embed_dim))
         self.layers = nn.ModuleList()
         for i, (depth, heads) in enumerate(zip(cfg.lg_depths, cfg.lg_heads)):
-            full = i == 0 and cfg.lg_full_attn_first
-            self.layers.append(BasicLayer(
-                cfg, cfg.embed_dim, heads, depth, (Hg, Wg),
-                (Hg, Wg) if full else tuple(cfg.lg_window), shifted=not full))
+            if i == 0 and self.full_first:
+                stage = BasicLayer(cfg, cfg.embed_dim, heads, depth, (Hg, Wg), (Hg, Wg),
+                                   shifted=False, dilated=False)
+            else:
+                stage = BasicLayer(cfg, cfg.embed_dim, heads, depth,
+                                   (1, Hg, Wg) if self.win3d else (Hg, Wg),
+                                   tuple(cfg.lg_window))
+            self.layers.append(stage)
 
     def forward(self, x):
         x = x + self.pos_embed
-        for stage in self.layers:
-            x = stage(x)
-        return x
+        if self.win3d:
+            x = x[:, None]
+        for i, stage in enumerate(self.layers):
+            if i == 0 and self.full_first and self.win3d:
+                x = stage(x[:, 0])[:, None]
+            else:
+                x = stage(x)
+        return x[:, 0] if self.win3d else x
 
 
 class Decoder(nn.Module):

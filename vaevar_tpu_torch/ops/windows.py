@@ -1,9 +1,11 @@
 """Windowing primitives for shifted-window attention (channel-last layout).
 
-Port of vaevar_tpu/ops/windows.py:19-76: `window_partition`,
-`window_reverse`, `shift2d` on (B, H, W, C) tensors, and the numpy Swin
-shift mask with the reference's latitude-only quirk (the last longitude
-slice overwrites the whole row, so only latitude regions are separated).
+Port of vaevar_tpu/ops/windows.py: `window_partition`, `window_reverse`,
+`shift2d` on (B, H, W, C) tensors, the numpy Swin shift mask with the
+reference's latitude-only quirk (the last longitude slice overwrites the
+whole row, so only latitude regions are separated), and
+`sd_attention_mask`, a numpy copy of the reference's mask for 3-D windows
+and dilated token groups (tests/test_torch_import.py holds it equal).
 """
 
 from __future__ import annotations
@@ -53,4 +55,63 @@ def swin_attention_mask(H: int, W: int, window_size, shift_size,
     wins = img.reshape(H // wh, wh, W // ww, ww).transpose(0, 2, 1, 3)
     wins = wins.reshape(-1, wh * ww)
     mask = wins[:, None, :] - wins[:, :, None]
+    return np.where(mask != 0, neg, 0.0).astype(np.float32)
+
+
+def sd_attention_mask(
+    grid, window_size, shift_size, dilated_size=None, neg: float = -np.inf
+) -> np.ndarray | None:
+    """Static SW-MSA mask for SD_attn's full parameter surface: 2-D or 3-D
+    windows and dilated token groups (Attention.py:500-569).
+
+    Returns (nGroups, N, N) additive mask with nGroups = nWin_total *
+    prod(dilated) and N = prod(window_size), group order (window-raster,
+    dilated-offset-raster) matching SD_attn's batch regrouping
+    (Attention.py:543-556,600-609); or None when the reference builds no
+    mask (lon shift zero, or the total window spans the full longitude,
+    Attention.py:580-589).
+
+    Reference quirks reproduced deliberately:
+    - region slices use `window_size`, NOT the dilated total window
+      (create_mask slices at Attention.py:511-537 vs the total-window
+      partition at :541);
+    - the final longitude slice is `slice(0, None)`, overwriting the whole
+      row range — longitude is treated as periodic, so labels only
+      compartmentalize the leading (time/latitude) axes.
+    """
+    import itertools
+
+    nd = len(window_size)
+    dil = tuple(dilated_size) if dilated_size is not None else (1,) * nd
+    total = tuple(w * d for w, d in zip(window_size, dil))
+    if shift_size[-1] == 0 or total[-1] == grid[-1]:
+        return None
+
+    img = np.zeros(grid, dtype=np.float64)
+    ax_slices = [
+        (slice(0, -w), slice(-w, -s), slice(-s, None))
+        for w, s in zip(window_size[:-1], shift_size[:-1])
+    ]
+    w_last = window_size[-1]
+    ax_slices.append(
+        (slice(0, -w_last), slice(-w_last, 0), slice(0, None))
+    )
+    cnt = 0
+    for idx in itertools.product(*ax_slices):
+        img[idx] = cnt
+        cnt += 1
+
+    # partition by the TOTAL window, then regroup so each dilated offset
+    # is one mask row of the window_size-lattice tokens
+    rs = []
+    for g, w, d in zip(grid, window_size, dil):
+        rs += [g // (w * d), w, d]
+    lab = img.reshape(rs)
+    n_axes = [3 * i for i in range(nd)]
+    w_axes = [3 * i + 1 for i in range(nd)]
+    d_axes = [3 * i + 2 for i in range(nd)]
+    lab = lab.transpose(n_axes + d_axes + w_axes).reshape(
+        -1, int(np.prod(window_size))
+    )
+    mask = lab[:, None, :] - lab[:, :, None]
     return np.where(mask != 0, neg, 0.0).astype(np.float32)

@@ -13,6 +13,8 @@ run's noise on any device:
   `rows=(start, stop)` computes only those rows of the first axis, equal
   to the same rows of the whole draw: a data-parallel rank draws its own
   rows of the global batch's noise and nothing more.
+- `uniform(key, shape, minval, maxval)`: `jax.random.uniform(key, shape,
+  float32, minval, maxval)`, bit for bit (the MoE router's jitter).
 
 The VAE trainer draws its reparameterization noise here, as the JAX
 trainer does: step j of epoch e from fold_in(fold_in(PRNGKey(seed), e), j).
@@ -65,6 +67,23 @@ def _bits(key, shape, device, rows=None):
     return (b0 ^ b1).reshape(stop - start, *shape[1:])
 
 
+def _unit_floats(key, shape, device, rows=None):
+    """Floats in [0, 1) from the mantissa bits, bitwise jax.random's."""
+    one = (_bits(key, tuple(shape), device, rows) >> 9) | 0x3F800000  # in [1, 2)
+    return one.to(torch.int32).view(torch.float32) - 1.0
+
+
+def uniform(key: tuple[int, int], shape, minval=0.0, maxval=1.0,
+            device="cpu") -> torch.Tensor:
+    """jax.random.uniform(key, shape, float32, minval, maxval) on `device`:
+    floats * (maxval - minval) + minval, clamped below at minval. XLA fuses
+    the scale and shift into one rounding (a fused multiply-add); the f32
+    product is exact in float64, so it is formed there and rounded once."""
+    lo, hi = np.float32(minval), np.float32(maxval)
+    y = (_unit_floats(key, shape, device).double() * float(hi - lo) + float(lo)).float()
+    return torch.clamp(y, min=float(lo))
+
+
 # XLA's single-precision inverse error function (Giles' approximation), the
 # coefficients of its two branches in w = -log1p(-x^2), highest degree first
 _ERFINV_W_LT_5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
@@ -88,9 +107,7 @@ def normal(key: tuple[int, int], shape, device="cpu", rows=None) -> torch.Tensor
     start:stop along the first axis for `rows=(start, stop)`: uniform floats
     in (-1, 1) from the mantissa bits (bitwise JAX's), then sqrt(2) erfinv
     with XLA's polynomial (within 4 ulp of JAX's: log1p differs)."""
-    bits = _bits(key, tuple(shape), device, rows)
-    one = (bits >> 9) | 0x3F800000  # a float in [1, 2)
-    floats = one.to(torch.int32).view(torch.float32) - 1.0
+    floats = _unit_floats(key, shape, device, rows)
     lo = torch.tensor(np.nextafter(np.float32(-1.0), np.float32(0.0)), device=device)
     u = torch.maximum(lo, floats * (1.0 - lo) + lo)
     return _erfinv(u) * np.float32(np.sqrt(2.0))

@@ -9,6 +9,8 @@ the transposed-conv kernel, and unstacks the group (`enc_gs`/`dec_gs`) and
 scan axes; shifted stacks are pairwise (`b0` holds blocks 0, 2, ...,
 `b1` blocks 1, 3, ...). `vae_state_dict_from_flax` does the same for a
 VAE tree, the inverse of port_torch.vae_params_from_torch.
+`zoo_state_dict_from_flax` maps a zoo module's tree (models/zoo.py keeps
+the flax names) by structure alone.
 """
 
 from __future__ import annotations
@@ -57,9 +59,9 @@ def _block(sd, p, tree, gen):
     _linear(sd, f"{p}.attn.proj", attn["proj"])
     if gen == "old":
         sd[f"{p}.attn.relative_position_bias_table"] = attn["rel_bias_table"]
-        for name in ("qA", "qB"):
-            if name in attn:
-                _linear(sd, f"{p}.attn.{name}", attn[name])
+    for name in ("qA", "qB"):
+        if name in attn:
+            _linear(sd, f"{p}.attn.{name}", attn[name])
     _linear(sd, f"{p}.mlp.fc1", tree["mlp"]["fc1"])
     _linear(sd, f"{p}.mlp.fc2", tree["mlp"]["fc2"])
 
@@ -156,3 +158,33 @@ def forecast_trainable_from_flax(trainable, cfg) -> dict:
         if k in trainable:
             out[k] = torch.from_numpy(np.array(trainable[k], dtype=np.float32))
     return out
+
+
+def zoo_state_dict_from_flax(flax_params) -> dict[str, torch.Tensor]:
+    """flax params of a models/zoo.py module (with or without the top
+    "params" key) -> the port module's state_dict, by structure: a Dense
+    kernel (in, out) becomes a Linear weight (out, in), a Conv kernel
+    (kh, kw, in/groups, out) a Conv2d weight (out, in/groups, kh, kw), a
+    LayerNorm's `scale` its `weight`; every other leaf (biases, the stacked
+    expert banks w1/b1/w2/b2 in their (E, in, out) layout, the relative
+    position `table`, ScaleOffset's and ConvNeXt's `gamma`/`beta`) carries
+    over as it is."""
+    sd: dict = {}
+
+    def walk(prefix, tree):
+        leaves = {k for k, v in tree.items() if not isinstance(v, dict)}
+        if "kernel" in leaves:
+            k = np.asarray(tree["kernel"])
+            sd[f"{prefix}weight"] = _t(k) if k.ndim == 2 else _conv(k)
+            leaves.discard("kernel")
+        elif "scale" in leaves:
+            sd[f"{prefix}weight"] = tree["scale"]
+            leaves.discard("scale")
+        for name, v in tree.items():
+            if name in leaves:
+                sd[f"{prefix}{name}"] = v
+            elif isinstance(v, dict):
+                walk(f"{prefix}{name}.", v)
+
+    walk("", flax_params.get("params", flax_params))
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
