@@ -96,7 +96,14 @@ exits nonzero without its last line:
    `auto` -> jvp-zoom, J lowered, finite fields, obs gridded and kept by QC
    in every cycle, error_obs.npy with 204 entries per cycle; prints the
    spin-up and cycle seconds, the obs preparation split into truth reads,
-   gridding and copy + augment + QC, the solve seconds and peak memory. Then
+   gridding and copy + augment + QC, the solve seconds and peak memory.
+   Every run_da phase runs the obs prefetch thread (the default); here the
+   same 2 cycles run again with --no_prefetch (the serial loop), and the two
+   runs must have received equal obs in each cycle (the cycle log's
+   checksums of yo, H and gt, and the obs counts) and agree bit for bit on
+   the rest of the cycle log, the metric dumps and xb.npy (two serial runs
+   repeat bit for bit on the card: scripts/prefetch_cycles.py); each run's
+   cycle, obs and obs-wait seconds and peak memory are printed. Then
    one full-width prepbufr cycle (da_win 1, from the truth: 4 launches), one
    full-width free_run cycle with --forecast_eval --forecast_eval_steps 2
    (12 launches, forecast_wrmse.npy), a micro f32 real-obs window solve
@@ -133,6 +140,9 @@ exits nonzero without its last line:
    near-ties), then forward and backward of each at the backbone's widths
    (dim 192, 6 heads, window 6x12, grid 90x180, b1, bf16): finite, seconds
    printed.
+The main phase also prints cycle 2's obs seconds (on the prefetch worker)
+and the seconds the loop waited for them; the line before the kernels line
+gives the smoke's own seconds.
 The second-to-last line is a JSON record of the kernels (launches summed
 over the DA, window, training, record, VAE-training, sc4dvar, real-obs,
 sd_zoo (a) and dp paths (both ranks), each counted from 0; times with the main
@@ -151,6 +161,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from types import SimpleNamespace
 
 START = "2022-01-01 00:00:00"
 END = "2022-01-01 12:00:00"  # two 6 h cycles
@@ -188,6 +199,10 @@ RECORD_FLAGS = ["--da_mode", "vae4dvar", "--da_win", "1", "--Nit", "4", "--obs_s
 RECORD_CUT = ["--end_time", "2022-01-01 06:00:00"]
 # the real-obs cycle: the README cycle on a synthetic station network
 REAL_OBS_ARGS = MAIN_ARGS + ["--obs_type", "real_simu", "--use_eval"]
+# The cycle log's timing fields: everything else in it must agree between
+# a run with the obs prefetch thread and one with --no_prefetch.
+TIMING_KEYS = {"seconds", "obs_s", "obs_wait_s", "truth_s", "grid_s", "aug_qc_s", "reduce_s",
+               "solve_s"}
 # one 6 h cycle from the truth (--init_tp 1, no spin-up)
 ONE_CYCLE = FULL_WIDTH + ["--end_time", "2022-01-01 06:00:00", "--init_tp", "1"]
 TOTAL_STEPS = 200  # run_train_forecast's --steps x --epochs defaults
@@ -1516,10 +1531,46 @@ def check_cycle_log(name, da, want_cycles, linesearch="jvp-zoom"):
             raise AssertionError(f"{name}: linesearch {c['linesearch']}, J {j} at {c['time']}")
 
 
+def compare_runs(a, b):
+    """Two runs of one configuration, (da, {output file: array}) each, with
+    the obs prefetch thread and without. Returns (obs equal, bitwise, worst
+    norm-relative difference): the obs each cycle received (the cycle log's
+    obs_checksum, n_gridded and n_kept) compared exactly; bitwise when the
+    rest of the cycle log but its timings and every .npy output are equal;
+    otherwise the worst |x - y| / |y| over the outputs and the J traces."""
+    import numpy as np
+
+    (da_a, outs_a), (da_b, outs_b) = a, b
+    obs_keys = ("obs_checksum", "n_gridded", "n_kept")
+    obs = [[{k: c.get(k) for k in obs_keys} for c in da.cycle_log] for da in (da_a, da_b)]
+    logs = [[{k: v for k, v in c.items() if k not in TIMING_KEYS} for c in da.cycle_log]
+            for da in (da_a, da_b)]
+    pairs = [(outs_a.get(n), outs_b[n]) for n in sorted(outs_b)] + [
+        (ca[k], cb[k]) for ca, cb in zip(da_a.cycle_log, da_b.cycle_log) for k in ("jb", "jo")]
+    worst = 0.0
+    for x, y in pairs:
+        if x is None or np.shape(x) != np.shape(y):
+            return obs[0] == obs[1], False, math.inf
+        x, y = np.asarray(x, np.float64), np.asarray(y, np.float64)
+        if not np.array_equal(x, y):
+            worst = max(worst, float(np.linalg.norm(x - y) / max(np.linalg.norm(y), 1e-30)))
+    bitwise = worst == 0.0 and logs[0] == logs[1] and sorted(outs_a) == sorted(outs_b)
+    return obs[0] == obs[1], bitwise, worst
+
+
+def prefetch_line(da, peak):
+    """Per cycle: seconds, obs preparation seconds and the loop's wait."""
+    return (f"prefetch {da.prefetch_obs}: cycles "
+            + "; ".join(f"{c['seconds']:.2f} s (obs {c['obs_s']:.2f} s, waited "
+                        f"{c['obs_wait_s']:.2f} s)" for c in da.cycle_log)
+            + f"; peak memory {peak:.2f} GiB")
+
+
 def check_real_obs(fa):
     """Phase 12: real observations and the rest of the DA surface. Returns
     the forward launches of its full-width runs."""
     import numpy as np
+    import torch
 
     from vaevar_tpu_torch import config as cfgs
 
@@ -1539,7 +1590,30 @@ def check_real_obs(fa):
     if err is None or err.shape != (2, 204) or not np.isfinite(err).all():
         raise AssertionError(f"error_obs.npy: {None if err is None else err.shape}; want (2, 204)")
     launches = counts[0]
-    del da, outs
+    if not da.prefetch_obs:
+        raise AssertionError("run_da ran without the obs prefetch thread by default")
+    phase("real_obs", prefetch_line(da, peak))
+    first = (SimpleNamespace(cycle_log=da.cycle_log), outs)
+    del da, outs  # the models, before the serial run's peak is read
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    serial, counts, total, peak_s, outs_s = run_da_phase(fa, REAL_OBS_ARGS + ["--no_prefetch"])
+    phase("real_obs", f"--no_prefetch: {total:.2f} s with the models; "
+          + prefetch_line(serial, peak_s) + f"; flash launches (fwd, dq, dkv) {counts}")
+    check_cycle_log("real_obs --no_prefetch", serial, 2)
+    if counts != (want, 0, 0):
+        raise AssertionError(f"real_obs --no_prefetch launched {counts}; want ({want}, 0, 0)")
+    launches += counts[0]
+    obs_equal, bitwise, worst = compare_runs(first, (serial, outs_s))
+    phase("real_obs", f"prefetch vs --no_prefetch: obs received equal in every cycle: "
+          f"{obs_equal}; cycle logs, metrics and xb.npy bitwise equal: {bitwise}; worst "
+          f"norm-rel difference {worst:.3g}")
+    if not (obs_equal and bitwise):
+        raise AssertionError("the prefetch and --no_prefetch runs disagree")
+    del first, serial, outs_s
+    gc.collect()
+    torch.cuda.empty_cache()
 
     da, counts, total, peak, _ = run_da_phase(fa, ONE_CYCLE + ["--obs_type", "prepbufr"])
     phase("real_obs", f"prepbufr, 1 cycle from the truth: {total:.2f} s with the models; peak "
@@ -1814,6 +1888,7 @@ def check_dp(fa, single_step_s):
 def main():
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1860,7 +1935,10 @@ def main():
           + ", ".join(f"{s:.2f}" for s in da.timings["cycle_s"])
           + f" s; peak memory {peak / 2**30:.2f} GiB; flash launches (fwd, dq, dkv) "
           f"{da_counts}")
-    if n_cycles != 2 or da_counts != (want, 0, 0):
+    last = da.cycle_log[-1]
+    phase("main", f"obs prefetch {da.prefetch_obs}: cycle {n_cycles} obs {last['obs_s']:.3f} s "
+          f"on the worker, the loop waited {last['obs_wait_s']:.3f} s")
+    if n_cycles != 2 or da_counts != (want, 0, 0) or not da.prefetch_obs:
         raise AssertionError(f"{n_cycles} cycles, flash launches {da_counts}; "
                              f"want 2, ({want}, 0, 0)")
     decreased = False
@@ -1916,6 +1994,7 @@ def main():
     torch.cuda.empty_cache()
     dp_counts = check_dp(fa, step_s)
 
+    phase("total", f"the smoke took {time.perf_counter() - t_start:.1f} s")
     stats = {"flash_fwd": fwd, "flash_dq": bwd["flash_dq"], "flash_dkv": bwd["flash_dkv"]}
     replaces = {"flash_fwd": ("flash_fwd.cu", "vaevar_tpu/ops/pallas_attn.py:47"),
                 "flash_dq": ("flash_bwd.cu", "vaevar_tpu/ops/pallas_attn.py:127"),

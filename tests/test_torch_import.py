@@ -103,6 +103,16 @@ def test_channel_tables_equal_reference():
                                                             jch.N_LEVELS)
 
 
+def test_channel_helpers_copy_equals_reference():
+    assert tch.DEFAULT_INCHANS_LIST == jch.DEFAULT_INCHANS_LIST
+    x = np.random.default_rng(0).normal(size=(2, 69, 3, 4)).astype(np.float32)
+    for name in ("normalize", "denormalize"):
+        assert inspect.getsource(getattr(tch, name)) == inspect.getsource(getattr(jch, name))
+        for axis in (-3, 1):
+            np.testing.assert_array_equal(getattr(tch, name)(x, axis=axis),
+                                          getattr(jch, name)(x, axis=axis))
+
+
 def test_configs_equal_reference():
     assert [f.name for f in dataclasses.fields(tcfg.LGUnetConfig)] == \
         [f.name for f in dataclasses.fields(jcfg.LGUnetConfig)]

@@ -73,6 +73,14 @@ class LGUnetConfig:
         pr = self.patches_resolution
         return (pr[0] // f, pr[1] // f)
 
+    @property
+    def out_chans(self) -> int:
+        return sum(self.outchans_list)
+
+    @property
+    def in_chans(self) -> int:
+        return sum(self.inchans_list)
+
     def replace(self, **kw) -> "LGUnetConfig":
         return dataclasses.replace(self, **kw)
 
@@ -172,6 +180,28 @@ def micro_vae_train_configs(img_size=(16, 32), **overrides):
     enc = flow.replace(outchans_list=(4, 12, 12, 12, 12, 12))
     dec = flow.replace(inchans_list=(2, 6, 6, 6, 6, 6), outchans_list=(4, 13, 13, 13, 13, 13))
     return flow, enc, dec
+
+
+def tiny_config(
+    img_size=(32, 64), attn_type="rope", lg_full_attn_first=True
+) -> LGUnetConfig:
+    """Small config for tests: same topology, tiny dims."""
+    return LGUnetConfig(
+        img_size=img_size,
+        patch_size=(2, 2),
+        stride=(2, 2),
+        inchans_list=(4, 13, 13, 13, 13, 13),
+        outchans_list=(8, 26, 26, 26, 26, 26),
+        enc_dim=8,
+        embed_dim=48,
+        window_size=(4, 4),
+        enc_depths=(2, 2),
+        enc_heads=(2, 2),
+        lg_depths=(2, 2),
+        lg_heads=(2, 2),
+        attn_type=attn_type,
+        lg_full_attn_first=lg_full_attn_first,
+    )
 
 
 @dataclass(frozen=True)

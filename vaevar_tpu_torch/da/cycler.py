@@ -19,9 +19,10 @@ griddata on the host). Then the forecast advance, per-cycle metrics appended
 to `metrics_log.jsonl` and consolidated into `<metric>.npy` dumps, with
 `use_eval` the obs-space error on held-out cells (`error_obs`), optional
 field dumps and a multi-step forecast score, and a restartable on-disk state
-(`xb.npy` + `current_time.txt`). Obs preparation runs serially (the
-reference's obs prefetch thread changes no number). The forecast model runs
-under torch.no_grad(): no cost differentiates through the advance.
+(`xb.npy` + `current_time.txt`). With `prefetch_obs` (the default) the next
+cycle's obs are prepared on one worker thread under the current solve, on a
+CUDA stream of its own; it changes no number. The forecast model runs under
+torch.no_grad(): no cost differentiates through the advance.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import functools
 import json
 import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from datetime import datetime, timedelta
 from typing import Callable
@@ -102,6 +104,10 @@ class CycledDA:
     forecast_eval_steps: int = 20  # leads of 6 h (20 = 5 days)
     obs_from_numpy: str | None = None  # pre-gridded obs dir
     # (obs.load_numpy_obs) in place of station gridding, real obs only
+    prefetch_obs: bool = True  # prepare the next cycle's obs on one worker
+    # thread under the current solve (on a CUDA device on its own stream);
+    # one worker keeps the synthetic masks' draws in cycle order, so the
+    # numbers are those of the serial loop (prefetch_obs=False)
     metrics_list: dict = field(default_factory=lambda: {k: [] for k in _METRIC_KEYS})
 
     def __post_init__(self):
@@ -149,10 +155,17 @@ class CycledDA:
             if model is not None:
                 model.requires_grad_(False)
         self._solver = self._build_solver()
+        # the prefetch worker's stream: its copies, augmentation and QC run
+        # beside the solve on the loop's stream
+        self._obs_stream = (torch.cuda.Stream(device=self.device)
+                            if self.prefetch_obs and torch.device(self.device).type == "cuda"
+                            else None)
         # per-run record: spin-up seconds and, per cycle, seconds and the
-        # solver's (Jb, Jo) trace
+        # solver's (Jb, Jo) trace; last_obs_info is the obs record of the
+        # last cycle the loop took
         self.timings = {"spin_up_s": None, "cycle_s": []}
         self.cycle_log: list[dict] = []
+        self.last_obs_info: dict = {}
 
     @property
     def _reducible(self):
@@ -209,8 +222,11 @@ class CycledDA:
         return torch.as_tensor(np.asarray(a), dtype=torch.float32, device=self.device)
 
     def _sync(self):
+        """Wait for the work queued on this thread's current stream: the
+        loop's stream on the loop's thread, the obs stream on the prefetch
+        worker, which so never waits for the solve."""
         if self.device.startswith("cuda"):
-            torch.cuda.synchronize()
+            torch.cuda.current_stream(self.device).synchronize()
 
     # --- resume machinery -------------------------------------------------
 
@@ -300,7 +316,7 @@ class CycledDA:
 
     # --- per-cycle pieces -------------------------------------------------
 
-    def get_obs_info(self, current_time):
+    def get_obs_info(self, current_time, info: dict | None = None):
         """(yo, H, R, gt) on the device, one truth frame per hourly slot of
         the window. Synthetic families and prepbufr*: noiseless obs = truth
         at the mask points (da_4dvar.py:449), 69 channels. real*: station
@@ -308,9 +324,10 @@ class CycledDA:
         (da_4dvar.py:758-805), with a second report file for windows longer
         than 3 h; the truth is augmented on the device, the obs QC'd against
         it, and real_simu* replace the obs values by it. For the station
-        families `last_obs_info` records the phase seconds and obs counts."""
+        families the phase seconds and obs counts go into `info`, when
+        given. Device work goes on the current stream."""
         cfg = self.cfg
-        self.last_obs_info = {}
+        info = {} if info is None else info
         t0 = time.perf_counter()
         gt = np.stack([self.state_source.get_state(current_time + t * STEP)
                        for t in range(cfg.da_win)])  # (T, 69, H, W)
@@ -337,9 +354,8 @@ class CycledDA:
             del gt_aug
             n_kept = float(H.sum())
             self._sync()
-            self.last_obs_info = {"truth_s": t1 - t0, "grid_s": t2 - t1,
-                                  "aug_qc_s": time.perf_counter() - t2,
-                                  "n_gridded": n_gridded, "n_kept": n_kept}
+            info.update(truth_s=t1 - t0, grid_s=t2 - t1, aug_qc_s=time.perf_counter() - t2,
+                        n_gridded=n_gridded, n_kept=n_kept)
             return yo, H, self._dev(self.R_aug), gt_d
         if cfg.obs_type.startswith("prepbufr"):
             # station-report mask family (da_4dvar.py:190-274): da_win 1 or 6
@@ -350,8 +366,8 @@ class CycledDA:
                 H = obs_mod.station_mask_from_reports(
                     self.reports_source.get_reports(current_time + CYCLE), cfg.da_win,
                     cfg.grid_hw, second_file=True, H_out=H)
-            self.last_obs_info = {"truth_s": t1 - t0, "grid_s": time.perf_counter() - t1,
-                                  "n_gridded": float(H.sum())}
+            info.update(truth_s=t1 - t0, grid_s=time.perf_counter() - t1,
+                        n_gridded=float(H.sum()))
         else:
             H = obs_mod.make_obs_mask(cfg.obs_type, cfg.da_win, cfg.grid_hw, self._rng,
                                       self.mask_dir)
@@ -452,50 +468,121 @@ class CycledDA:
 
     # --- main loop --------------------------------------------------------
 
+    def _prefetch(self, current_time):
+        """get_obs_info on the prefetch worker: ((yo, H, R, gt), info,
+        seconds, done). On a CUDA device its device work goes on the obs
+        stream and `done` is an event recorded there after it; the seconds
+        end when that event is reached, not when the device is idle."""
+        info, t0 = {}, time.perf_counter()
+        if self._obs_stream is None:
+            obs = self.get_obs_info(current_time, info)
+            return obs, info, time.perf_counter() - t0, None
+        with torch.cuda.device(self._obs_stream.device), torch.cuda.stream(self._obs_stream):
+            obs = self.get_obs_info(current_time, info)
+            done = torch.cuda.Event()
+            done.record(self._obs_stream)
+        done.synchronize()
+        return obs, info, time.perf_counter() - t0, done
+
+    def _take(self, fut):
+        """The prefetched obs on the loop's thread, a worker's exception
+        raised here. On a CUDA device the loop's stream waits on the
+        worker's event, and each tensor is marked as used on that stream,
+        so the caching allocator hands its memory to no later prefetch
+        before the kernels queued on it are done."""
+        obs, info, secs, done = fut.result()
+        if done is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(done)
+            for t in obs:
+                t.record_stream(stream)
+        return obs, info, secs
+
+    @staticmethod
+    @torch.no_grad()
+    def _checksum(*xs):
+        """Sum and 2-norm of each tensor, the cycle log's record of the obs
+        the solve received: reductions in a fixed order, so equal tensors
+        give equal numbers, and no temporary of the tensor's size."""
+        return torch.stack([v for x in xs for v in (x.sum(), torch.linalg.vector_norm(x))]
+                           ).tolist()
+
     def run_assimilation(self, start_time, end_time):
-        """The 6 h cycle loop (da_4dvar.py:1314-1342); returns the last xb."""
+        """The 6 h cycle loop (da_4dvar.py:1314-1342); returns the last xb.
+
+        With `prefetch_obs`, one worker thread prepares the next cycle's obs
+        under the current solve (vaevar_tpu/da/cycler.py:576-632). With
+        forecast_eval the next prefetch starts only after `_forecast_eval`:
+        both read the truth from `state_source`, and a ReferenceLayoutStore
+        shares one native pool between its readers. Each cycle_log entry
+        holds the obs preparation's seconds (`obs_s`, on the worker under
+        prefetch) and the seconds the loop waited for it (`obs_wait_s`)."""
         start_time, end_time = parse_time(start_time), parse_time(end_time)
         current_time, xb = self.get_current_states(start_time)
         epoch = 0
-        while current_time + CYCLE <= end_time:
-            if self.verbose:
-                print(f"cycle @ {current_time}", flush=True)
-            t0 = time.perf_counter()
-            yo, H, R, gt = self.get_obs_info(current_time)
-            self._sync()
-            obs_s = time.perf_counter() - t0
-            xa = self.one_step_da(gt, xb, yo, H, R)
-            self._save_intermediate(current_time, xb, xa, gt, yo)
-            del yo, H, R, gt
-            if self.forecast_eval:
-                # before the on-disk snapshot, so a preemption never leaves
-                # forecast_wrmse a row behind ana_wrmse
-                self._forecast_eval(xa, current_time)
-            self.save_eval_result()
-            xb = self.advance(xa)
-            nxt = current_time + CYCLE
-            if epoch % self.cfg.save_interval == 0:
-                self.save_ckpt(nxt, xb)
-                self.save_eval_result(consolidate=True)
-            self._sync()
-            secs = time.perf_counter() - t0
-            self.timings["cycle_s"].append(secs)
-            d = self.last_diag
-            self.cycle_log.append({
-                "time": str(current_time), "seconds": secs, "obs_s": obs_s,
-                **self.last_obs_info,
-                "reduce_s": self.last_reduce_s, "solve_s": d.seconds,
-                "jb": list(d.loss_reg), "jo": list(d.loss_obs),
-                "linesearch": d.linesearch, "n_iters": list(d.n_iters),
-                "n_evals": list(d.n_evals), "n_jvp": list(d.n_jvp),
-                "n_restore": list(d.n_restore),
-                "xa_finite": bool(torch.isfinite(xa).all()),
-                "xb_next_finite": bool(torch.isfinite(xb).all()),
-            })
-            current_time = nxt
-            epoch += 1
-            if self.verbose:
-                print(f"  cycle took {secs:.2f}s", flush=True)
+        pool = (ThreadPoolExecutor(max_workers=1, thread_name_prefix="obs-prefetch")
+                if self.prefetch_obs else None)
+        fut = (pool.submit(self._prefetch, current_time)
+               if pool is not None and current_time + CYCLE <= end_time else None)
+        try:
+            while current_time + CYCLE <= end_time:
+                if self.verbose:
+                    print(f"cycle @ {current_time}", flush=True)
+                t0 = time.perf_counter()
+                if pool is None:
+                    info = {}
+                    obs = self.get_obs_info(current_time, info)
+                    self._sync()
+                    obs_s = time.perf_counter() - t0
+                else:
+                    obs, info, obs_s = self._take(fut)
+                obs_wait_s = time.perf_counter() - t0
+                yo, H, R, gt = obs
+                del obs
+                self.last_obs_info = info
+                checksum = self._checksum(yo, H, gt)
+                nxt = current_time + CYCLE
+                submit_next = pool is not None and nxt + CYCLE <= end_time
+                fut = None
+                if submit_next and not self.forecast_eval:
+                    fut = pool.submit(self._prefetch, nxt)
+                xa = self.one_step_da(gt, xb, yo, H, R)
+                self._save_intermediate(current_time, xb, xa, gt, yo)
+                del yo, H, R, gt
+                if self.forecast_eval:
+                    # before the on-disk snapshot, so a preemption never leaves
+                    # forecast_wrmse a row behind ana_wrmse; before the next
+                    # prefetch, whose truth reads must not run beside these
+                    self._forecast_eval(xa, current_time)
+                    if submit_next:
+                        fut = pool.submit(self._prefetch, nxt)
+                self.save_eval_result()
+                xb = self.advance(xa)
+                if epoch % self.cfg.save_interval == 0:
+                    self.save_ckpt(nxt, xb)
+                    self.save_eval_result(consolidate=True)
+                self._sync()
+                secs = time.perf_counter() - t0
+                self.timings["cycle_s"].append(secs)
+                d = self.last_diag
+                self.cycle_log.append({
+                    "time": str(current_time), "seconds": secs, "obs_s": obs_s,
+                    "obs_wait_s": obs_wait_s, **info, "obs_checksum": checksum,
+                    "reduce_s": self.last_reduce_s, "solve_s": d.seconds,
+                    "jb": list(d.loss_reg), "jo": list(d.loss_obs),
+                    "linesearch": d.linesearch, "n_iters": list(d.n_iters),
+                    "n_evals": list(d.n_evals), "n_jvp": list(d.n_jvp),
+                    "n_restore": list(d.n_restore),
+                    "xa_finite": bool(torch.isfinite(xa).all()),
+                    "xb_next_finite": bool(torch.isfinite(xb).all()),
+                })
+                current_time = nxt
+                epoch += 1
+                if self.verbose:
+                    print(f"  cycle took {secs:.2f}s", flush=True)
+        finally:
+            if pool is not None:
+                pool.shutdown(wait=False, cancel_futures=True)
         self.save_ckpt(current_time, xb)
         self.save_eval_result(consolidate=True)
         return xb

@@ -5,9 +5,10 @@ C++ reader pool and ring buffer (native/dataloader.cc) behind the same
 Python surface (`NativePrefetcher`, `LoaderSampleError`, `available`,
 `build`). The port builds its own library: at first use it compiles
 native/dataloader.cc with g++ and the flags of native/Makefile into
-`vaevar_tpu_torch/_build/libvvloader-<hash>.so` (the hash covers the source
-and the flags) and loads that copy. It never runs `make -C native`, which
-would rewrite the tracked native/libvvloader.so. `available()` is False
+`<build dir>/libvvloader-<hash>.so` (the hash covers the source and the
+flags; the directory is ops/_build.py's `build_dir`: $VAEVAR_TORCH_BUILD_DIR,
+else `vaevar_tpu_torch/_build/`) and loads that copy. It never runs
+`make -C native`, which would rewrite the tracked native/libvvloader.so. `available()` is False
 when the library cannot be built (no g++).
 """
 
@@ -23,15 +24,16 @@ from typing import Sequence
 
 import numpy as np
 
+from vaevar_tpu_torch.ops._build import build_dir
+
 SOURCE = Path(__file__).resolve().parents[2] / "native" / "dataloader.cc"
-BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-pthread", "-shared")
 
 
 def library_path() -> Path:
     h = hashlib.sha256(SOURCE.read_bytes())
     h.update(" ".join(CXX_FLAGS).encode())
-    return BUILD_DIR / f"libvvloader-{h.hexdigest()[:16]}.so"
+    return build_dir() / f"libvvloader-{h.hexdigest()[:16]}.so"
 
 
 def build() -> bool:
@@ -40,7 +42,7 @@ def build() -> bool:
     out = library_path()
     if out.exists():
         return True
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
     try:
         r = subprocess.run(["g++", *CXX_FLAGS, "-o", str(tmp),

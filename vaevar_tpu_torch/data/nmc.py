@@ -47,9 +47,7 @@ class NMCSequenceDataset:
 
     def __getitem__(self, idx: int) -> np.ndarray:
         t = self.starts[idx]
-        mean = channels.MEAN.reshape(-1, 1, 1)
-        std = channels.STD.reshape(-1, 1, 1)
-        frames = [(self.source.get_state(t + i * self.stride) - mean) / std
+        frames = [channels.normalize(self.source.get_state(t + i * self.stride))
                   for i in range(self.length)]
         return np.stack(frames).astype(np.float32)  # (length, 69, H, W)
 

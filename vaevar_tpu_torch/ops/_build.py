@@ -1,10 +1,13 @@
 """Build the package's CUDA sources into a shared library and load it.
 
 Each `csrc/*.cu` file is compiled at first use with nvcc for sm_90a into
-`vaevar_tpu_torch/_build/lib<name>-<hash>.so`, where the hash covers the
-source, every header under `csrc/` (`*.cuh`) and the flags, so an edited
-source or header builds anew and an unchanged one is reused. The library has a plain C interface and is loaded with ctypes. A
-failed build raises with nvcc's output.
+`<build dir>/lib<name>-<hash>.so`, where the hash covers the source, every
+header under `csrc/` (`*.cuh`) and the flags, so an edited source or header
+builds anew and an unchanged one is reused. The build directory is
+$VAEVAR_TORCH_BUILD_DIR, else `vaevar_tpu_torch/_build/` (`build_dir`; an
+installed copy whose package directory is read-only sets the variable). The
+library has a plain C interface and is loaded with ctypes. A failed build
+raises with nvcc's output.
 """
 
 from __future__ import annotations
@@ -21,7 +24,8 @@ from pathlib import Path
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
-BUILD_DIR = PKG / "_build"
+BUILD_DIR = PKG / "_build"  # the default build directory
+BUILD_DIR_ENV = "VAEVAR_TORCH_BUILD_DIR"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -39,12 +43,19 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
 
 
+def build_dir() -> Path:
+    """Where the port's libraries are built: $VAEVAR_TORCH_BUILD_DIR, else
+    the package's `_build/` (the CUDA kernels here and the native loader,
+    data/native_loader.py)."""
+    return Path(os.environ.get(BUILD_DIR_ENV) or BUILD_DIR)
+
+
 def library_path(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + b"\0" + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> tuple[Path, float]:
@@ -53,7 +64,7 @@ def build(name: str) -> tuple[Path, float]:
     out = library_path(name)
     if out.exists():
         return out, 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     t0 = time.perf_counter()

@@ -47,12 +47,12 @@ is the micro VAE preset of the checkpoint (run_train_vae --micro's six
 groups, or the converters' two) and the latent has the decoder's input
 channels. The run goes on the device of
 --device (default cuda) and fails if that device is missing; --device cpu
-runs on the CPU. Two flags of run_da.py are not taken: --window_dispatch
-sets how many L-BFGS iterations go into one XLA program, which an eager
-solve does not have, and --no_prefetch turns off the thread that prepares
-the next cycle's obs under the solve, which the port does not run yet (its
-obs preparation is serial, as with --no_prefetch). --mesh, the spatially
-sharded solve, raises (ROADMAP A.13b): every DA configuration fits one card.
+runs on the CPU. The next cycle's obs are prepared on a worker thread under
+the current solve, on a CUDA stream of their own; --no_prefetch runs the
+serial loop (the same numbers). One flag of run_da.py is not taken:
+--window_dispatch sets how many L-BFGS iterations go into one XLA program,
+which an eager solve does not have. --mesh, the spatially sharded solve,
+raises (ROADMAP A.13b): every DA configuration fits one card.
 
 Matrix products and convolutions run in full float32 where the model asks
 for float32: TF32 is switched off for both cuBLAS and cuDNN (cuDNN
@@ -144,6 +144,9 @@ def arg_parser(argv=None):
                    help="torch device of the run (default cuda; cpu for CPU runs)")
     p.add_argument("--mesh", type=str, default=None,
                    help="sharded solve: not ported yet (ROADMAP A.13b)")
+    p.add_argument("--no_prefetch", action="store_true",
+                   help="disable the obs-prefetch worker thread (serial "
+                   "obs read -> solve loop, the reference's structure)")
     p.add_argument("--save_field", action="store_true",
                    help="dump xb/xa per cycle to the work dir")
     p.add_argument("--save_gt", action="store_true",
@@ -350,7 +353,7 @@ def main(argv=None):
                   save_field=args.save_field, save_gt=args.save_gt, save_obs=args.save_obs,
                   forecast_eval=args.forecast_eval,
                   forecast_eval_steps=args.forecast_eval_steps,
-                  obs_from_numpy=args.obs_from_numpy)
+                  obs_from_numpy=args.obs_from_numpy, prefetch_obs=not args.no_prefetch)
     da.timings["models_s"] = models_s
     da.run_assimilation(args.start_time, args.end_time)
     print("DA complete", flush=True)
