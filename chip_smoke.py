@@ -26,6 +26,19 @@ exits nonzero without its last line:
 5. the port's model on the card (kernel path) against the same model on the
    CPU (plain path) at a micro size, f32: the forward (atol 1e-4), then one
    Possloss train step with remat (loss and gradients);
+5b. pinned: JAX's production-geometry golden on the card. VAE_DECODER,
+   FLOW_140 and FORECAST_025 built by run_da.build_models with --fast_init
+   from seeds 0, 1 and 2 (run_da's roles) must carry JAX's draw: the sha256
+   of every parameter equals tests/goldens/torch_fast_init_sha256.json.
+   Then tests/test_torch_prod_pinned.py's construction (JAX's
+   tests/test_prod_geometry_pinned.py: that decoder in f32, latent
+   (1, 32, 128, 256), free_0010 obs, one_step_da with nit 1 x 2 L-BFGS
+   iterations) runs on the card under utils/logger.py's device_trace; its
+   summary must match tests/goldens/prod_geometry_pinned.json within JAX's
+   tolerances (relative 5e-3 on the six scalars, 1e-2 on the increment
+   probe). Prints each relative error, the build, hash and solve seconds,
+   the peak memory, the trace's size and its top device operations. No
+   flash launch (VAE_DECODER is relbias);
 6. the DA path: the README's vae4dvar cycle through vaevar_tpu_torch.run_da
    at full width (0.25 deg FORECAST_025 advance at 721x1440, VAE decoder at
    128x256, Nit 4), 2 cycles after the 8-step spin-up, random weights from
@@ -34,7 +47,7 @@ exits nonzero without its last line:
 6b. the window path: the same cycle as 4D-Var with --da_win 6 (FLOW_140
    inside J at 128x256, block and step remat, the linesearch `auto`
    resolves to jvp-zoom), one cycle from the truth (--init_tp 1, no
-   spin-up). Checks the launches (4 forward: the advance; the window cost
+   spin-up), Nit 2. Checks the launches (4 forward: the advance; the window cost
    runs no flash op), the resolved linesearch, the cost decrease, finite
    fields and the on-disk state; prints the seconds of the cycle, of its obs
    preparation and of the solve, the per-segment iterations, charged evals,
@@ -92,7 +105,7 @@ exits nonzero without its last line:
    --use_eval: 2000 synthetic stations gridded onto the 204 observation-level
    channels, the truth augmented on the card, QC, the 20 % holdout, the
    full-grid cost with the augmentation inside J) at full width for 2 cycles
-   after the 8-step spin-up: 40 forward launches and no backward one,
+   after the 8-step spin-up, Nit 2: 40 forward launches and no backward one,
    `auto` -> jvp-zoom, J lowered, finite fields, obs gridded and kept by QC
    in every cycle, error_obs.npy with 204 entries per cycle; prints the
    spin-up and cycle seconds, the obs preparation split into truth reads,
@@ -104,7 +117,7 @@ exits nonzero without its last line:
    the rest of the cycle log, the metric dumps and xb.npy (two serial runs
    repeat bit for bit on the card: scripts/prefetch_cycles.py); each run's
    cycle, obs and obs-wait seconds and peak memory are printed. Then
-   one full-width prepbufr cycle (da_win 1, from the truth: 4 launches), one
+   one full-width prepbufr cycle (da_win 1, Nit 2, from the truth: 4 launches), one
    full-width free_run cycle with --forecast_eval --forecast_eval_steps 2
    (12 launches, forecast_wrmse.npy), a micro f32 real-obs window solve
    (da_win 3) card vs CPU (norm-rel 1e-5), and interpolation at micro size.
@@ -141,8 +154,9 @@ exits nonzero without its last line:
    (dim 192, 6 heads, window 6x12, grid 90x180, b1, bf16): finite, seconds
    printed.
 The main phase also prints cycle 2's obs seconds (on the prefetch worker)
-and the seconds the loop waited for them; the line before the kernels line
-gives the smoke's own seconds.
+and the seconds the loop waited for them. Every phase is timed by
+utils/logger.py's PhaseTimer; its report (seconds per phase, and the total
+by the smoke's own clock) comes before the kernels line.
 The second-to-last line is a JSON record of the kernels (launches summed
 over the DA, window, training, record, VAE-training, sc4dvar, real-obs,
 sd_zoo (a) and dp paths (both ranks), each counted from 0; times with the main
@@ -168,9 +182,12 @@ END = "2022-01-01 12:00:00"  # two 6 h cycles
 FULL_WIDTH = ["--da_mode", "vae4dvar", "--fast_init", "--grid", "721x1440",
               "--solver_grid", "128x256", "--Nit", "4", "--bf16", "--start_time", START]
 MAIN_ARGS = FULL_WIDTH + ["--end_time", END]
+# The paths beside the main one solve Nit 2 of the README's 4 segments: the
+# depth cut that keeps the smoke well inside its time limit.
+CUT = ["--Nit", "2"]
 # one 6 h cycle of 4D-Var from the truth: the main phase runs the spin-up
 WINDOW_ARGS = FULL_WIDTH + ["--end_time", "2022-01-01 06:00:00", "--da_win", "6",
-                            "--init_tp", "1"]
+                            "--init_tp", "1"] + CUT
 SMALL_SHAPES = [(2, 2, 300, 64), (1, 2, 200, 32), (1, 1, 130, 32)]
 PROD_SHAPE = (1, 6, 16200, 192)
 # Backward tolerances, relative to the gradient's largest |entry|, keyed by
@@ -198,7 +215,7 @@ RECORD_FLAGS = ["--da_mode", "vae4dvar", "--da_win", "1", "--Nit", "4", "--obs_s
 # 6 h cycle after the spin-up
 RECORD_CUT = ["--end_time", "2022-01-01 06:00:00"]
 # the real-obs cycle: the README cycle on a synthetic station network
-REAL_OBS_ARGS = MAIN_ARGS + ["--obs_type", "real_simu", "--use_eval"]
+REAL_OBS_ARGS = MAIN_ARGS + ["--obs_type", "real_simu", "--use_eval"] + CUT
 # The cycle log's timing fields: everything else in it must agree between
 # a run with the obs prefetch thread and one with --no_prefetch.
 TIMING_KEYS = {"seconds", "obs_s", "obs_wait_s", "truth_s", "grid_s", "aug_qc_s", "reduce_s",
@@ -479,6 +496,17 @@ def check_bwd(fa):
     return out
 
 
+def filled(build, seed):
+    """build() without torch's default initialisation, then filled with
+    JAX's --fast_init draw from `seed` (as run_da.build_model builds)."""
+    from vaevar_tpu_torch.models.init import without_default_init
+    from vaevar_tpu_torch.utils.fast_init import fast_init
+
+    with without_default_init():
+        model = build()
+    return fast_init(model, seed=seed)
+
+
 def micro_model(seed=3, **kw):
     """The micro rope LGUnet whose flash calls all have kernel head dims:
     full-grid LG stage (128 tokens, head dim 32) and unshifted 4x4 encoder
@@ -731,12 +759,11 @@ def check_sd_zoo(fa):
     from vaevar_tpu_torch.data.era5 import SyntheticEra5
     from vaevar_tpu_torch.models.lgunet import LGUnet, WindowAttention
     from vaevar_tpu_torch.train import forecast_trainer as ft
-    from vaevar_tpu_torch.utils.fast_init import fast_init
 
     t0 = time.perf_counter()
     cfg = cfgs.FORECAST_025.replace(lg_window_size=(1, 6, 12), dilated_size=(1, 1, 3),
                                     dtype=torch.bfloat16)
-    model = fast_init(LGUnet(cfg), seed=0).cuda().train()
+    model = filled(lambda: LGUnet(cfg), 0).cuda().train()
     n_model = sum(p.numel() for p in model.parameters())
     attns = [m for m in model.modules() if isinstance(m, WindowAttention)]
     n3d = sum(len(m.win) == 3 for m in attns)
@@ -952,11 +979,10 @@ def check_forecast_training(fa):
     from vaevar_tpu_torch.data.era5 import SyntheticEra5
     from vaevar_tpu_torch.models.lgunet import LGUnet
     from vaevar_tpu_torch.train import forecast_trainer as ft
-    from vaevar_tpu_torch.utils.fast_init import fast_init
 
     t0 = time.perf_counter()
     cfg = cfgs.FORECAST_025.replace(dtype=torch.bfloat16)  # remat on
-    model = fast_init(LGUnet(cfg), seed=0).cuda().train()
+    model = filled(lambda: LGUnet(cfg), 0).cuda().train()
     hw = cfg.img_size
     src = SyntheticEra5(hw=hw, seed=0)
     mean, std = channels.MEAN.reshape(-1, 1, 1), channels.STD.reshape(-1, 1, 1)
@@ -1079,7 +1105,6 @@ def check_vae_train(fa):
     from vaevar_tpu_torch.train import checkpoint as ckpt
     from vaevar_tpu_torch.train import vae_trainer as vt
     from vaevar_tpu_torch.utils import jax_random
-    from vaevar_tpu_torch.utils.fast_init import fast_init
 
     rng = np.random.default_rng(6)
     frames = torch.from_numpy(rng.standard_normal((2, 3, 69, 32, 64), dtype=np.float32))
@@ -1099,8 +1124,8 @@ def check_vae_train(fa):
     hw, dt = (128, 256), torch.bfloat16
     flow, enc_cfg, dec_cfg = (c.replace(img_size=hw, dtype=dt, remat=True)
                               for c in (cfgs.FLOW_140, cfgs.VAE_ENCODER, cfgs.VAE_DECODER))
-    flow = fast_init(LGUnet(flow), seed=0).cuda().eval().requires_grad_(False)
-    vae = fast_init(VAE(enc_cfg, dec_cfg), seed=1).cuda()
+    flow = filled(lambda: LGUnet(flow), 0).cuda().eval().requires_grad_(False)
+    vae = filled(lambda: VAE(enc_cfg, dec_cfg), 1).cuda()
     ds = NMCSequenceDataset(SyntheticEra5(hw=hw, seed=0), START, "2022-02-01 00:00:00")
     batch = next(batched_loader(ds, 8, seed=0))
     n_vae = sum(p.numel() for p in vae.parameters())
@@ -1297,7 +1322,6 @@ def write_record_inputs(root):
     from vaevar_tpu_torch.models.lgunet import LGUnet
     from vaevar_tpu_torch.models.vae import VAE
     from vaevar_tpu_torch.train import checkpoint as ckpt
-    from vaevar_tpu_torch.utils.fast_init import fast_init
 
     t0 = time.perf_counter()
     hw = cfgs.FORECAST_025.img_size
@@ -1317,9 +1341,9 @@ def write_record_inputs(root):
     bounds = {"max_logvar": torch.ones(1, 69), "min_logvar": -torch.ones(1, 69)}
     sources = {
         "forecast": lambda: {"model": {"lgunet_all": {
-            "module." + k: v for k, v in {**fast_init(LGUnet(cfgs.FORECAST_025), seed=11)
+            "module." + k: v for k, v in {**filled(lambda: LGUnet(cfgs.FORECAST_025), 11)
                                           .state_dict(), **bounds}.items()}}},
-        "vae": lambda: fast_init(VAE(cfgs.VAE_ENCODER, cfgs.VAE_DECODER), seed=12).state_dict()}
+        "vae": lambda: filled(lambda: VAE(cfgs.VAE_ENCODER, cfgs.VAE_DECODER), 12).state_dict()}
     convert_s = {}
     for kind, make in sources.items():
         pth, paths[kind] = os.path.join(root, f"{kind}.pth"), os.path.join(root, f"{kind}.pt")
@@ -1336,7 +1360,7 @@ def write_record_inputs(root):
         del obj, want, got
         gc.collect()
     paths["flow"] = os.path.join(root, "flow", "params_latest")
-    ckpt.save(paths["flow"], fast_init(LGUnet(cfgs.FLOW_140), seed=13).state_dict())
+    ckpt.save(paths["flow"], filled(lambda: LGUnet(cfgs.FLOW_140), 13).state_dict())
     return paths, convert_s
 
 
@@ -1615,7 +1639,7 @@ def check_real_obs(fa):
     gc.collect()
     torch.cuda.empty_cache()
 
-    da, counts, total, peak, _ = run_da_phase(fa, ONE_CYCLE + ["--obs_type", "prepbufr"])
+    da, counts, total, peak, _ = run_da_phase(fa, ONE_CYCLE + ["--obs_type", "prepbufr"] + CUT)
     phase("real_obs", f"prepbufr, 1 cycle from the truth: {total:.2f} s with the models; peak "
           f"memory {peak:.2f} GiB; flash launches (fwd, dq, dkv) {counts}")
     check_cycle_log("prepbufr", da, 1)
@@ -1717,7 +1741,6 @@ def dp_worker(d):
     from vaevar_tpu_torch.ops import flash_attn as fa
     from vaevar_tpu_torch.parallel import mesh as pmesh
     from vaevar_tpu_torch.train import forecast_trainer as ft
-    from vaevar_tpu_torch.utils.fast_init import fast_init
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1727,7 +1750,7 @@ def dp_worker(d):
 
     t0 = time.perf_counter()
     cfg = cfgs.FORECAST_025.replace(dtype=torch.bfloat16)  # remat on
-    model = fast_init(LGUnet(cfg), seed=0).to(mesh.device).train()
+    model = filled(lambda: LGUnet(cfg), 0).to(mesh.device).train()
     hw = cfg.img_size
     src = SyntheticEra5(hw=hw, seed=0)
     mean, std = channels.MEAN.reshape(-1, 1, 1), channels.STD.reshape(-1, 1, 1)
@@ -1885,10 +1908,135 @@ def check_dp(fa, single_step_s):
     return dict(zip(("flash_fwd", "flash_dq", "flash_dkv"), map(int, counts)))
 
 
+def top_device_ops(trace, n=5):
+    """The n device operations (kernels, copies, fills) with the most time
+    in a Chrome trace that device_trace wrote: [(name, ms, launches)], and
+    the device time of all of them in ms. Read from the file: asking
+    torch.profiler for its events builds a Python object per event, which
+    took longer than the traced solve itself at this size."""
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    sums = {}
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            ms, c = sums.get(e["name"], (0.0, 0))
+            sums[e["name"]] = (ms + e.get("dur", 0) / 1e3, c + 1)
+    rows = sorted(sums.items(), key=lambda kv: -kv[1][0])
+    return [(k, ms, c) for k, (ms, c) in rows[:n]], sum(ms for ms, _ in sums.values())
+
+
+def check_pinned():
+    """The pinned phase: JAX's production-geometry golden on the card. The
+    three models of the README cycle's roles and its window's flow model
+    (VAE_DECODER from seed 0, FLOW_140 from 1, FORECAST_025 from 2), built
+    by run_da.build_models with --fast_init as the CLI builds them, must
+    carry the weights of tests/goldens/torch_fast_init_sha256.json (JAX's
+    draw, digest by digest); then tests/test_torch_prod_pinned.py's
+    construction runs on the card with that decoder in f32, under
+    device_trace, and its summary must match
+    tests/goldens/prod_geometry_pinned.json within JAX's tolerances."""
+    import glob
+
+    import torch
+
+    from vaevar_tpu_torch import config as cfgs
+    from vaevar_tpu_torch import run_da
+    from vaevar_tpu_torch.utils.fast_init import param_digests
+    from vaevar_tpu_torch.utils.logger import device_trace
+
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    sys.path.insert(0, tests)
+    import test_torch_prod_pinned as pinned
+
+    with open(os.path.join(tests, "goldens", "torch_fast_init_sha256.json")) as f:
+        digests = json.load(f)
+    shw = (128, 256)
+    roles = {"VAE_DECODER": run_da.fit_grid(cfgs.VAE_DECODER, shw),
+             "FLOW_140": run_da.fit_grid(cfgs.FLOW_140, shw),
+             "FORECAST_025": cfgs.FORECAST_025}
+    t0 = time.perf_counter()
+    models = run_da.build_models(
+        {role: (cfg, digests[role]["seed"], None, False) for role, cfg in roles.items()},
+        "cuda", fast=True)
+    torch.cuda.synchronize()
+    phase("pinned", f"{', '.join(roles)} built together by run_da.build_models --fast_init "
+          f"in {time.perf_counter() - t0:.2f} s")
+    for role, model in models.items():
+        seed, want = digests[role]["seed"], digests[role]["sha256"]
+        t0 = time.perf_counter()
+        got = param_digests(dict(model.named_parameters()))
+        bad = sorted(k for k in set(want) | set(got) if got.get(k) != want.get(k))
+        n = sum(p.numel() for p in model.parameters())
+        phase("pinned", f"{role} (seed {seed}, {n / 1e6:.1f} M parameters): {len(want) - len(bad)} "
+              f"of {len(want)} tensor digests equal JAX's draw ({time.perf_counter() - t0:.2f} s "
+              "to hash them)")
+        if bad:
+            raise AssertionError(f"{role}: {len(bad)} tensors differ from JAX's draw, "
+                                 f"e.g. {bad[:3]}")
+    decoder = models.pop("VAE_DECODER")
+    del models, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tdir:
+        t0 = time.perf_counter()
+        with device_trace(tdir):
+            got = pinned.compute_summary("cuda", decoder)
+            torch.cuda.synchronize()
+            solve_s = time.perf_counter() - t0
+        total_s = time.perf_counter() - t0
+        (trace,) = glob.glob(os.path.join(tdir, "trace_*.json"))
+        size = os.path.getsize(trace)
+        t0 = time.perf_counter()
+        top, device_ms = top_device_ops(trace)
+        top_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    phase("pinned", f"one_step_da, VAE_DECODER f32 at 128x256, free_0010, nit 1 x 2 L-BFGS "
+          f"iterations, under device_trace: {solve_s:.2f} s with the summary, "
+          f"{total_s - solve_s:.2f} s to write the trace; peak {peak / 2**30:.2f} GiB")
+    phase("pinned", f"device_trace: Chrome trace {size / 1e6:.1f} MB; device time "
+          f"{device_ms:.1f} ms ({top_s:.2f} s to sum it); top device operations: "
+          + ("; ".join(f"{k[:70]} {ms:.1f} ms x{c}" for k, ms, c in top)
+             or "none recorded (the profiler saw no device activity)"))
+    with open(pinned.ART) as f:
+        golden = json.load(f)
+    rel = pinned.relative_errors(got, golden)
+    phase("pinned", "relative errors against tests/goldens/prod_geometry_pinned.json (tol "
+          f"{pinned.RTOL_SCALAR:g} on the scalars, {pinned.RTOL_PROBE:g} on inc_probe): "
+          + ", ".join(f"{k} {v:.3g}" for k, v in rel.items()))
+    phase("pinned", ", ".join(f"{k} {got[k]:.10g} (golden {golden[k]:.10g})"
+                              for k in pinned.SCALARS))
+    if pinned.misses(rel):
+        raise AssertionError(f"the card's summary misses JAX's pinned golden: "
+                             f"{pinned.misses(rel)}")
+    del decoder
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
-    t_start = time.perf_counter()
+    from vaevar_tpu_torch.utils.logger import PhaseTimer
+
+    timer = PhaseTimer()
+    with timer.phase("total"):
+        out = run_phases(timer)
+    phase("timer", "seconds per phase by the smoke's own clock (PhaseTimer):")
+    print(timer.report(), flush=True)
+    phase("total", f"the smoke took {timer.totals['total']:.1f} s")
+    print(json.dumps({"kernels": out["kernels"]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": out["kind"], "count": torch.cuda.device_count()}}),
+        flush=True)
+
+
+def run_phases(timer):
+    """Every phase in order, each timed under its name; returns the kernels
+    record and the card's name."""
+    import torch
+
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1900,20 +2048,99 @@ def main():
     phase("device", f"{kind}; torch {torch.__version__} cuda {torch.version.cuda}")
     print(smi, flush=True)
 
-    from vaevar_tpu_torch import config as cfgs
-    from vaevar_tpu_torch import run_da
     from vaevar_tpu_torch.ops import _build
     from vaevar_tpu_torch.ops import flash_attn as fa
 
     t0 = time.perf_counter()
-    built = _build.build_all(["flash_fwd", "flash_bwd"])
+    with timer.phase("build"):
+        built = _build.build_all(["flash_fwd", "flash_bwd"])
     phase("build", ", ".join(f"{p.name} in {s:.2f} s" + (" (reused)" if s == 0 else "")
                              for p, s in built.values())
           + f"; {time.perf_counter() - t0:.2f} s in all")
 
-    fwd = check_kernel(fa)
-    bwd = check_bwd(fa)
-    check_model(fa)
+    with timer.phase("kernel"):
+        fwd = check_kernel(fa)
+    with timer.phase("bwd"):
+        bwd = check_bwd(fa)
+    with timer.phase("model"):
+        check_model(fa)
+    with timer.phase("pinned"):
+        check_pinned()
+
+    with timer.phase("main"):
+        launches = check_main(fa)
+    with timer.phase("window"):
+        window_launches = check_window(fa)[0]
+        check_micro_window()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    with timer.phase("train"):
+        train_counts, step_s = check_forecast_training(fa)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with timer.phase("cli"):
+        check_cli()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with timer.phase("record"):
+        record_launches = check_record(fa)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with timer.phase("vae_train"):
+        vae_launches = check_vae_train(fa)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with timer.phase("sc4dvar"):
+        sc4dvar_launches = check_sc4dvar(fa)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with timer.phase("real_obs"):
+        real_obs_launches = check_real_obs(fa)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with timer.phase("osse"):
+        check_osse()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with timer.phase("sd_zoo"):
+        sd_counts = check_sd_zoo(fa)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with timer.phase("dp"):
+        dp_counts = check_dp(fa, step_s)
+
+    stats = {"flash_fwd": fwd, "flash_dq": bwd["flash_dq"], "flash_dkv": bwd["flash_dkv"]}
+    replaces = {"flash_fwd": ("flash_fwd.cu", "vaevar_tpu/ops/pallas_attn.py:47"),
+                "flash_dq": ("flash_bwd.cu", "vaevar_tpu/ops/pallas_attn.py:127"),
+                "flash_dkv": ("flash_bwd.cu", "vaevar_tpu/ops/pallas_attn.py:162")}
+    kernels = []
+    for name, (src, tpu) in replaces.items():
+        main, rec = stats[name]["main"], {
+            "name": name, "route": "cuda", "source": f"vaevar_tpu_torch/csrc/{src}",
+            "replaces": tpu,
+            "launches": train_counts[name] + dp_counts[name] + sd_counts[name] + (
+                launches + window_launches + record_launches + vae_launches + sc4dvar_launches
+                + real_obs_launches if name == "flash_fwd" else 0),
+            "max_abs_err": stats[name]["max_abs_err"]}
+        rec.update(main)
+        rec["share_of_bound"] = main["bound_ms"] / main["ms"]
+        rec["bf16"] = stats[name]["bf16"]
+        if name != "flash_fwd":  # dq + dkv + D together against the library's backward
+            rec["pair"] = bwd["pair"]
+        if "build" in stats[name]:
+            rec["build"] = stats[name]["build"]
+        kernels.append(rec)
+    return {"kernels": kernels, "kind": kind}
+
+
+def check_main(fa):
+    """The main phase: the README cycle through run_da; returns its forward
+    launches."""
+    import torch
+
+    from vaevar_tpu_torch import config as cfgs
+    from vaevar_tpu_torch import run_da
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1962,64 +2189,7 @@ def main():
     del da
     gc.collect()
     torch.cuda.empty_cache()
-
-    window_launches = check_window(fa)[0]
-    check_micro_window()
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    train_counts, step_s = check_forecast_training(fa)
-    gc.collect()
-    torch.cuda.empty_cache()
-    check_cli()
-    gc.collect()
-    torch.cuda.empty_cache()
-    record_launches = check_record(fa)
-    gc.collect()
-    torch.cuda.empty_cache()
-    vae_launches = check_vae_train(fa)
-    gc.collect()
-    torch.cuda.empty_cache()
-    sc4dvar_launches = check_sc4dvar(fa)
-    gc.collect()
-    torch.cuda.empty_cache()
-    real_obs_launches = check_real_obs(fa)
-    gc.collect()
-    torch.cuda.empty_cache()
-    check_osse()
-    gc.collect()
-    torch.cuda.empty_cache()
-    sd_counts = check_sd_zoo(fa)
-    gc.collect()
-    torch.cuda.empty_cache()
-    dp_counts = check_dp(fa, step_s)
-
-    phase("total", f"the smoke took {time.perf_counter() - t_start:.1f} s")
-    stats = {"flash_fwd": fwd, "flash_dq": bwd["flash_dq"], "flash_dkv": bwd["flash_dkv"]}
-    replaces = {"flash_fwd": ("flash_fwd.cu", "vaevar_tpu/ops/pallas_attn.py:47"),
-                "flash_dq": ("flash_bwd.cu", "vaevar_tpu/ops/pallas_attn.py:127"),
-                "flash_dkv": ("flash_bwd.cu", "vaevar_tpu/ops/pallas_attn.py:162")}
-    kernels = []
-    for name, (src, tpu) in replaces.items():
-        main, rec = stats[name]["main"], {
-            "name": name, "route": "cuda", "source": f"vaevar_tpu_torch/csrc/{src}",
-            "replaces": tpu,
-            "launches": train_counts[name] + dp_counts[name] + sd_counts[name] + (
-                launches + window_launches + record_launches + vae_launches + sc4dvar_launches
-                + real_obs_launches if name == "flash_fwd" else 0),
-            "max_abs_err": stats[name]["max_abs_err"]}
-        rec.update(main)
-        rec["share_of_bound"] = main["bound_ms"] / main["ms"]
-        rec["bf16"] = stats[name]["bf16"]
-        if name != "flash_fwd":  # dq + dkv + D together against the library's backward
-            rec["pair"] = bwd["pair"]
-        if "build" in stats[name]:
-            rec["build"] = stats[name]["build"]
-        kernels.append(rec)
-    print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
-        flush=True)
+    return launches
 
 
 if __name__ == "__main__":

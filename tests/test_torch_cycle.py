@@ -64,7 +64,7 @@ def _port_da(work_dir, dec, fc, flow=None, coeff_dir=None, **kw):
     return TorchCycledDA(TorchDAConfig(**{**DA_KW, **kw}), TorchEra5(hw=GRID, seed=0),
                          lambda x, steps, interp=True: integrate(x, steps, interp),
                          dec, flow=flow, coeff_dir=coeff_dir, work_dir=str(work_dir), seed=0,
-                         verbose=False)
+                         verbose=False, device="cpu")
 
 
 @pytest.fixture(scope="module")

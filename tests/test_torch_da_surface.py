@@ -117,7 +117,7 @@ def _pair(models, tmp_path, da_win=1, dt=(0.0, 0.0), **kw):
         flow=_Twice() if flow else None,
         reports_source=treports.SyntheticReports(tsrc, N_STATIONS, seed=3, dt_range=dt)
         if station else None,
-        work_dir=str(tmp_path / "port"), seed=0, verbose=False, **extra)
+        work_dir=str(tmp_path / "port"), seed=0, verbose=False, device="cpu", **extra)
     return jda, tda
 
 

@@ -180,7 +180,7 @@ def test_cycle_with_err_std_matches_jax(models, tmp_path):
                       prefetch_obs=False)
     tda = TorchCycledDA(TorchDAConfig(lbfgs_linesearch="zoom", **kw), tsrc,
                         tsrc.advect_model()[0], tdec, err_std=err_std,
-                        work_dir=str(tmp_path / "port"), seed=1, verbose=False)
+                        work_dir=str(tmp_path / "port"), seed=1, verbose=False, device="cpu")
     xj = np.asarray(jax.device_get(jda.run_assimilation(start, end)))
     xt = tda.run_assimilation(start, end).numpy()
     floor = 1e-5 * channels.STD
@@ -257,7 +257,7 @@ def osse_world():
 
 @pytest.fixture(scope="module")
 def cycled(osse_world, tmp_path_factory):
-    out = osse.run_cycles(osse_world, str(tmp_path_factory.mktemp("osse")))
+    out = osse.run_cycles(osse_world, str(tmp_path_factory.mktemp("osse")), device="cpu")
     return {k: v[:2] for k, v in out.items()}
 
 
@@ -360,7 +360,7 @@ def _jax_osse(seed, root, port_cycles=False):
                                                       dec), strict=True)
         world = osse.build_world("cpu", epochs=0)
         world.decoder = tvae.dec.eval().requires_grad_(False)
-        return {k: v[:2] for k, v in osse.run_cycles(world, str(root)).items()}, hist
+        return {k: v[:2] for k, v in osse.run_cycles(world, str(root), "cpu").items()}, hist
     dec_apply = lambda p, z: vae.apply(p, z, method=JaxVAE.decoder)
     world = (src, integrate, dec_apply, params, err_std, err6_std)
     cycled = {m: jt._cycle(world, m, root / m) for m in ("free_run", "vae4dvar", "sc4dvar")}
@@ -370,7 +370,7 @@ def _jax_osse(seed, root, port_cycles=False):
 
 def _port_osse(seed, init, root):
     world = osse.build_world("cpu", seed=seed, init=init)
-    return {k: v[:2] for k, v in osse.run_cycles(world, str(root)).items()}, world.history
+    return {k: v[:2] for k, v in osse.run_cycles(world, str(root), "cpu").items()}, world.history
 
 
 def _rejection_trunc_normal(t, std, generator):

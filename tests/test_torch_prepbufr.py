@@ -42,7 +42,7 @@ def test_station_obs_guards(tmp_path):
     """prepbufr takes da_win 1 or 6 and a report source, real obs a report
     source or pre-gridded files: each refused at construction."""
     cfg = TorchDAConfig(**{**DA_KW, "obs_type": "prepbufr", "da_win": 3})
-    kw = dict(work_dir=str(tmp_path / "w"))
+    kw = dict(work_dir=str(tmp_path / "w"), device="cpu")
     with pytest.raises(NotImplementedError, match="da_win must be 1 or 6"):
         TorchCycledDA(cfg, None, None, torch.nn.Identity(), reports_source=object(), **kw)
     with pytest.raises(ValueError, match="needs a reports_source"):

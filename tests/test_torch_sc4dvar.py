@@ -232,7 +232,7 @@ def test_cycle_matches_jax(assets, tmp_path):
     integrate = torch_integrate(tfc)
     tda = TorchCycledDA(TorchDAConfig(**kw), TorchEra5(hw=GRID, seed=0),
                         lambda x, steps, interp=True: integrate(x, steps, interp), cvt=tt,
-                        work_dir=str(tmp_path / "port"), seed=0, verbose=False)
+                        work_dir=str(tmp_path / "port"), seed=0, verbose=False, device="cpu")
     assert tda._solver.lbfgs_iters == jda._solver._lbfgs_iters == 5
     assert tda._solver.max_segment_evals == jda._solver.max_segment_evals == 6
     calls = []

@@ -72,6 +72,15 @@ def score(x, gt0):
     return wrmse.cpu().numpy(), bias.cpu().numpy(), float(mse)
 
 
+def check_device(device) -> str:
+    """`device` as a string, after checking that it exists: a CUDA device
+    without one raises instead of falling back to the CPU."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(device)!r}: no CUDA device is available; "
+                           "pass device='cpu' to run on the CPU")
+    return str(device)
+
+
 def parse_time(ts) -> datetime:
     return ts if isinstance(ts, datetime) else datetime.fromisoformat(str(ts))
 
@@ -90,7 +99,8 @@ class CycledDA:
     # passes the empirical error std its VAE was trained on)
     work_dir: str = "da_cycle_results/run"
     seed: int = 0
-    device: str = "cpu"
+    device: str = "cuda"  # the card, as JAX's cycler takes the default
+    # accelerator; "cpu" must be asked for
     verbose: bool = True
     reports_source: object = None  # .get_reports(datetime): station reports
     # (data/reports.py) for the real* and prepbufr* obs types
@@ -111,6 +121,7 @@ class CycledDA:
     metrics_list: dict = field(default_factory=lambda: {k: [] for k in _METRIC_KEYS})
 
     def __post_init__(self):
+        self.device = check_device(self.device)
         cfg = self.cfg
         if cfg.da_mode not in ("free_run", "interpolation", "vae4dvar", "sc4dvar"):
             raise NotImplementedError(f"da_mode {cfg.da_mode!r}")

@@ -17,9 +17,16 @@ place of torch's defaults (Kaiming-uniform `Linear`, zero position tables):
 
 The values are drawn from an explicit torch.Generator, in `named_modules`
 order; they are not JAX's values, only their distributions.
+
+`without_default_init` builds a model without torch's default
+initialisation, for a model that a fill (utils/fast_init.py, a checkpoint's
+strict load, `init_like_flax`) then writes completely.
 """
 
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 from torch import nn
@@ -73,3 +80,29 @@ def init_like_flax(model: nn.Module, generator: torch.Generator) -> nn.Module:
     if missed:
         raise ValueError(f"no flax initializer rule for {missed[:5]}")
     return model
+
+
+# the layers whose constructors draw torch's default initialisation
+# (Conv2d and ConvTranspose2d take theirs from _ConvNd)
+_DEFAULT_INIT = (nn.Linear, nn.LayerNorm, nn.modules.conv._ConvNd)
+_NO_INIT_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def without_default_init():
+    """Inside the block, Linear, LayerNorm and the conv layers skip their
+    `reset_parameters`: their parameters hold uninitialised memory, and the
+    default initialisers' draws (a few seconds for a 427 M-parameter model)
+    are not made. Only for a model whose every parameter a fill writes
+    afterwards; buffers are computed as always. It patches the classes for
+    the length of the block, so blocks in several threads run one at a
+    time (keep them to the construction) and must not nest."""
+    with _NO_INIT_LOCK:
+        saved = {cls: cls.__dict__["reset_parameters"] for cls in _DEFAULT_INIT}
+        for cls in saved:
+            cls.reset_parameters = lambda self: None
+        try:
+            yield
+        finally:
+            for cls, fn in saved.items():
+                cls.reset_parameters = fn

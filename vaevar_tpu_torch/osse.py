@@ -25,6 +25,8 @@ test (tests/test_torch_osse.py) and the card's smoke (chip_smoke.py, phase
 unchanged. The training and the cycles run with torch's deterministic
 algorithms (`deterministic`), so the OSSE on a card repeats bit for bit
 from run to run, as it does on the CPU, and its gate gives one answer.
+`build_world`, `cycle` and `run_cycles` run on the card unless given
+device="cpu"; without a card the default raises.
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ import torch
 from vaevar_tpu_torch import channels
 from vaevar_tpu_torch import config as cfgs
 from vaevar_tpu_torch.da.cvt import BMatrixAssets, CVTransform
-from vaevar_tpu_torch.da.cycler import CycledDA
+from vaevar_tpu_torch.da.cycler import CycledDA, check_device
 from vaevar_tpu_torch.data.era5 import SharedModeEra5
 from vaevar_tpu_torch.models.vae import VAE
 from vaevar_tpu_torch.train.vae_trainer import train_vae
@@ -98,12 +100,13 @@ def deterministic():
             os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
 
 
-def build_world(device="cpu", epochs: int = 120, seed: int = 0, init=None) -> World:
+def build_world(device="cuda", epochs: int = 120, seed: int = 0, init=None) -> World:
     """Truth source, imperfect model, the VAE TRAINED on the world's NMC
     errors, and the empirical error stds. The VAE starts from `init` (a VAE
     state_dict; by default the JAX OSSE's initial weights) and train_vae
     draws the JAX trainer's noise of `seed`, so by default the port trains
-    the JAX OSSE's VAE up to round-off."""
+    the JAX OSSE's VAE up to round-off. Without a card, pass device="cpu"."""
+    check_device(device)
     src = SharedModeEra5(hw=HW, seed=11)
     integrate, fengwu = src.advect_model()
 
@@ -146,9 +149,10 @@ def build_world(device="cpu", epochs: int = 120, seed: int = 0, init=None) -> Wo
 
 
 def cycle(world: World, mode: str, work_dir: str, n_days: int = 2, da_win: int = 1,
-          device="cpu"):
+          device="cuda"):
     """Cycle `mode` for `n_days` from 2022-01-01; returns (bg_wrmse,
     ana_wrmse) as (cycles, 69) arrays and the run's seconds."""
+    check_device(device)
     cfg = cfgs.DAConfig(
         da_mode=mode, da_win=da_win, nit=3, lbfgs_iters=10,
         obs_type="column_random_2000", obs_std=0.1, modify_tp=2,
@@ -172,8 +176,9 @@ def cycle(world: World, mode: str, work_dir: str, n_days: int = 2, da_win: int =
             time.perf_counter() - t)
 
 
-def run_cycles(world: World, root: str, device="cpu") -> dict:
+def run_cycles(world: World, root: str, device="cuda") -> dict:
     """{mode: (bg, ana, seconds)} for the four runs of MODES."""
+    check_device(device)
     out = {}
     for mode in MODES:
         base, da_win = ("vae4dvar", 3) if mode == "vae4dvar_win" else (mode, 1)

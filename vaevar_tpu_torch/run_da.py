@@ -33,8 +33,10 @@ builds no decoder. Each model role reads
 its checkpoint (--vae_ckpt: a full VAE or a decoder; --flow_ckpt;
 --forecast_ckpt: port checkpoints, see train/checkpoint.py), or without one
 takes random weights from --seed (the flow model from --seed + 1, the
-forecast model from --seed + 2): N(0, 0.02^2) with --fast_init, else draws
-from the flax initializers' distributions (models/init.py). The advance is
+forecast model from --seed + 2): with --fast_init the N(0, 0.02^2) values
+run_da.py's --fast_init draws for the same seed, bit for bit
+(utils/fast_init.py), else draws from the flax initializers' distributions
+(models/init.py). The advance is
 the 0.25 deg rope model FORECAST_025 (or its retarget to --grid) when a
 forecast checkpoint is given or --fast_init runs on a grid other than the
 solver grid (run_da.py:308), else the flow model at the solver grid; with
@@ -216,6 +218,44 @@ def _micro_decoder(shw, vae_ckpt):
     return dec
 
 
+def build_model(model_cfg, seed, device, fast=False, ckpt_path=None, vae=False):
+    """The LGUnet of a model role: its checkpoint, else random weights from
+    `seed` (run_da.py:268-275): JAX's --fast_init draw with `fast`
+    (utils/fast_init.py), else the flax initializers' distributions. Each
+    of the three writes every parameter, so the model is built without
+    torch's default initialisation (models/init.py::without_default_init).
+    Built and filled on the CPU, then moved to `device` once; parameters
+    stay f32 under --bf16."""
+    import torch
+
+    from vaevar_tpu_torch.models.init import init_like_flax, without_default_init
+    from vaevar_tpu_torch.models.lgunet import LGUnet
+    from vaevar_tpu_torch.train.checkpoint import load_weights
+    from vaevar_tpu_torch.utils.fast_init import fast_init
+
+    with without_default_init():
+        model = LGUnet(model_cfg)
+    if ckpt_path:
+        load_weights(model, ckpt_path, vae=vae)
+    elif fast:
+        fast_init(model, seed=seed)
+    else:
+        init_like_flax(model, torch.Generator().manual_seed(seed))
+    return model.to(device).eval().requires_grad_(False)
+
+
+def build_models(roles: dict, device, fast=False) -> dict:
+    """build_model for each role of {name: (model_cfg, seed, ckpt_path,
+    vae)}, the roles at once on threads (numpy's draws, the copies and
+    torch's loads release the GIL): {name: model}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max(len(roles), 1)) as pool:
+        futures = {name: pool.submit(build_model, cfg, seed, device, fast, ckpt, vae)
+                   for name, (cfg, seed, ckpt, vae) in roles.items()}
+        return {name: f.result() for name, f in futures.items()}
+
+
 def main(argv=None):
     """Run the cycle; returns the CycledDA (its timings, with the seconds of
     the model set-up under "models_s", and its cycle_log)."""
@@ -236,10 +276,6 @@ def main(argv=None):
     from vaevar_tpu_torch.da.cycler import CycledDA
     from vaevar_tpu_torch.da.dynamics import make_integrate
     from vaevar_tpu_torch.data.era5 import LocalNpyStore, ReferenceLayoutStore, SyntheticEra5
-    from vaevar_tpu_torch.models.init import init_like_flax
-    from vaevar_tpu_torch.models.lgunet import LGUnet
-    from vaevar_tpu_torch.train.checkpoint import load_weights
-    from vaevar_tpu_torch.utils.fast_init import fast_init
 
     hw = tuple(int(v) for v in args.grid.split("x"))
     shw = tuple(int(v) for v in args.solver_grid.split("x"))
@@ -272,41 +308,27 @@ def main(argv=None):
     else:
         source = SyntheticEra5(hw=hw, seed=args.seed)
 
-    def build(model_cfg, seed, ckpt_path=None, vae=False):
-        """The model of a role: its checkpoint, else random weights from
-        `seed` (run_da.py:268-275). Built and filled on the CPU, then moved
-        to the device once; parameters stay f32 under --bf16."""
-        model = LGUnet(model_cfg)
-        if ckpt_path:
-            load_weights(model, ckpt_path, vae=vae)
-        elif args.fast_init:
-            fast_init(model, seed=seed)
-        else:
-            init_like_flax(model, torch.Generator().manual_seed(seed))
-        return model.to(device).eval().requires_grad_(False)
-
     t_models = time.perf_counter()
     # block remat of the decoder and the flow model when they run inside the
     # 4D-Var cost (run_da.py:284-300); 3D-Var keeps the faster backward
     block_remat = args.da_win > 1 and args.win_remat in ("both", "block")
-    decoder = cvt = None
+    roles = {}  # {role: (config, seed, checkpoint, vae)}, built together below
+    cvt = None
     if args.da_mode == "vae4dvar":
-        decoder = build(dec_base.replace(dtype=dtype, remat=block_remat), args.seed,
-                        args.vae_ckpt, vae=True)
+        roles["decoder"] = (dec_base.replace(dtype=dtype, remat=block_remat), args.seed,
+                            args.vae_ckpt, True)
     elif args.da_mode == "sc4dvar":  # run_da.py builds a decoder it never applies
         from vaevar_tpu_torch.da.cvt import CVTransform
 
         cvt = CVTransform(_load_b_assets(args.coeff_dir, args.scale_factor, device),
                           solver_hw=shw, out_hw=hw, device=device)
     forecast_branch = bool(args.forecast_ckpt or (args.fast_init and hw != shw))
-    flow = None
     # the flow model runs inside a window's cost or as the advance; else a
     # --flow_ckpt goes unread, as run_da.py restores it and never applies it
     in_cost = args.da_win > 1 and args.da_mode in ("vae4dvar", "sc4dvar")
     if in_cost or not forecast_branch:
-        flow = build(flow_base.replace(dtype=dtype, remat=block_remat), args.seed + 1,
-                     args.flow_ckpt)
-
+        roles["flow"] = (flow_base.replace(dtype=dtype, remat=block_remat), args.seed + 1,
+                         args.flow_ckpt, False)
     if forecast_branch:  # run_da.py:308
         if args.micro:
             fc_base = cfgs.micro_config(img_size=hw)
@@ -315,8 +337,12 @@ def main(argv=None):
         else:
             fc_base = fit_grid(cfgs.FLOW_140.replace(
                 attn_type="rope", lg_full_attn_first=True), hw)
-        forecast = build(fc_base.replace(dtype=dtype), args.seed + 2, args.forecast_ckpt)
-        forecast_integrate = make_integrate(forecast)
+        roles["forecast"] = (fc_base.replace(dtype=dtype), args.seed + 2, args.forecast_ckpt,
+                             False)
+    models = build_models(roles, device, args.fast_init)
+    decoder, flow = models.get("decoder"), models.get("flow")
+    if forecast_branch:
+        forecast_integrate = make_integrate(models["forecast"])
     else:  # advance with the flow model at the solver grid (run_da.py:323-328)
         flow_integrate = make_integrate(flow, model_hw=shw)
 

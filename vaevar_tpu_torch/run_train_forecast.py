@@ -127,6 +127,7 @@ def main(argv=None):
     from vaevar_tpu_torch import config as cfgs
     from vaevar_tpu_torch.data.era5 import LocalNpyStore, SyntheticEra5
     from vaevar_tpu_torch.data.prefetch import prefetched
+    from vaevar_tpu_torch.models.init import without_default_init
     from vaevar_tpu_torch.models.lgunet import LGUnet
     from vaevar_tpu_torch.train import checkpoint as ckpt
     from vaevar_tpu_torch.train import forecast_trainer as ft
@@ -168,7 +169,8 @@ def main(argv=None):
 
     base = cfgs.micro_config(img_size=hw) if args.micro else cfgs.FLOW_140.replace(
         img_size=hw, remat=args.remat)
-    model = LGUnet(base.replace(dtype=torch.bfloat16 if args.bf16 else None))
+    with without_default_init():  # a checkpoint or --fast_init fills every parameter
+        model = LGUnet(base.replace(dtype=torch.bfloat16 if args.bf16 else None))
     if args.model_ckpt:
         model.load_state_dict(ckpt.restore(args.model_ckpt))
     else:

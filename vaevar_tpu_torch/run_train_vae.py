@@ -9,8 +9,9 @@ f32 parameters, block remat): the flow model FLOW_140 (or, with --micro, the
 JAX CLI's micro relbias configs) rolled out nmc_steps times makes each error
 sample, and the VAE (VAE_ENCODER + VAE_DECODER) trains on them. The flow
 model's weights come from --fengwu_ckpt (a port checkpoint or a reference
-.pth, strict), else from --seed: N(0, 0.02^2) with --fast_init, draws from
-the flax initializers' distributions without it. --vae_ckpt (a vae_latest,
+.pth, strict), else from --seed: N(0, 0.02^2) with --fast_init (the values
+run_train_vae.py draws, bit for bit), draws from the flax initializers'
+distributions without it. --vae_ckpt (a vae_latest,
 or a reference VAE .pth) warm-starts the whole VAE strictly. Training resumes from <out_dir>/checkpoint_latest unless
 --no_resume; at the end `vae_latest` holds the VAE's bare state_dict under
 the reference `enc.`/`dec.` keys, which `run_da --vae_ckpt` reads as it is.
@@ -97,7 +98,7 @@ def main(argv=None):
     from vaevar_tpu_torch.data.era5 import LocalNpyStore, SyntheticEra5
     from vaevar_tpu_torch.data.nmc import NMCSequenceDataset, batched_loader
     from vaevar_tpu_torch.data.prefetch import prefetched
-    from vaevar_tpu_torch.models.init import init_like_flax
+    from vaevar_tpu_torch.models.init import init_like_flax, without_default_init
     from vaevar_tpu_torch.models.lgunet import LGUnet
     from vaevar_tpu_torch.models.vae import VAE
     from vaevar_tpu_torch.train import checkpoint as ckpt
@@ -123,7 +124,11 @@ def main(argv=None):
         flow_cfg, enc_cfg, dec_cfg = (
             c.replace(img_size=hw, dtype=dtype, remat=args.remat)
             for c in (cfgs.FLOW_140, cfgs.VAE_ENCODER, cfgs.VAE_DECODER))
-    flow = LGUnet(flow_cfg)
+    # every model below is filled completely (a checkpoint, --fast_init or
+    # the flax-matched init): torch's default initialisation is skipped
+    with without_default_init():
+        flow = LGUnet(flow_cfg)
+        vae = VAE(enc_cfg, dec_cfg)
     if args.fengwu_ckpt:
         ckpt.load_weights(flow, args.fengwu_ckpt)
     elif args.fast_init:
@@ -131,7 +136,6 @@ def main(argv=None):
     else:
         init_like_flax(flow, torch.Generator().manual_seed(args.seed))
     flow = flow.to(device).eval().requires_grad_(False)
-    vae = VAE(enc_cfg, dec_cfg)
     # a port vae_latest or a reference VAE .pth (its `module.` prefixes go)
     init_params = (ckpt.reference_state_dict(ckpt.restore(args.vae_ckpt)) if args.vae_ckpt
                    else None)

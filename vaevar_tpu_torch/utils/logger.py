@@ -1,10 +1,16 @@
-"""Rank-aware logging: the port of vaevar_tpu/utils/logger.py::get_logger
-(the reference's utils/logger.py:8-37)."""
+"""Rank-aware logging, phase timers and device traces: the port of
+vaevar_tpu/utils/logger.py (the reference's utils/logger.py:8-37 and its
+wall-clock instrumentation, da_4dvar.py:759,803-804,1174-1175).
+`device_trace` records with torch.profiler where JAX's records with
+jax.profiler, and writes a Chrome trace.
+"""
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
+import time
 
 
 def get_logger(name: str, run_dir: str | None = None, rank: int = 0,
@@ -27,3 +33,57 @@ def get_logger(name: str, run_dir: str | None = None, rank: int = 0,
         fh.setFormatter(fmt)
         logger.addHandler(fh)
     return logger
+
+
+class PhaseTimer:
+    """Accumulates wall-clock per named phase; .report() prints a summary."""
+
+    def __init__(self):
+        self.totals: dict[str, float] = {}
+        self.counts: dict[str, int] = {}
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        t0 = time.time()
+        try:
+            yield
+        finally:
+            dt = time.time() - t0
+            self.totals[name] = self.totals.get(name, 0.0) + dt
+            self.counts[name] = self.counts.get(name, 0) + 1
+
+    def report(self) -> str:
+        lines = []
+        for k in sorted(self.totals):
+            n = self.counts[k]
+            lines.append(
+                f"{k}: total {self.totals[k]:.2f}s x{n} "
+                f"(avg {self.totals[k] / n:.3f}s)"
+            )
+        return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str | None):
+    """torch.profiler trace context (no-op when log_dir is None): records
+    the host's operators and, with a card present, its kernels and copies,
+    and writes them as a Chrome trace `trace_<time>_<pid>.json` into
+    log_dir when the block ends."""
+    if not log_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(
+            log_dir, f"trace_{time.strftime('%Y%m%d-%H%M%S')}_{os.getpid()}.json"))

@@ -114,6 +114,13 @@ def _group_decoder(sd, g, tree, cfg, gen):
 
 def lgunet_state_dict_from_flax(flax_params, cfg) -> dict[str, torch.Tensor]:
     """flax LGUnet params -> port state_dict (float32 CPU tensors)."""
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32))
+            for k, v in lgunet_arrays_from_flax(flax_params, cfg).items()}
+
+
+def lgunet_arrays_from_flax(flax_params, cfg) -> dict:
+    """lgunet_state_dict_from_flax's mapping without its copy: {port key:
+    numpy view of the flax leaf (transposed, flipped or indexed)}."""
     params = flax_params.get("params", flax_params)
     gen = "old" if cfg.attn_type == "relbias" else "new"
     sd: dict = {}
@@ -131,8 +138,7 @@ def lgunet_state_dict_from_flax(flax_params, cfg) -> dict[str, torch.Tensor]:
             enc, dec = _index(params["enc_gs"], g - 1), _index(params["dec_gs"], g - 1)
         _group_encoder(sd, g, enc, cfg, gen)
         _group_decoder(sd, g, dec, cfg, gen)
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32))
-            for k, v in sd.items()}
+    return sd
 
 
 def vae_state_dict_from_flax(flax_params, enc_cfg, dec_cfg) -> dict[str, torch.Tensor]:
