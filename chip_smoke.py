@@ -47,7 +47,7 @@ exits nonzero without its last line:
 6b. the window path: the same cycle as 4D-Var with --da_win 6 (FLOW_140
    inside J at 128x256, block and step remat, the linesearch `auto`
    resolves to jvp-zoom), one cycle from the truth (--init_tp 1, no
-   spin-up), Nit 2. Checks the launches (4 forward: the advance; the window cost
+   spin-up), Nit 1. Checks the launches (4 forward: the advance; the window cost
    runs no flash op), the resolved linesearch, the cost decrease, finite
    fields and the on-disk state; prints the seconds of the cycle, of its obs
    preparation and of the solve, the per-segment iterations, charged evals,
@@ -121,6 +121,8 @@ exits nonzero without its last line:
    full-width free_run cycle with --forecast_eval --forecast_eval_steps 2
    (12 launches, forecast_wrmse.npy), a micro f32 real-obs window solve
    (da_win 3) card vs CPU (norm-rel 1e-5), and interpolation at micro size.
+   The phase's runs after the first take its models (`shared_builds`: the
+   same roles from the same seed, bit for bit the same weights).
 13. osse: the OSSE (vaevar_tpu_torch/osse.py) on the card: the micro VAE
    trained 120 epochs on SharedModeEra5's NMC errors (its loss must fall
    below 0.35 of its first value), then free_run, vae4dvar, sc4dvar and
@@ -153,19 +155,33 @@ exits nonzero without its last line:
    near-ties), then forward and backward of each at the backbone's widths
    (dim 192, 6 heads, window 6x12, grid 90x180, b1, bf16): finite, seconds
    printed.
+16. mesh: the spatially partitioned solve (run_da --mesh SHxSW,
+   parallel/mesh.py), its ranks in worker processes (`--mesh-worker`) on
+   the one card over gloo. (a) the real_obs phase's configuration cut to
+   its first cycle as --mesh 1x2 on 2 ranks, each holding its lon half of
+   the (1, 204, 721, 1440) yo and H: rank 0's cycle held to the real_obs
+   phase's cycle 1 (equal iterations and evals, Jb, Jo, ana_wrmse,
+   bg_wrmse and error_obs within 1e-3 relative), the ranks' lockstep
+   digests equal, each rank's yo + H half the single run's, obs counts
+   summed to the single run's, 36 forward launches per rank; prints each
+   rank's seconds, peak memory beside the single run's and obs bytes.
+   (b) micro --mesh 2x2 (4 ranks) reduced 3D-Var and da_win 3 window cycles
+   against single-process runs (the same checks). (c) run_da --mesh 1x1
+   through torch.distributed.run with nccl.
 The main phase also prints cycle 2's obs seconds (on the prefetch worker)
 and the seconds the loop waited for them. Every phase is timed by
 utils/logger.py's PhaseTimer; its report (seconds per phase, and the total
 by the smoke's own clock) comes before the kernels line.
 The second-to-last line is a JSON record of the kernels (launches summed
 over the DA, window, training, record, VAE-training, sc4dvar, real-obs,
-sd_zoo (a) and dp paths (both ranks), each counted from 0; times with the main
+sd_zoo (a), dp and mesh (a) paths (both ranks), each counted from 0; times with the main
 path's dtypes, and under "bf16" the all-bf16 ones; each bound from the
 function `bound_ms` below); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -185,9 +201,11 @@ MAIN_ARGS = FULL_WIDTH + ["--end_time", END]
 # The paths beside the main one solve Nit 2 of the README's 4 segments: the
 # depth cut that keeps the smoke well inside its time limit.
 CUT = ["--Nit", "2"]
-# one 6 h cycle of 4D-Var from the truth: the main phase runs the spin-up
+# one 6 h cycle of 4D-Var from the truth: the main phase runs the spin-up;
+# one segment (its first holds the 6 jvp probes), cut from 2 when the mesh
+# phase came in
 WINDOW_ARGS = FULL_WIDTH + ["--end_time", "2022-01-01 06:00:00", "--da_win", "6",
-                            "--init_tp", "1"] + CUT
+                            "--init_tp", "1", "--Nit", "1"]
 SMALL_SHAPES = [(2, 2, 300, 64), (1, 2, 200, 32), (1, 1, 130, 32)]
 PROD_SHAPE = (1, 6, 16200, 192)
 # Backward tolerances, relative to the gradient's largest |entry|, keyed by
@@ -1503,6 +1521,33 @@ def check_micro_real_obs():
                              "or did not lower J")
 
 
+@contextlib.contextmanager
+def shared_builds():
+    """run_da.build_model memoised while the block runs: a later run_da with
+    a role of the same config and seed (--fast_init or the flax-matched
+    init, no checkpoint) takes the model the first run built, the same
+    weights bit for bit (the pinned phase holds the builds to their
+    digests), and skips its ~14 s full-width build. Released at exit."""
+    from vaevar_tpu_torch import run_da
+
+    build, cache = run_da.build_model, {}
+
+    def cached(model_cfg, seed, device, fast=False, ckpt_path=None, vae=False):
+        if ckpt_path:
+            return build(model_cfg, seed, device, fast, ckpt_path, vae)
+        key = (repr(model_cfg), seed, str(device), fast, vae)
+        if key not in cache:
+            cache[key] = build(model_cfg, seed, device, fast, ckpt_path, vae)
+        return cache[key]
+
+    run_da.build_model = cached
+    try:
+        yield
+    finally:
+        run_da.build_model = build
+        cache.clear()
+
+
 def run_da_phase(fa, argv):
     """run_da.main(argv) in a temporary work dir with the launch counts set
     to 0 just before; returns (da, (fwd, dq, dkv) launches, seconds with the
@@ -1592,7 +1637,9 @@ def prefetch_line(da, peak):
 
 def check_real_obs(fa):
     """Phase 12: real observations and the rest of the DA surface. Returns
-    the forward launches of its full-width runs."""
+    the forward launches of its full-width runs, and the first run's cycle 1
+    (its log entry, metric rows and peak memory: the mesh phase's
+    reference)."""
     import numpy as np
     import torch
 
@@ -1614,6 +1661,8 @@ def check_real_obs(fa):
     if err is None or err.shape != (2, 204) or not np.isfinite(err).all():
         raise AssertionError(f"error_obs.npy: {None if err is None else err.shape}; want (2, 204)")
     launches = counts[0]
+    ref = {"cycle": da.cycle_log[0], "peak": peak,
+           **{k: outs[f"{k}.npy"][0] for k in ("ana_wrmse", "bg_wrmse", "error_obs")}}
     if not da.prefetch_obs:
         raise AssertionError("run_da ran without the obs prefetch thread by default")
     phase("real_obs", prefetch_line(da, peak))
@@ -1677,7 +1726,7 @@ def check_real_obs(fa):
     check_cycle_log("interpolation", da, 1, linesearch=None)
     if err is None or err.shape != (1, 204) or not np.isfinite(err).all():
         raise AssertionError("interpolation: error_obs.npy missing or not finite")
-    return launches
+    return launches, ref
 
 
 def check_osse():
@@ -1718,6 +1767,27 @@ def _free_port():
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         return sock.getsockname()[1]
+
+
+def launch_workers(flag, n, argv, timeout):
+    """n worker processes `python3 chip_smoke.py <flag> <argv...>` with
+    RANK 0..n-1 and LOCAL_RANK 0 (all on the one card), a rendezvous on a
+    free port; raises with the log of a failed one; returns the seconds."""
+    env = dict(os.environ, WORLD_SIZE=str(n), LOCAL_RANK="0", MASTER_ADDR="localhost",
+               MASTER_PORT=str(_free_port()))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), flag, *argv],
+                              env=dict(env, RANK=str(r)), stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(n)]
+    try:
+        logs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, log in zip(procs, logs):
+        if p.returncode != 0:
+            raise AssertionError(f"{flag} worker failed ({p.returncode}):\n{log[-6000:]}")
+    return time.perf_counter() - t0
 
 
 def dp_worker(d):
@@ -1829,21 +1899,7 @@ def check_dp(fa, single_step_s):
              for k in ("inp", "tar")}
     with tempfile.TemporaryDirectory() as d:
         torch.save(batch, os.path.join(d, "micro_batch.pt"))
-        env = dict(os.environ, WORLD_SIZE="2", LOCAL_RANK="0", MASTER_ADDR="localhost",
-                   MASTER_PORT=str(_free_port()))
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-worker", d],
-                                  env=dict(env, RANK=str(r)), stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True) for r in range(2)]
-        try:
-            logs = [p.communicate(timeout=600)[0] for p in procs]
-        finally:
-            for p in procs:
-                p.kill()
-        wall = time.perf_counter() - t0
-        for p, log in zip(procs, logs):
-            if p.returncode != 0:
-                raise AssertionError(f"dp worker failed ({p.returncode}):\n{log[-4000:]}")
+        wall = launch_workers("--dp-worker", 2, [d], 600)
         ranks = [json.load(open(os.path.join(d, f"rank{r}.json"))) for r in range(2)]
         micro = [torch.load(os.path.join(d, f"micro{r}.pt")) for r in range(2)]
 
@@ -1906,6 +1962,169 @@ def check_dp(fa, single_step_s):
                              f"{proc.stderr[-4000:]}")
     counts = np.sum([r["launches"] for r in ranks], axis=(0, 1))
     return dict(zip(("flash_fwd", "flash_dq", "flash_dkv"), map(int, counts)))
+
+
+# the micro cycles of the mesh phase's part (b): reduced 3D-Var and the da_win
+# 3 reduced window, f32, one cycle after a 1-step spin-up (no flash stage)
+MESH_MICRO = ["--micro", "--fast_init", "--grid", "32x64", "--solver_grid", "32x64",
+              "--init_lag", "1", "--Nit", "2", "--no-bf16", "--use_eval",
+              "--end_time", "2022-01-01 06:00:00"]
+MESH_MICRO_RUNS = {"3dvar": [], "window": ["--da_win", "3"]}
+# the full-width real-obs cycle of part (a): REAL_OBS_ARGS cut to its first cycle
+MESH_REAL_OBS = REAL_OBS_ARGS + ["--end_time", "2022-01-01 06:00:00"]
+
+
+def mesh_worker(d, argv):
+    """One rank of the mesh phase, on the one card over gloo: run_da.main
+    for each of the runs `argv` names (`--runs a,b` picks entries of
+    MESH_MICRO_RUNS; else argv is one run's flags), each with the launch
+    counts set to 0 just before and read just after; writes
+    <d>/<run>.<rank>.json."""
+    import torch
+
+    from vaevar_tpu_torch import run_da
+    from vaevar_tpu_torch.ops import flash_attn as fa
+    from vaevar_tpu_torch.parallel import mesh as pmesh
+
+    rank = pmesh.init_distributed(backend="gloo", device="cuda")
+    if argv[0] == "--runs":
+        runs = {n: MESH_MICRO + MESH_MICRO_RUNS[n] + argv[2:] for n in argv[1].split(",")}
+    else:
+        runs = {"real_obs": argv}
+    for name, flags in runs.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.flash_fwd_launches = fa.flash_dq_launches = fa.flash_dkv_launches = 0
+        t0 = time.perf_counter()
+        da = run_da.main(flags + ["--work_dir", os.path.join(d, name)])
+        torch.cuda.synchronize()
+        out = {"rank": rank, "seconds": time.perf_counter() - t0,
+               "launches": [fa.flash_fwd_launches, fa.flash_dq_launches, fa.flash_dkv_launches],
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "cycle_log": da.cycle_log, "timings": da.timings, "work_dir": da.work_dir,
+               "digests": da.lockstep_digests, "backend": torch.distributed.get_backend(),
+               "device": str(da.device)}
+        with open(os.path.join(d, f"{name}.{rank}.json"), "w") as f:
+            json.dump(out, f, default=str)
+        del da
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.distributed.destroy_process_group()
+
+
+
+
+def _rel(a, b):
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+
+
+def compare_cycles(name, got, want, out_got, out_want, tol=1e-3):
+    """A sharded cycle against the single-process one: equal iterations and
+    evals per segment, Jb and Jo per segment and the metric rows within
+    `tol` relative (tests/test_torch_da_surface.py's); prints each."""
+    errs = {"Jb": _rel(got["jb"], want["jb"]), "Jo": _rel(got["jo"], want["jo"])}
+    errs.update({k: _rel(out_got[k], out_want[k]) for k in out_want})
+    phase("mesh", f"{name}: iterations {got['n_iters']} (single {want['n_iters']}), evals "
+          f"{got['n_evals']} ({want['n_evals']}); Jb {got['jb']} ({want['jb']}); Jo {got['jo']} "
+          f"({want['jo']}); largest relative differences "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + f" (tol {tol:g})")
+    if got["n_iters"] != want["n_iters"] or got["n_evals"] != want["n_evals"] or \
+            max(errs.values()) > tol:
+        raise AssertionError(f"{name}: the sharded cycle disagrees with the single-process one")
+
+
+def check_mesh(ref):
+    """Phase 16: the spatially partitioned solve (run_da --mesh SHxSW,
+    parallel/mesh.py). (a) REAL_OBS_ARGS' first cycle as --mesh 1x2 on 2
+    ranks over gloo on the one card (nccl refuses two ranks on one device),
+    held to the real_obs phase's cycle 1 (`ref`); (b) micro --mesh 2x2 (4
+    ranks) reduced 3D-Var and da_win 3 window cycles against single-process
+    runs here; (c) run_da --mesh 1x1 through torch.distributed.run with
+    nccl. Returns the forward launches of (a), summed over the ranks."""
+    import numpy as np
+    import torch
+
+    from vaevar_tpu_torch import config as cfgs
+    from vaevar_tpu_torch import run_da
+
+    per_step = cfgs.FORECAST_025.lg_depths[0]
+    with tempfile.TemporaryDirectory() as d:
+        wall = launch_workers("--mesh-worker", 2, [d, *MESH_REAL_OBS, "--mesh", "1x2"], 900)
+        ranks = [json.load(open(os.path.join(d, f"real_obs.{r}.json"))) for r in range(2)]
+        work = ranks[0]["work_dir"]
+        outs = {k: np.load(os.path.join(work, f"{k}.npy"))[0]
+                for k in ("ana_wrmse", "bg_wrmse", "error_obs")}
+    want_launches = (8 + 1) * per_step
+    for r in ranks:
+        c = r["cycle_log"][0]
+        phase("mesh", f"(a) rank {r['rank']} on {r['device']} ({r['backend']}): --mesh 1x2 "
+              f"real_simu --use_eval, 1 cycle in {r['seconds']:.2f} s (models "
+              f"{r['timings']['models_s']:.2f} s, spin-up {r['timings']['spin_up_s']:.2f} s, cycle "
+              f"{c['seconds']:.2f} s: obs {c['obs_s']:.2f} s, solve {c['solve_s']:.2f} s); peak "
+              f"memory {r['peak_gib']:.2f} GiB (single process {ref['peak']:.2f} GiB); yo + H "
+              f"{c['obs_bytes'] / 1e9:.4f} GB on this rank (single process "
+              f"{ref['cycle']['obs_bytes'] / 1e9:.4f} GB); obs gridded {c['n_gridded']:.0f}, kept "
+              f"{c['n_kept']:.0f} ({ref['cycle']['n_gridded']:.0f}, {ref['cycle']['n_kept']:.0f}); "
+              f"flash launches (fwd, dq, dkv) {r['launches']}; lockstep digests "
+              + ", ".join(x[:12] for x in r["digests"]))
+    phase("mesh", f"(a) {wall:.1f} s with the workers' start")
+    r0, r1 = ranks
+    compare_cycles("(a) rank 0's cycle 1 against the real_obs phase's", r0["cycle_log"][0],
+                   ref["cycle"], outs, {k: ref[k] for k in outs})
+    if r0["digests"] != r1["digests"] or len(r0["digests"]) != 2:
+        raise AssertionError(f"(a) lockstep digests differ: {r0['digests']} {r1['digests']}")
+    for r in ranks:
+        c = r["cycle_log"][0]
+        if tuple(r["launches"]) != (want_launches, 0, 0):
+            raise AssertionError(f"(a) rank {r['rank']} launched {r['launches']}; want "
+                                 f"({want_launches}, 0, 0)")
+        if 2 * c["obs_bytes"] != ref["cycle"]["obs_bytes"]:
+            raise AssertionError(f"(a) rank {r['rank']} holds {c['obs_bytes']} bytes of yo + H; "
+                                 f"want half of {ref['cycle']['obs_bytes']}")
+        if (c["n_gridded"], c["n_kept"]) != (ref["cycle"]["n_gridded"], ref["cycle"]["n_kept"]):
+            raise AssertionError("(a) the ranks' obs counts do not add up to the single run's")
+    launches = sum(r["launches"][0] for r in ranks)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) micro 2x2 on 4 ranks against the single-process runs
+    with tempfile.TemporaryDirectory() as d:
+        wall = launch_workers("--mesh-worker", 4,
+                              [d, "--runs", ",".join(MESH_MICRO_RUNS), "--mesh", "2x2"], 600)
+        for name, extra in MESH_MICRO_RUNS.items():
+            ranks = [json.load(open(os.path.join(d, f"{name}.{r}.json"))) for r in range(4)]
+            single = run_da.main(MESH_MICRO + extra + ["--work_dir", os.path.join(d, "single")])
+            rows = [{k: np.load(os.path.join(w, f"{k}.npy"))[0]
+                     for k in ("ana_wrmse", "error_obs")}
+                    for w in (ranks[0]["work_dir"], single.work_dir)]
+            if len({tuple(r["digests"]) for r in ranks}) != 1:
+                raise AssertionError(f"(b) {name}: the ranks' lockstep digests differ")
+            compare_cycles(f"(b) micro {name} --mesh 2x2, rank 0 against one process",
+                           ranks[0]["cycle_log"][0], single.cycle_log[0], *rows)
+            del single
+    phase("mesh", f"(b) 4 ranks, {wall:.1f} s with the workers' start")
+
+    # (c) the CLI through torch.distributed.run, nccl, world size 1
+    with tempfile.TemporaryDirectory() as out:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+               "--nproc_per_node", "1", "--master_addr", "localhost", "--master_port",
+               str(_free_port()), "-m", "vaevar_tpu_torch.run_da", "--mesh", "1x1",
+               *MESH_MICRO, "--work_dir", out]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+        files = {f for _, _, fs in os.walk(out) for f in fs}
+    nccl = "mesh: sh 1 x sw 1, rank 0 on cuda:0 (nccl)" in proc.stdout
+    phase("mesh", f"(c) torch.distributed.run --nproc_per_node 1 run_da --mesh 1x1: exit "
+          f"{proc.returncode} in {time.perf_counter() - t0:.1f} s; nccl process group {nccl}; "
+          f"files {sorted(files)}")
+    if proc.returncode != 0 or not nccl or "xb.npy" not in files:
+        raise AssertionError(f"the nccl run_da run failed:\n{proc.stdout[-2000:]}\n"
+                             f"{proc.stderr[-4000:]}")
+    return launches
 
 
 def top_device_ops(trace, n=5):
@@ -2095,8 +2314,8 @@ def run_phases(timer):
         sc4dvar_launches = check_sc4dvar(fa)
     gc.collect()
     torch.cuda.empty_cache()
-    with timer.phase("real_obs"):
-        real_obs_launches = check_real_obs(fa)
+    with timer.phase("real_obs"), shared_builds():
+        real_obs_launches, real_obs_ref = check_real_obs(fa)
     gc.collect()
     torch.cuda.empty_cache()
     with timer.phase("osse"):
@@ -2109,6 +2328,10 @@ def run_phases(timer):
     torch.cuda.empty_cache()
     with timer.phase("dp"):
         dp_counts = check_dp(fa, step_s)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with timer.phase("mesh"):
+        mesh_launches = check_mesh(real_obs_ref)
 
     stats = {"flash_fwd": fwd, "flash_dq": bwd["flash_dq"], "flash_dkv": bwd["flash_dkv"]}
     replaces = {"flash_fwd": ("flash_fwd.cu", "vaevar_tpu/ops/pallas_attn.py:47"),
@@ -2121,7 +2344,7 @@ def run_phases(timer):
             "replaces": tpu,
             "launches": train_counts[name] + dp_counts[name] + sd_counts[name] + (
                 launches + window_launches + record_launches + vae_launches + sc4dvar_launches
-                + real_obs_launches if name == "flash_fwd" else 0),
+                + real_obs_launches + mesh_launches if name == "flash_fwd" else 0),
             "max_abs_err": stats[name]["max_abs_err"]}
         rec.update(main)
         rec["share_of_bound"] = main["bound_ms"] / main["ms"]
@@ -2195,4 +2418,6 @@ def check_main(fa):
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-worker"]:
         sys.exit(dp_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        sys.exit(mesh_worker(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

@@ -19,6 +19,20 @@ there each slot's prediction is augmented to the 4 + 5 * dim_out
 observation-level channels (ops/interp.augment_levels) before the
 innovation (da_4dvar.py:1196-1206). Both modes share each form's code: only
 the map from the control to the low-res increment differs.
+
+With a `mesh` (parallel/mesh.py::SpatialMesh, run_da --mesh SHxSW) the
+full-resolution yo, H and a full R are this rank's tiles, and xb stays
+whole. The reductions reduce each tile and sum the partial sums over the
+ranks, so the reduced bundles, and the solves on them, need no collective.
+The full-grid costs evaluate the obs term on the tile: the obs branch
+starts at `copy_to_ranks` and its Jo is summed over the ranks by
+`sum_over_ranks`, so J, its gradient and its jvp slope are every rank's,
+while Jb = 1/2 ||x||^2, outside the copy, counts once. The copy sits on the
+low-res increment (69, h, w), the decoder's (or B^1/2's) output: the model's
+backward then runs once, on the summed gradient, and rounds as it does in
+one process (two partial gradients through a bf16 decoder would round
+otherwise); the gradient crossing the ranks is (69, 128, 256) f32, 9 MB, at
+the production solver grid. `mesh=None` is the single-device code.
 """
 
 from __future__ import annotations
@@ -31,6 +45,13 @@ import torch
 from vaevar_tpu_torch import channels
 from vaevar_tpu_torch.da.dynamics import checkpointed, make_integrate, rollout_window
 from vaevar_tpu_torch.ops.interp import _nearest_idx, augment_levels, resize_nearest
+from vaevar_tpu_torch.parallel.mesh import (
+    copy_to_ranks,
+    shard,
+    sum_over_ranks,
+    sum_over_tiles,
+    tile_for,
+)
 
 
 class ObsBundle(NamedTuple):
@@ -72,49 +93,70 @@ class ReducedWindowObs(NamedTuple):
     c: torch.Tensor  # (T,)
 
 
-def _down_matrices(full_hw, low_hw, device):
+def _down_matrices(full_hw, low_hw, device, tile=None):
     """0/1 matrices (Hf, hl), (Wf, wl): Mh.T @ t @ Mw sums the full-resolution
-    cells of each solver cell."""
+    cells of each solver cell. With a `tile` (parallel/mesh.py::tile_for),
+    only the tile's rows and columns: a tile's partial sums, which add up
+    over the ranks to the whole (a solver cell may straddle two tiles)."""
     (Hf, Wf), (hl, wl) = full_hw, low_hw
-    Mh = np.eye(hl, dtype=np.float32)[_nearest_idx(Hf, hl)]
-    Mw = np.eye(wl, dtype=np.float32)[_nearest_idx(Wf, wl)]
+    hi, wi = _nearest_idx(Hf, hl), _nearest_idx(Wf, wl)
+    if tile is not None:
+        hi, wi = hi[tile.rows], wi[tile.cols]
+    Mh = np.eye(hl, dtype=np.float32)[hi]
+    Mw = np.eye(wl, dtype=np.float32)[wi]
     return torch.as_tensor(Mh, device=device), torch.as_tensor(Mw, device=device)
 
 
-def reduce_obs(bundle: ObsBundle, low_hw) -> ReducedObs:
-    """Exact reduction of (yo, H, R) onto the solver grid (da_win == 1)."""
+def reduce_obs(bundle: ObsBundle, low_hw, mesh=None) -> ReducedObs:
+    """Exact reduction of (yo, H, R) onto the solver grid (da_win == 1).
+    With a `mesh`, of this rank's tiles, summed over the ranks in one
+    all-reduce: every rank returns the whole ReducedObs."""
     xb = bundle.xb
-    Mh, Mw = _down_matrices(xb.shape[-2:], low_hw, xb.device)
+    tile = None if mesh is None else tile_for(mesh, xb.shape)
+    Mh, Mw = _down_matrices(xb.shape[-2:], low_hw, xb.device, tile)
     w = bundle.H[0] / bundle.R[0]
-    r = bundle.yo[0] - xb
+    r = bundle.yo[0] - shard(xb, mesh)
 
     def down(t):
         return Mh.T @ (t @ Mw)
 
-    return ReducedObs(xb=xb, a=down(w), b=down(w * r), c=torch.sum(w * r * r))
+    a, b, c = down(w), down(w * r), torch.sum(w * r * r)
+    if mesh is not None:
+        a, b, c = sum_over_tiles(tile, a, b, c)
+    return ReducedObs(xb=xb, a=a, b=b, c=c)
 
 
-def reduce_obs_window(bundle: ObsBundle, low_hw) -> ReducedWindowObs:
+def reduce_obs_window(bundle: ObsBundle, low_hw, mesh=None) -> ReducedWindowObs:
     """Exact per-slot reduction of (yo, H, R) onto the solver grid (see
     ReducedWindowObs). One slot at a time, so the transients are (69, H, W)
-    fields, not (T, 69, H, W) ones."""
+    fields, not (T, 69, H, W) ones. With a `mesh`, of this rank's tiles:
+    per slot a_t and the numerator of ybar_t are summed over the ranks
+    before ybar_t is formed, then every slot's c_t, each rank's from its
+    tile of up(ybar_t)."""
     xb = bundle.xb
     full_hw = tuple(xb.shape[-2:])
-    Mh, Mw = _down_matrices(full_hw, low_hw, xb.device)
+    tile = None if mesh is None else tile_for(mesh, xb.shape)
+    Mh, Mw = _down_matrices(full_hw, low_hw, xb.device, tile)
     R = bundle.R.expand(bundle.H.shape[0], *bundle.R.shape[1:])
     a, ybar, c = [], [], []
     for t in range(bundle.H.shape[0]):
         w = bundle.H[t] / R[t]
-        tgt = bundle.yo[t] - xb if t == 0 else bundle.yo[t]
+        tgt = bundle.yo[t] - shard(xb, mesh) if t == 0 else bundle.yo[t]
         a_t = Mh.T @ (w @ Mw)
+        num_t = Mh.T @ ((w * tgt) @ Mw)
+        if mesh is not None:
+            a_t, num_t = sum_over_tiles(tile, a_t, num_t)
         pos = a_t > 0
-        yb_t = torch.where(pos, (Mh.T @ ((w * tgt) @ Mw)) / torch.where(pos, a_t, 1.0), 0.0)
-        dev = tgt - resize_nearest(yb_t, full_hw)
+        yb_t = torch.where(pos, num_t / torch.where(pos, a_t, 1.0), 0.0)
+        dev = tgt - resize_nearest(yb_t, full_hw, tile)
         a.append(a_t)
         ybar.append(yb_t)
         c.append(torch.sum(w * dev * dev))
+    c = torch.stack(c)
+    if mesh is not None:
+        (c,) = sum_over_tiles(tile, c)
     return ReducedWindowObs(xb=xb, xb_low=resize_nearest(xb, low_hw), a=torch.stack(a),
-                            ybar=torch.stack(ybar), c=torch.stack(c))
+                            ybar=torch.stack(ybar), c=c)
 
 
 def _resample_gather(n_full: int, n_low: int) -> np.ndarray:
@@ -232,12 +274,15 @@ def make_sc4dvar_cost_window_reduced(increment: Callable, flow=None, da_win: int
     return _window_reduced_cost(increment, flow, da_win, obs_coeff, step_checkpoint)
 
 
-def obs_term(x_pred, bundle: ObsBundle, interp_matrix=None):
+def obs_term(x_pred, bundle: ObsBundle, interp_matrix=None, mesh=None):
     """1/2 sum H (x_pred - yo)^2 / R, with x_pred first augmented to the
-    observation levels when `interp_matrix` is given."""
+    observation levels when `interp_matrix` is given. With a `mesh`, x_pred
+    and the bundle's obs fields are this rank's tiles, and the sum runs
+    over every rank's tile (`sum_over_ranks`)."""
     if interp_matrix is not None:
         x_pred = augment_levels(x_pred, interp_matrix)
-    return 0.5 * torch.sum(bundle.H * (x_pred - bundle.yo) ** 2 / bundle.R)
+    jo = 0.5 * torch.sum(bundle.H * (x_pred - bundle.yo) ** 2 / bundle.R)
+    return jo if mesh is None else sum_over_ranks(jo, tile_for(mesh, bundle.xb.shape))
 
 
 def _window_predict(x0, flow, flow_hw, da_win: int):
@@ -249,20 +294,24 @@ def _window_predict(x0, flow, flow_hw, da_win: int):
     return rollout_window(x0, lambda x: integrate(x, 1, interpolation=True), da_win)
 
 
-def _make_window_obs(flow, flow_hw, da_win: int, interp_matrix=None):
+def _make_window_obs(flow, flow_hw, da_win: int, interp_matrix=None, mesh=None):
     """Jo accumulated inside the rollout, one checkpoint per step, so the
     live set is one slot (the reference's folded form). With real obs
     (`interp_matrix`) each slot's prediction is augmented to the observation
     levels inside the step, so the backward recomputes the augmentation
-    with the flow step (da_4dvar.py:1196-1206)."""
+    with the flow step (da_4dvar.py:1196-1206). With a `mesh` the bundle's
+    obs fields are tiles, and so is x0 without a rollout: with one, the
+    rollout runs on whole states and each slot reads the tile of its state.
+    The window's Jo is summed over the ranks."""
+    rollout = da_win > 1 and flow is not None
 
     def jo_slot(x, yo_t, h_t, r_t):
-        p = x[None]
+        p = (shard(x, mesh) if rollout else x)[None]
         if interp_matrix is not None:
             p = augment_levels(p, interp_matrix)
         return 0.5 * torch.sum(h_t * (p[0] - yo_t) ** 2 / r_t)
 
-    if da_win > 1 and flow is not None:
+    if rollout:
         integrate = make_integrate(flow, flow_hw)
 
         @checkpointed
@@ -273,52 +322,70 @@ def _make_window_obs(flow, flow_hw, da_win: int, interp_matrix=None):
     def window_obs(x0, bundle: ObsBundle):
         if flow is None and da_win > 1:
             # persistence: x0 scored against every slot
-            return obs_term(x0[None], bundle, interp_matrix)
+            return obs_term(x0[None], bundle, interp_matrix, mesh)
         R = bundle.R.expand(bundle.yo.shape[0], *bundle.R.shape[1:])
         jo = jo_slot(x0, bundle.yo[0], bundle.H[0], R[0])
         x = x0
         for t in range(1, da_win):
             x, jo_t = step(x, bundle.yo[t], bundle.H[t], R[t])
             jo = jo + jo_t
-        return jo
+        return jo if mesh is None else sum_over_ranks(jo, tile_for(mesh, bundle.xb.shape))
 
     return window_obs
 
 
-def _full_cost(to_state, flow, flow_hw, da_win, obs_coeff, interp_matrix=None):
+def _full_cost(to_state, flow, flow_hw, da_win, obs_coeff, interp_matrix=None, mesh=None,
+               increment=None):
     """(cost, to_state, cost_parts) on a full-resolution ObsBundle for
-    (x, bundle) -> the state on xb's grid."""
-    window_obs = _make_window_obs(flow, flow_hw, da_win, interp_matrix)
+    (x, bundle) -> the state on xb's grid. With a `mesh`, the obs branch
+    starts at copy_to_ranks(increment(x)), and without a rollout it reads
+    the tile of the state alone, tile(xb) + up(e) on the tile: the tile of
+    to_state bit for bit (cvt.CVTransform adds the same two terms)."""
+    window_obs = _make_window_obs(flow, flow_hw, da_win, interp_matrix, mesh)
+
+    def obs_state(x, bundle: ObsBundle):
+        if mesh is None:
+            return to_state(x, bundle)
+        e = copy_to_ranks(increment(x))
+        hw = bundle.xb.shape[-2:]
+        if da_win > 1 and flow is not None:
+            return bundle.xb + resize_nearest(e, hw)
+        tile = tile_for(mesh, bundle.xb.shape)
+        return bundle.xb[..., tile.rows, tile.cols] + resize_nearest(e, hw, tile)
 
     def cost(x, bundle: ObsBundle):
-        return 0.5 * torch.sum(x ** 2) + obs_coeff * window_obs(to_state(x, bundle), bundle)
+        return 0.5 * torch.sum(x ** 2) + obs_coeff * window_obs(obs_state(x, bundle), bundle)
 
     def cost_parts(x, bundle: ObsBundle):
-        return 0.5 * torch.sum(x ** 2), window_obs(to_state(x, bundle), bundle)
+        return 0.5 * torch.sum(x ** 2), window_obs(obs_state(x, bundle), bundle)
 
     return cost, to_state, cost_parts
 
 
 def make_vae4dvar_cost(decoder, flow=None, flow_hw=(128, 256), da_win: int = 1,
-                       obs_coeff: float = 1.0, interp_matrix=None, err_std=None):
+                       obs_coeff: float = 1.0, interp_matrix=None, err_std=None, mesh=None):
     """(cost, decode_to_state, cost_parts) on a full-resolution ObsBundle.
 
     decoder(z) -> (1, 69, h', w') is nearest-upsampled to xb's grid, scaled
     by err_std * model_std and added to xb (da_4dvar.py:1185-1188). With
     `interp_matrix` (dim_out, 13) the obs are real obs on the 4 + 5 * dim_out
     augmented channels: the only form for them, as QC'd level-augmented
-    innovations do not reduce onto the solver grid."""
-    return _full_cost(_state_fn(_increment_fn(decoder, err_std)), flow, flow_hw, da_win,
-                      obs_coeff, interp_matrix)
+    innovations do not reduce onto the solver grid. `mesh`: see the module
+    docstring."""
+    increment = _increment_fn(decoder, err_std)
+    return _full_cost(_state_fn(increment), flow, flow_hw, da_win, obs_coeff, interp_matrix,
+                      mesh, increment)
 
 
 def make_sc4dvar_cost(transform: Callable, flow=None, flow_hw=(128, 256), da_win: int = 1,
-                      obs_coeff: float = 1.0, interp_matrix=None):
+                      obs_coeff: float = 1.0, interp_matrix=None, mesh=None):
     """(cost, to_state, cost_parts) on a full-resolution ObsBundle, with the
     state transform(w, xb) = xb + up(B^1/2 w) (cvt.CVTransform); the form
-    of a window without a flow model and of real obs (`interp_matrix`)."""
+    of a window without a flow model and of real obs (`interp_matrix`).
+    With a `mesh`, the tiles are computed from `transform.increment`."""
     return _full_cost(lambda w, bundle: transform(w, bundle.xb), flow, flow_hw, da_win,
-                      obs_coeff, interp_matrix)
+                      obs_coeff, interp_matrix, mesh,
+                      None if mesh is None else transform.increment)
 
 
 def _reduced_cost(increment, obs_coeff):

@@ -23,6 +23,15 @@ field dumps and a multi-step forecast score, and a restartable on-disk state
 cycle's obs are prepared on one worker thread under the current solve, on a
 CUDA stream of its own; it changes no number. The forecast model runs under
 torch.no_grad(): no cost differentiates through the advance.
+
+With a `mesh` (parallel/mesh.py::SpatialMesh, run_da --mesh SHxSW) each rank
+prepares and holds only its tile of the full-resolution obs fields (yo, H,
+the eval mask; the prefetch worker too, which runs no collective), while
+the models, the states, the truth and the analysis are whole on every rank;
+the reductions, the costs and the obs-space error sum over the ranks, so
+every rank computes the same cycle. Rank 0 alone writes the work dir; each
+cycle the ranks compare digests of the control and the analysis, and of the
+state they start from, and raise on a mismatch.
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ from vaevar_tpu_torch.da import cost as cost_mod
 from vaevar_tpu_torch.da import obs as obs_mod
 from vaevar_tpu_torch.da.solver import SolveDiagnostics, VariationalSolver
 from vaevar_tpu_torch.ops.interp import augment_levels, obs_level_interp_matrix
+from vaevar_tpu_torch.parallel import mesh as pmesh
 from vaevar_tpu_torch.utils import metrics as M
 
 CYCLE = timedelta(hours=6)
@@ -118,6 +128,8 @@ class CycledDA:
     # thread under the current solve (on a CUDA device on its own stream);
     # one worker keeps the synthetic masks' draws in cycle order, so the
     # numbers are those of the serial loop (prefetch_obs=False)
+    mesh: object = None  # parallel/mesh.SpatialMesh of a sharded solve: the
+    # obs fields tiled over its ranks, everything else whole on each
     metrics_list: dict = field(default_factory=lambda: {k: [] for k in _METRIC_KEYS})
 
     def __post_init__(self):
@@ -140,7 +152,9 @@ class CycledDA:
                                  "(LocalReportsStore/SyntheticReports)")
         if self.is_real_obs and self.reports_source is None and not self.obs_from_numpy:
             raise ValueError("obs_type=real* needs a reports_source or obs_from_numpy")
-        os.makedirs(self.work_dir, exist_ok=True)
+        self._writes = self.mesh is None or self.mesh.rank == 0
+        if self._writes:
+            os.makedirs(self.work_dir, exist_ok=True)
         self._rng = np.random.default_rng(self.seed)
         q = obs_mod.load_q_matrix(self.coeff_dir or self.mask_dir or ".", cfg.q_type,
                                   cfg.da_win) if cfg.da_win > 1 else None
@@ -176,6 +190,7 @@ class CycledDA:
         # last cycle the loop took
         self.timings = {"spin_up_s": None, "cycle_s": []}
         self.cycle_log: list[dict] = []
+        self.lockstep_digests: list[str] = []  # under a mesh, each one checked
         self.last_obs_info: dict = {}
 
     @property
@@ -210,27 +225,43 @@ class CycledDA:
                 cost_mod.make_sc4dvar_cost_reduced(self.cvt.increment, cfg.obs_coeff) if sc
                 else cost_mod.make_vae4dvar_cost_reduced(self.decoder, cfg.obs_coeff,
                                                          err_std=self.err_std))
-            self._reduce_obs = cost_mod.reduce_obs
+            self._reduce_obs = functools.partial(cost_mod.reduce_obs, mesh=self.mesh)
         elif self._reducible:  # da_win > 1
             make = (cost_mod.make_sc4dvar_cost_window_reduced if sc else functools.partial(
                 cost_mod.make_vae4dvar_cost_window_reduced, err_std=self.err_std))
             c, to_state, parts = make(
                 self.cvt.increment if sc else self.decoder, self.flow, da_win=cfg.da_win,
                 obs_coeff=cfg.obs_coeff, step_checkpoint=cfg.window_step_checkpoint)
-            self._reduce_obs = cost_mod.reduce_obs_window
+            self._reduce_obs = functools.partial(cost_mod.reduce_obs_window, mesh=self.mesh)
         else:
             make = cost_mod.make_sc4dvar_cost if sc else functools.partial(
                 cost_mod.make_vae4dvar_cost, err_std=self.err_std)
             c, to_state, parts = make(
                 self.cvt if sc else self.decoder, self.flow, flow_hw=cfg.solver_hw,
-                da_win=cfg.da_win, obs_coeff=cfg.obs_coeff, interp_matrix=self._interp)
+                da_win=cfg.da_win, obs_coeff=cfg.obs_coeff, interp_matrix=self._interp,
+                mesh=self.mesh)
         return VariationalSolver(
             c, to_state, parts, lbfgs_iters=min(cfg.lbfgs_iters, 5) if sc else cfg.lbfgs_iters,
             history=cfg.lbfgs_history, max_segment_evals=cfg.lbfgs_max_evals,
-            linesearch=cfg.lbfgs_linesearch)
+            linesearch=cfg.lbfgs_linesearch, mesh=self.mesh)
 
-    def _dev(self, a):
+    def _dev(self, a, tile: bool = False):
+        """a as an f32 tensor on the device; with `tile`, only this rank's
+        tile of a full-resolution field crosses to the device."""
+        if tile:
+            a = pmesh.shard(np.asarray(a), self.mesh, self.cfg.grid_hw)
         return torch.as_tensor(np.asarray(a), dtype=torch.float32, device=self.device)
+
+    def _host(self, x):
+        """A device field on the host, whole (a tile all-gathered: every rank
+        calls this)."""
+        return pmesh.host_value(x, self.mesh, self.cfg.grid_hw)
+
+    def _check_lockstep(self, *xs):
+        """Under a mesh, every rank's digest of xs must be rank 0's, or this
+        raises: the ranks compute the same cycle bit for bit."""
+        if self.mesh is not None:
+            self.lockstep_digests.append(pmesh.check_replicas(pmesh.digest(*xs)))
 
     def _sync(self):
         """Wait for the work queued on this thread's current stream: the
@@ -263,7 +294,7 @@ class CycledDA:
     def save_eval_result(self, consolidate: bool = False):
         """Append new metric entries to metrics_log.jsonl; with
         `consolidate`, write the reference-format .npy dumps and truncate
-        the log."""
+        the log (rank 0 alone under a mesh)."""
         new = []
         for k, v in self.metrics_list.items():
             for i in range(self._flushed.get(k, 0), len(v)):
@@ -271,6 +302,8 @@ class CycledDA:
                 new.append({"k": k, "i": i,
                             "v": val.tolist() if hasattr(val, "tolist") else val})
             self._flushed[k] = len(v)
+        if not self._writes:
+            return
         if new:
             with open(os.path.join(self.work_dir, "metrics_log.jsonl"), "a") as f:
                 for e in new:
@@ -286,6 +319,8 @@ class CycledDA:
         open(os.path.join(self.work_dir, "metrics_log.jsonl"), "w").close()
 
     def save_ckpt(self, current_time, xb):
+        if not self._writes:
+            return
         np.save(os.path.join(self.work_dir, "xb.npy"), xb.detach().cpu().numpy())
         with open(os.path.join(self.work_dir, "current_time.txt"), "w") as f:
             f.write(str(current_time))
@@ -352,10 +387,10 @@ class CycledDA:
                     reports.append(self.reports_source.get_reports(current_time + CYCLE))
                 yo, H = obs_mod.grid_real_obs(reports, cfg.da_win, cfg.interp_dim, cfg.grid_hw)
             t2 = time.perf_counter()
-            gt_d, yo, H = self._dev(gt), self._dev(yo), self._dev(H)
+            gt_d, yo, H = self._dev(gt), self._dev(yo, tile=True), self._dev(H, tile=True)
             del gt
             n_gridded = float(H.sum())
-            gt_aug = augment_levels(gt_d, self._interp)
+            gt_aug = augment_levels(pmesh.shard(gt_d, self.mesh), self._interp)
             H = obs_mod.qc_filter(yo, gt_aug, H, cfg.filter_coeff, cfg.obs_type,
                                   self._std_aug)
             if cfg.obs_type.startswith("real_simuz"):
@@ -383,7 +418,7 @@ class CycledDA:
             H = obs_mod.make_obs_mask(cfg.obs_type, cfg.da_win, cfg.grid_hw, self._rng,
                                       self.mask_dir)
         gt_d = self._dev(gt)
-        return gt_d, self._dev(H), self._dev(self.R), gt_d
+        return pmesh.shard(gt_d, self.mesh), self._dev(H, tile=True), self._dev(self.R), gt_d
 
     def _score(self, prefix, x, gt0):
         wrmse, bias, mse = score(x, gt0)
@@ -394,17 +429,23 @@ class CycledDA:
 
     def _mask_eval_dev(self):
         if self._mask_eval_t is None:
-            self._mask_eval_t = self._dev(self.mask_eval)
+            self._mask_eval_t = self._dev(self.mask_eval, tile=True)
         return self._mask_eval_t
 
     @torch.no_grad()
     def _obs_holdout_error(self, xa, yo0, H_old0):
         """Obs-space RMSE per channel on the held-out cells
-        (da_4dvar.py:1285-1287), the analysis augmented for real obs."""
+        (da_4dvar.py:1285-1287), the analysis augmented for real obs. Under
+        a mesh, on this rank's tile, the numerator and the denominator
+        summed over the ranks."""
+        xa = pmesh.shard(xa, self.mesh)
         xhat = augment_levels(xa[None], self._interp)[0] if self.is_real_obs else xa
         w = self._mask_eval_dev() * H_old0
         num = torch.sum((xhat - yo0) ** 2 * w, dim=(1, 2))
-        den = torch.clamp(torch.sum(w, dim=(1, 2)), min=1e-10)
+        den = torch.sum(w, dim=(1, 2))
+        if self.mesh is not None:
+            num, den = pmesh.sum_over_tiles(pmesh.tile_for(self.mesh, xa.shape), num, den)
+        den = torch.clamp(den, min=1e-10)
         return torch.sqrt(num / den).cpu().numpy()
 
     def one_step_da(self, gt, xb, yo, H, R):
@@ -418,12 +459,13 @@ class CycledDA:
                   flush=True)
         t0 = time.perf_counter()
         self.last_reduce_s = 0.0
+        z = None  # the solve's control
         if cfg.da_mode == "free_run":
             xa = baselines.free_run_analysis(xb)
             diag = SolveDiagnostics()
         elif cfg.da_mode == "interpolation":
             xa = self._dev(baselines.interpolation_analysis(
-                xb.cpu().numpy(), yo[0].cpu().numpy(), H[0].cpu().numpy(),
+                xb.cpu().numpy(), self._host(yo[0]), self._host(H[0]),
                 real_obs=self.is_real_obs, dim_out=cfg.interp_dim))
             diag = SolveDiagnostics(seconds=time.perf_counter() - t0)
         else:
@@ -435,10 +477,11 @@ class CycledDA:
             shape = ((channels.N_CHANNELS, *cfg.solver_hw) if cfg.da_mode == "sc4dvar"
                      else cfg.latent_shape)
             x0 = torch.zeros(shape, dtype=torch.float32, device=self.device)
-            _, xa, diag = self._solver.solve(x0, bundle, nit=cfg.nit, gt=gt,
+            z, xa, diag = self._solver.solve(x0, bundle, nit=cfg.nit, gt=gt,
                                              verbose=self.verbose, name=cfg.da_mode)
             del bundle
         self.last_diag = diag
+        self._check_lockstep(*[t for t in (z, xa) if t is not None])
         if cfg.use_eval:
             self.metrics_list["error_obs"].append(self._obs_holdout_error(xa, yo[0], H_old[0]))
         w_ana = self._score("ana", xa, gt[0])
@@ -450,13 +493,16 @@ class CycledDA:
     def _save_intermediate(self, current_time, xb, xa, gt, yo):
         """Optional per-cycle field dumps (da_4dvar.py:713-722; the reference
         writes the truth and obs under intermediate/ground_truth, here
-        everything lands in work_dir)."""
+        everything lands in work_dir). The obs tiles are gathered on every
+        rank; rank 0 writes."""
         stamp = str(current_time).replace(" ", "_")
         dumps = {"xb": (self.save_field, xb), "xa": (self.save_field, xa),
                  "gt": (self.save_gt, gt), "obs": (self.save_obs, yo)}
         for name, (on, x) in dumps.items():
             if on:
-                np.save(os.path.join(self.work_dir, f"{name}_{stamp}"), x.detach().cpu().numpy())
+                x = self._host(x)
+                if self._writes:
+                    np.save(os.path.join(self.work_dir, f"{name}_{stamp}"), x)
 
     def _forecast_eval(self, xa, current_time):
         """Multi-step forecast WRMSE from the analysis: per lead a (69,)
@@ -530,6 +576,9 @@ class CycledDA:
         prefetch) and the seconds the loop waited for it (`obs_wait_s`)."""
         start_time, end_time = parse_time(start_time), parse_time(end_time)
         current_time, xb = self.get_current_states(start_time)
+        # every rank starts from the same state (the spin-up, or the file),
+        # before rank 0 writes anything
+        self._check_lockstep(xb, torch.tensor(current_time.timestamp(), dtype=torch.float64))
         epoch = 0
         pool = (ThreadPoolExecutor(max_workers=1, thread_name_prefix="obs-prefetch")
                 if self.prefetch_obs else None)
@@ -550,8 +599,14 @@ class CycledDA:
                 obs_wait_s = time.perf_counter() - t0
                 yo, H, R, gt = obs
                 del obs
+                keys = [k for k in ("n_gridded", "n_kept") if k in info]
+                if self.mesh is not None and keys:  # the obs counts of every rank's tile
+                    counts = torch.tensor([info[k] for k in keys], dtype=torch.float64)
+                    (counts,) = pmesh.sum_over_tiles(pmesh.tile_for(self.mesh, gt.shape), counts)
+                    info.update(zip(keys, counts.tolist()))
                 self.last_obs_info = info
                 checksum = self._checksum(yo, H, gt)
+                obs_bytes = sum(t.numel() * t.element_size() for t in (yo, H))
                 nxt = current_time + CYCLE
                 submit_next = pool is not None and nxt + CYCLE <= end_time
                 fut = None
@@ -579,6 +634,7 @@ class CycledDA:
                 self.cycle_log.append({
                     "time": str(current_time), "seconds": secs, "obs_s": obs_s,
                     "obs_wait_s": obs_wait_s, **info, "obs_checksum": checksum,
+                    "obs_bytes": obs_bytes,
                     "reduce_s": self.last_reduce_s, "solve_s": d.seconds,
                     "jb": list(d.loss_reg), "jo": list(d.loss_obs),
                     "linesearch": d.linesearch, "n_iters": list(d.n_iters),

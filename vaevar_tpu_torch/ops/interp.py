@@ -28,15 +28,19 @@ def _nearest_idx(n_out: int, n_in: int) -> np.ndarray:
     return np.minimum((np.arange(n_out) * n_in) // n_out, n_in - 1).astype(np.int64)
 
 
-def resize_nearest(x, out_hw):
-    """Nearest resize on the last two axes of x (..., H, W)."""
+def resize_nearest(x, out_hw, tile=None):
+    """Nearest resize on the last two axes of x (..., H, W). With a `tile`
+    of the output grid (parallel/mesh.py::tile_for), only the tile's rows
+    and columns of the output: the slice of the whole output, bit for bit."""
     H, W = x.shape[-2], x.shape[-1]
     oh, ow = out_hw
     if (oh, ow) == (H, W):
-        return x
-    hi = torch.as_tensor(_nearest_idx(oh, H), device=x.device)
-    wi = torch.as_tensor(_nearest_idx(ow, W), device=x.device)
-    return x.index_select(-2, hi).index_select(-1, wi)
+        return x if tile is None else x[..., tile.rows, tile.cols]
+    hi, wi = _nearest_idx(oh, H), _nearest_idx(ow, W)
+    if tile is not None:
+        hi, wi = hi[tile.rows], wi[tile.cols]
+    return (x.index_select(-2, torch.as_tensor(hi, device=x.device))
+            .index_select(-1, torch.as_tensor(wi, device=x.device)))
 
 
 def _bilinear_weights(n_in: int, n_out: int) -> np.ndarray:

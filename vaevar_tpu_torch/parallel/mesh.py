@@ -1,5 +1,5 @@
-"""Data-parallel process groups: the port of vaevar_tpu/parallel/mesh.py's dp
-surface, on torch.distributed.
+"""Process groups and meshes: the port of vaevar_tpu/parallel/mesh.py's dp
+and spatial (sh, sw) surfaces, on torch.distributed.
 
 The reference's only parallel strategy is DDP over NCCL, one process per GPU
 (utils/misc.py:296-369); the JAX package rebuilt it as a "dp" mesh axis. Here
@@ -9,18 +9,35 @@ the reference's SLURM_NTASKS / SLURM_PROCID), `mesh_from_arg` turns the CLI's
 `--mesh DP` into a `DPMesh` whose rank owns `cuda:LOCAL_RANK` (or the CPU),
 and the trainers wrap their models in DistributedDataParallel on it. A dp=N
 run computes what a dp=1 run computes on the global batch, the ranks' local
-batches in rank order (`global_batch`). The spatial "sh"/"sw" axes
-(`--mesh DPxSHxSW`) are ROADMAP A.13b.
+batches in rank order (`global_batch`). The trainers' spatial axes
+(`--mesh DPxSHxSW`) are ROADMAP A.13b's training part.
 
-Nothing falls back: `--mesh N` in a run that was not launched as N processes
-raises, and a failed NCCL init is an error, never a gloo one.
+run_da's `--mesh SHxSW` is the spatially partitioned solve
+(`spatial_mesh_from_arg`, a `SpatialMesh`): SH x SW processes, one per
+device, each holding its tile of the full-resolution observation fields,
+tiled by the JAX package's own rule (`state_spec_for`, `tile_for`: an axis
+goes only on a dim it divides, never an uneven tile). Where JAX's GSPMD
+partitions every array, the port partitions only those fields: the models,
+the control variable, the background, the truth and the analysis stay whole
+on every rank (`replicate`), and the ranks stay in lockstep because every
+value the solver reads from the tiles is summed over the ranks first
+(`all_sum`, `sum_over_tiles`, and the Megatron-style pair `copy_to_ranks` /
+`sum_over_ranks` inside a cost). `host_value` all-gathers a tiled field.
+
+Nothing falls back: `--mesh N` (or SHxSW) in a run that was not launched as
+that many processes raises, and a failed NCCL init is an error, never a
+gloo one. Collectives stage their tensors through the host under gloo
+(`_collective_device`), which takes CPU tensors.
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
+from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -53,7 +70,9 @@ def init_distributed(backend: str | None = None, device: str = "cuda") -> int:
     process without them is a single-process run, and this is a no-op. The
     backend is nccl for `device` cuda and gloo for cpu unless `backend`
     says otherwise. Idempotent: a second call with the same world returns
-    the rank; one with a different world raises."""
+    the rank, as does one that names no backend in a group already up (a
+    caller that set up gloo on a card, then run_da's own call); one with a
+    different world raises."""
     world_size, rank, local_rank, launched = _launch_env()
     if not launched and world_size == 1:
         return process_index()
@@ -61,9 +80,11 @@ def init_distributed(backend: str | None = None, device: str = "cuda") -> int:
         raise RuntimeError(
             f"WORLD_SIZE/SLURM_NTASKS says {world_size} processes but MASTER_ADDR and "
             "MASTER_PORT are not set: launch with torch.distributed.run (torchrun)")
+    first = _distributed_initialized[0]
+    if backend is None and first is not None:
+        backend = first[2]
     backend = backend or ("nccl" if torch.device(device).type == "cuda" else "gloo")
     world = (world_size, rank, backend)
-    first = _distributed_initialized[0]
     if first is None:
         if torch.device(device).type == "cuda":
             torch.cuda.set_device(local_rank)
@@ -116,15 +137,24 @@ def mesh_from_arg(arg: str, device: str = "cuda") -> DPMesh:
     if len(dims) != 1 or dims[0] < 1:
         raise ValueError(f"--mesh must be 'DP' or 'DPxSHxSW', got {arg!r}")
     world = process_count()
-    if dims[0] != world:
+    _check_world(arg, dims[0])
+    return DPMesh(dp=dims[0], rank=process_index(), device=_rank_device(device))
+
+
+def _check_world(arg, n):
+    world = process_count()
+    if n != world:
         raise RuntimeError(
-            f"--mesh {dims[0]} needs {dims[0]} processes, one per device, launched with "
-            f"`python -m torch.distributed.run --nproc_per_node {dims[0]}`; this run has "
-            f"{world}")
+            f"--mesh {arg} needs {n} processes, one per device, launched with "
+            f"`python -m torch.distributed.run --nproc_per_node {n}`; this run has {world}")
+
+
+def _rank_device(device):
+    """This rank's device: cuda:LOCAL_RANK for `device` cuda, else the CPU."""
     dev = torch.device(device)
     if dev.type == "cuda":
         dev = torch.device("cuda", _launch_env()[2] if dist.is_initialized() else dev.index or 0)
-    return DPMesh(dp=dims[0], rank=process_index(), device=dev)
+    return dev
 
 
 def _collective_device():
@@ -134,14 +164,23 @@ def _collective_device():
     return torch.device("cpu")
 
 
-def all_reduce(t: torch.Tensor) -> torch.Tensor:
+def all_sum(t: torch.Tensor) -> torch.Tensor:
     """The sum of `t` over the process group, on t's device (`t` itself
-    when no process group is up)."""
+    when no process group is up). Every rank receives the same bits."""
     if not dist.is_initialized():
         return t
     c = t.detach().to(_collective_device(), copy=True)
     dist.all_reduce(c)
     return c.to(t.device)
+
+
+def _all_gather(t: torch.Tensor) -> list:
+    """Every rank's `t` (equal shapes), in rank order, on the collective
+    device."""
+    t = t.detach().to(_collective_device()).contiguous()
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, t)
+    return parts
 
 
 def global_batch(local: torch.Tensor) -> torch.Tensor:
@@ -151,21 +190,231 @@ def global_batch(local: torch.Tensor) -> torch.Tensor:
     itself when no process group is up."""
     if not dist.is_initialized() or dist.get_world_size() == 1:
         return local
-    dev = _collective_device()
-    t = local.detach().to(dev).contiguous()
-    parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
-    dist.all_gather(parts, t)
-    return torch.cat(parts).to(local.device)
+    return torch.cat(_all_gather(local)).to(local.device)
 
 
-def check_replicas(checksum: float) -> float:
+def check_replicas(checksum):
     """The reference's check_ddp_consistency (utils/misc.py:408-420): every
-    rank's parameter checksum must equal rank 0's bit for bit, or this
-    raises; returns the checksum."""
+    rank's checksum (a number, or a digest string) must equal rank 0's bit
+    for bit, or this raises; returns the checksum."""
     if not dist.is_initialized() or dist.get_world_size() == 1:
         return checksum
     got = [None] * dist.get_world_size()
-    dist.all_gather_object(got, float(checksum))
+    dist.all_gather_object(got, checksum)
     if any(g != got[0] for g in got):
-        raise RuntimeError(f"replicas drifted apart: parameter checksums per rank {got}")
+        raise RuntimeError(f"replicas drifted apart: checksums per rank {got}")
     return checksum
+
+
+def digest(*tensors) -> str:
+    """sha256 of the tensors' bytes in C order: equal exactly when the
+    tensors are equal bit for bit (the ranks' lockstep check)."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+# --- the spatial mesh of run_da --mesh SHxSW ----------------------------------
+
+
+@dataclass(frozen=True)
+class SpatialMesh:
+    """run_da's `--mesh SHxSW`: sh x sw processes laid out as the JAX
+    package's `make_mesh` lays out its devices (row-major), so rank r sits
+    at (r // sw, r % sw); this one is `rank`, its tensors on `device`."""
+
+    sh: int
+    sw: int
+    rank: int = 0
+    device: torch.device = torch.device("cpu")
+
+    @property
+    def axes(self) -> dict:
+        return {"sh": self.sh, "sw": self.sw}
+
+    @property
+    def coords(self) -> dict:
+        i, j = divmod(self.rank, self.sw)
+        return {"sh": i, "sw": j}
+
+
+class Tile(NamedTuple):
+    """A rank's tile of a (..., H, W) field: its rows and columns, and
+    whether its sums count (`primary`: where the rule leaves an axis
+    unused, the ranks along it hold the same tile, and only the first adds
+    its partial sums)."""
+
+    rows: slice
+    cols: slice
+    primary: bool
+
+
+def state_spec_for(mesh: SpatialMesh, shape) -> tuple:
+    """The JAX package's `state_spec_for` (vaevar_tpu/parallel/mesh.py:
+    107-133) on a SpatialMesh, as the tuple of PartitionSpec entries: a
+    mesh axis goes only on a dim it evenly divides; where lat cannot take
+    sh but lon divides sh * sw (721 = 7 x 103 rows at 0.25 deg), both axes
+    go on lon, and the transposed case likewise; an axis that fits nowhere
+    is dropped (its ranks hold equal tiles)."""
+    nsh = mesh.axes
+    h, w = shape[-2], shape[-1]
+    lead = [None] * (len(shape) - 2)
+    sh_ok = h % nsh["sh"] == 0
+    sw_ok = w % nsh["sw"] == 0
+    if sh_ok and sw_ok:
+        return (*lead, "sh", "sw")
+    if not sh_ok and w % (nsh["sh"] * nsh["sw"]) == 0:
+        return (*lead, None, ("sh", "sw"))
+    if not sw_ok and h % (nsh["sh"] * nsh["sw"]) == 0:
+        return (*lead, ("sh", "sw"), None)
+    return (*lead, "sh" if sh_ok else None, "sw" if sw_ok else None)
+
+
+def tile_for(mesh: SpatialMesh, shape) -> Tile:
+    """This rank's tile of a (..., H, W) field under `state_spec_for`: what
+    JAX's NamedSharding places on the rank's device (`shard_shape` and
+    `devices_indices_map` semantics; a dim over ("sh", "sw") is split sh *
+    sw ways, sh major)."""
+    used, bounds = set(), []
+    for n, entry in zip(shape[-2:], state_spec_for(mesh, shape)[-2:]):
+        names = () if entry is None else (entry,) if isinstance(entry, str) else entry
+        used.update(names)
+        idx, parts = 0, 1
+        for a in names:
+            idx, parts = idx * mesh.axes[a] + mesh.coords[a], parts * mesh.axes[a]
+        size = n // parts
+        bounds.append(slice(idx * size, (idx + 1) * size))
+    primary = all(mesh.coords[a] == 0 for a in ("sh", "sw") if a not in used)
+    return Tile(*bounds, primary)
+
+
+def is_full(x) -> bool:
+    """Whether x is a (..., H, W) field that tiles: the JAX solver's rule
+    (vaevar_tpu/da/solver.py:392-397), both of the last two dims > 1;
+    broadcastables such as a per-channel R (T, C, 1, 1) are replicated."""
+    return len(x.shape) >= 2 and x.shape[-1] > 1 and x.shape[-2] > 1
+
+
+def shard(x, mesh: SpatialMesh | None, hw=None):
+    """This rank's tile of a full field x (numpy or torch, a view); x itself
+    without a mesh, when x is broadcastable, or when x does not lie on the
+    grid `hw` (it is a tile already)."""
+    if mesh is None or not is_full(x):
+        return x
+    if hw is not None and tuple(x.shape[-2:]) != tuple(hw):
+        return x
+    t = tile_for(mesh, x.shape)
+    return x[..., t.rows, t.cols]
+
+
+def host_value(x, mesh: SpatialMesh | None = None, hw=None) -> np.ndarray:
+    """x as a numpy array on the host, a tile of a (..., *hw) field
+    all-gathered into the whole field first (the JAX package's
+    `host_value`): a collective, so every rank calls it. A whole or
+    broadcastable x is read as it is."""
+    if mesh is None or hw is None or tuple(x.shape[-2:]) == tuple(hw) or not is_full(x):
+        return x.detach().cpu().numpy()
+    parts = [p.cpu().numpy() for p in _all_gather(x)]
+    out = np.empty((*x.shape[:-2], *hw), dtype=parts[0].dtype)
+    for r, part in enumerate(parts):
+        t = tile_for(replace(mesh, rank=r), out.shape)
+        out[..., t.rows, t.cols] = part
+    return out
+
+
+def replicate(tree, mesh: SpatialMesh | None = None):
+    """The JAX package's `replicate`, a no-op: every tensor a rank holds
+    but the obs fields' tiles is whole on every rank already (each rank
+    builds the same models from the same seed and reads the same states)."""
+    return tree
+
+
+def replicate_missing(tree, mesh: SpatialMesh | None = None):
+    """The JAX package's `replicate_missing`, a no-op for the same reason:
+    the port has no deliberate placement (tp, ep: ROADMAP A.13c) to keep."""
+    return tree
+
+
+def sum_over_tiles(tile: Tile, *parts) -> list:
+    """Each of `parts` (this rank's partial sums over its tile) summed over
+    the ranks in one all-reduce; a rank whose tile another rank holds too
+    adds zeros. Every rank receives the same bits."""
+    flat = torch.cat([p.reshape(-1) for p in parts]) * float(tile.primary)
+    flat = all_sum(flat)
+    return [v.reshape(p.shape) for v, p in zip(flat.split([p.numel() for p in parts]), parts)]
+
+
+class _CopyToRanks(torch.autograd.Function):
+    """Megatron's "copy": the identity forward, the sum over the ranks of
+    the branch's gradients backward; the tangent passes through."""
+
+    @staticmethod
+    def forward(x):
+        return x.clone()
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_sum(g)
+
+    @staticmethod
+    def jvp(ctx, t):
+        return t.clone()
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """Megatron's "reduce": the sum over the ranks forward, the identity
+    backward; the tangent is summed too, so a jvp reads every rank's slope."""
+
+    @staticmethod
+    def forward(x):
+        return all_sum(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+    @staticmethod
+    def jvp(ctx, t):
+        return all_sum(t)
+
+
+def copy_to_ranks(x: torch.Tensor) -> torch.Tensor:
+    """x where a rank-local branch of a cost starts (the obs term on the
+    tiles, from the low-res increment): its gradient there is the sum of
+    every rank's."""
+    return _CopyToRanks.apply(x)
+
+
+def sum_over_ranks(x: torch.Tensor, tile: Tile) -> torch.Tensor:
+    """A rank-local scalar of the tiles (the obs term) summed over the
+    ranks, differentiably in both modes; a rank with a duplicate tile
+    adds zero."""
+    return _SumOverRanks.apply(x * float(tile.primary))
+
+
+def spatial_mesh_from_arg(arg: str, device: str = "cuda") -> SpatialMesh:
+    """run_da's `--mesh`: 'SHxSW' (e.g. 2x4) partitions the observation
+    fields' (lat, lon) grid over SH * SW processes, one per device, which
+    must be the launched world; 'TPxSHxSW' (tensor-parallel LG stages) is
+    not ported. The rank's device is cuda:LOCAL_RANK for `device` cuda,
+    else the CPU."""
+    try:
+        dims = [int(v) for v in arg.split("x")]
+    except ValueError:
+        dims = []
+    if len(dims) == 3:
+        raise NotImplementedError(
+            f"--mesh {arg} (TPxSHxSW, tensor-parallel LG stages): ROADMAP A.13c")
+    if len(dims) != 2 or min(dims) < 1:
+        raise ValueError(f"--mesh must be 'SHxSW' (e.g. 2x4), got {arg!r}")
+    _check_world(arg, dims[0] * dims[1])
+    return SpatialMesh(sh=dims[0], sw=dims[1], rank=process_index(), device=_rank_device(device))

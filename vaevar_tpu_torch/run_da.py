@@ -10,6 +10,8 @@ baselines.
     python -m vaevar_tpu_torch.run_da --da_mode vae4dvar --vae_ckpt vae.pt \
         --flow_ckpt flow.pt --forecast_ckpt forecast.pt --data_dir era5 \
         --data_layout reference
+    python -m torch.distributed.run --nproc_per_node 2 \
+        -m vaevar_tpu_torch.run_da --mesh 1x2 --fast_init --obs_type real_simu
 
 run_da.py's flag names and defaults and its choice of models
 (run_da.py:268-365). Observations: the synthetic families (free_XXXX,
@@ -53,8 +55,16 @@ runs on the CPU. The next cycle's obs are prepared on a worker thread under
 the current solve, on a CUDA stream of their own; --no_prefetch runs the
 serial loop (the same numbers). One flag of run_da.py is not taken:
 --window_dispatch sets how many L-BFGS iterations go into one XLA program,
-which an eager solve does not have. --mesh, the spatially sharded solve,
-raises (ROADMAP A.13b): every DA configuration fits one card.
+which an eager solve does not have.
+
+--mesh SHxSW is the spatially partitioned solve over SH * SW processes,
+one per card (torch.distributed.run's RANK, WORLD_SIZE, LOCAL_RANK; nccl,
+or gloo with --device cpu): each rank owns cuda:LOCAL_RANK and holds its
+tile of the full-resolution obs fields, tiled by JAX's (lat, lon) rule
+(parallel/mesh.py); every rank builds the same models and runs the same
+cycle, the obs terms summed over the ranks, and rank 0 writes the work
+dir. The mesh must match the launch's world size; --mesh TPxSHxSW (tensor
+parallel) raises (ROADMAP A.13c).
 
 Matrix products and convolutions run in full float32 where the model asks
 for float32: TF32 is switched off for both cuBLAS and cuDNN (cuDNN
@@ -145,7 +155,10 @@ def arg_parser(argv=None):
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device of the run (default cuda; cpu for CPU runs)")
     p.add_argument("--mesh", type=str, default=None,
-                   help="sharded solve: not ported yet (ROADMAP A.13b)")
+                   help="'SHxSW' (e.g. 2x4): the obs fields' (lat, lon) grid "
+                        "partitioned over SH*SW processes launched with "
+                        "torch.distributed.run; 'TPxSHxSW' is not ported "
+                        "(ROADMAP A.13c)")
     p.add_argument("--no_prefetch", action="store_true",
                    help="disable the obs-prefetch worker thread (serial "
                    "obs read -> solve loop, the reference's structure)")
@@ -177,11 +190,6 @@ def fit_grid(model_cfg, grid):
             f"multiples of ({c.stride[0] * 4 * c.window_size[0]}, "
             f"{c.stride[1] * 4 * c.window_size[1]})")
     return c
-
-
-def _check_supported(args):
-    if args.mesh:
-        raise NotImplementedError("--mesh (sharded solve): ROADMAP A.13b")
 
 
 def _load_b_assets(coeff_dir: str, scale_factor: float, device="cpu"):
@@ -260,15 +268,25 @@ def main(argv=None):
     """Run the cycle; returns the CycledDA (its timings, with the seconds of
     the model set-up under "models_s", and its cycle_log)."""
     args = arg_parser(argv)
-    _check_supported(args)
     import numpy as np
     import torch
+
+    from vaevar_tpu_torch.parallel import mesh as pmesh
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(
             f"--device {args.device}: no CUDA device is available; pass "
             "--device cpu to run on the CPU")
+    mesh = None
+    if args.mesh:  # checked against the launch before any model is built
+        pmesh.init_distributed(device=args.device)
+        mesh = pmesh.spatial_mesh_from_arg(args.mesh, args.device)
+        device = mesh.device
+        backend = (torch.distributed.get_backend() if torch.distributed.is_initialized()
+                   else "one process")
+        print(f"mesh: sh {mesh.sh} x sw {mesh.sw}, rank {mesh.rank} on {device} ({backend})",
+              flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -340,6 +358,9 @@ def main(argv=None):
         roles["forecast"] = (fc_base.replace(dtype=dtype), args.seed + 2, args.forecast_ckpt,
                              False)
     models = build_models(roles, device, args.fast_init)
+    if mesh is not None:  # every rank holds the same weights, bit for bit
+        pmesh.check_replicas(pmesh.digest(*(t for name in sorted(models)
+                                            for t in models[name].state_dict().values())))
     decoder, flow = models.get("decoder"), models.get("flow")
     if forecast_branch:
         forecast_integrate = make_integrate(models["forecast"])
@@ -379,7 +400,8 @@ def main(argv=None):
                   save_field=args.save_field, save_gt=args.save_gt, save_obs=args.save_obs,
                   forecast_eval=args.forecast_eval,
                   forecast_eval_steps=args.forecast_eval_steps,
-                  obs_from_numpy=args.obs_from_numpy, prefetch_obs=not args.no_prefetch)
+                  obs_from_numpy=args.obs_from_numpy, prefetch_obs=not args.no_prefetch,
+                  mesh=mesh)
     da.timings["models_s"] = models_s
     da.run_assimilation(args.start_time, args.end_time)
     print("DA complete", flush=True)

@@ -178,7 +178,7 @@ def _global_mean(x, mesh):
     value of a batch-mean loss (equal local batches)."""
     if mesh is None or not mesh.distributed:
         return x
-    return pmesh.all_reduce(x) / pmesh.process_count()
+    return pmesh.all_sum(x) / pmesh.process_count()
 
 
 def make_eval_step(loss_type: str = "Possloss", two_step: bool = False):

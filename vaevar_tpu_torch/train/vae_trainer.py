@@ -103,7 +103,7 @@ def make_vae_train_step(vae, fengwu, sigma: float = 2.0, lr: float = 1e-4,
         optimizer.step()
         m = torch.stack([total.detach(), sse.detach(), kld.detach()])
         if world > 1:
-            m = pmesh.all_reduce(m)
+            m = pmesh.all_sum(m)
         return dict(zip(("loss", "rec_sse", "kld"), m))
 
     return init_fn, train_step
