@@ -111,9 +111,10 @@ exits nonzero without its last line:
    spin-up and cycle seconds, the obs preparation split into truth reads,
    gridding and copy + augment + QC, the solve seconds and peak memory.
    Every run_da phase runs the obs prefetch thread (the default); here the
-   same 2 cycles run again with --no_prefetch (the serial loop), and the two
-   runs must have received equal obs in each cycle (the cycle log's
-   checksums of yo, H and gt, and the obs counts) and agree bit for bit on
+   same 2 cycles run first with --no_prefetch (the serial loop), and the two
+   runs, each with models of its own build, must have received equal obs in
+   each cycle (the cycle log's checksums of yo, H and gt, and the obs
+   counts) and agree bit for bit on
    the rest of the cycle log, the metric dumps and xb.npy (two serial runs
    repeat bit for bit on the card: scripts/prefetch_cycles.py); each run's
    cycle, obs and obs-wait seconds and peak memory are printed. Then
@@ -121,8 +122,9 @@ exits nonzero without its last line:
    full-width free_run cycle with --forecast_eval --forecast_eval_steps 2
    (12 launches, forecast_wrmse.npy), a micro f32 real-obs window solve
    (da_win 3) card vs CPU (norm-rel 1e-5), and interpolation at micro size.
-   The phase's runs after the first take its models (`shared_builds`: the
-   same roles from the same seed, bit for bit the same weights).
+   The prepbufr and free_run runs take the prefetch run's models
+   (`shared_builds`: the same roles from the same seed, bit for bit the
+   same weights).
 13. osse: the OSSE (vaevar_tpu_torch/osse.py) on the card: the micro VAE
    trained 120 epochs on SharedModeEra5's NMC errors (its loss must fall
    below 0.35 of its first value), then free_run, vae4dvar, sc4dvar and
@@ -164,7 +166,9 @@ exits nonzero without its last line:
    bg_wrmse and error_obs within 1e-3 relative), the ranks' lockstep
    digests equal, each rank's yo + H half the single run's, obs counts
    summed to the single run's, 36 forward launches per rank; prints each
-   rank's seconds, peak memory beside the single run's and obs bytes.
+   rank's seconds, obs bytes and peak memory beside the real_obs phase's
+   runs' (2 cycles, without and with the prefetch: the one without bounds
+   a 1-cycle run's peak from above, and so the saving).
    (b) micro --mesh 2x2 (4 ranks) reduced 3D-Var and da_win 3 window cycles
    against single-process runs (the same checks). (c) run_da --mesh 1x1
    through torch.distributed.run with nccl.
@@ -1637,95 +1641,94 @@ def prefetch_line(da, peak):
 
 def check_real_obs(fa):
     """Phase 12: real observations and the rest of the DA surface. Returns
-    the forward launches of its full-width runs, and the first run's cycle 1
-    (its log entry, metric rows and peak memory: the mesh phase's
-    reference)."""
+    the forward launches of its full-width runs, and the mesh phase's
+    reference: the prefetch run's cycle 1 (its log entry and metric rows)
+    and the peak memory of both runs."""
     import numpy as np
     import torch
 
     from vaevar_tpu_torch import config as cfgs
 
     per_step = cfgs.FORECAST_025.lg_depths[0]
-    da, counts, total, peak, outs = run_da_phase(fa, REAL_OBS_ARGS)
-    want = (da.cfg.init_lag + len(da.cycle_log)) * per_step
-    err = outs.get("error_obs.npy")
-    phase("real_obs", f"real_simu --use_eval, 2000 synthetic stations: {len(da.cycle_log)} cycles "
-          f"in {total:.2f} s (models {da.timings['models_s']:.2f} s); spin-up "
-          f"{da.timings['spin_up_s']:.2f} s; cycles "
-          + ", ".join(f"{v:.2f}" for v in da.timings["cycle_s"]) + f" s; peak memory "
-          f"{peak:.2f} GiB; error_obs {None if err is None else err.shape}; flash launches "
-          f"(fwd, dq, dkv) {counts}")
-    check_cycle_log("real_obs", da, 2)
-    if counts != (want, 0, 0):
-        raise AssertionError(f"real_obs launched (fwd, dq, dkv) {counts}; want ({want}, 0, 0)")
-    if err is None or err.shape != (2, 204) or not np.isfinite(err).all():
-        raise AssertionError(f"error_obs.npy: {None if err is None else err.shape}; want (2, 204)")
-    launches = counts[0]
-    ref = {"cycle": da.cycle_log[0], "peak": peak,
-           **{k: outs[f"{k}.npy"][0] for k in ("ana_wrmse", "bg_wrmse", "error_obs")}}
-    if not da.prefetch_obs:
-        raise AssertionError("run_da ran without the obs prefetch thread by default")
-    phase("real_obs", prefetch_line(da, peak))
-    first = (SimpleNamespace(cycle_log=da.cycle_log), outs)
-    del da, outs  # the models, before the serial run's peak is read
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    serial, counts, total, peak_s, outs_s = run_da_phase(fa, REAL_OBS_ARGS + ["--no_prefetch"])
+    serial, counts_s, total, peak_s, outs_s = run_da_phase(fa, REAL_OBS_ARGS + ["--no_prefetch"])
+    want = (serial.cfg.init_lag + len(serial.cycle_log)) * per_step
     phase("real_obs", f"--no_prefetch: {total:.2f} s with the models; "
-          + prefetch_line(serial, peak_s) + f"; flash launches (fwd, dq, dkv) {counts}")
+          + prefetch_line(serial, peak_s) + f"; flash launches (fwd, dq, dkv) {counts_s}")
     check_cycle_log("real_obs --no_prefetch", serial, 2)
-    if counts != (want, 0, 0):
-        raise AssertionError(f"real_obs --no_prefetch launched {counts}; want ({want}, 0, 0)")
-    launches += counts[0]
-    obs_equal, bitwise, worst = compare_runs(first, (serial, outs_s))
-    phase("real_obs", f"prefetch vs --no_prefetch: obs received equal in every cycle: "
-          f"{obs_equal}; cycle logs, metrics and xb.npy bitwise equal: {bitwise}; worst "
-          f"norm-rel difference {worst:.3g}")
-    if not (obs_equal and bitwise):
-        raise AssertionError("the prefetch and --no_prefetch runs disagree")
-    del first, serial, outs_s
+    if counts_s != (want, 0, 0):
+        raise AssertionError(f"real_obs --no_prefetch launched {counts_s}; want ({want}, 0, 0)")
+    second = (SimpleNamespace(cycle_log=serial.cycle_log), outs_s)
+    del serial, outs_s  # the models, before the prefetch run's peak is read
     gc.collect()
     torch.cuda.empty_cache()
 
-    da, counts, total, peak, _ = run_da_phase(fa, ONE_CYCLE + ["--obs_type", "prepbufr"] + CUT)
-    phase("real_obs", f"prepbufr, 1 cycle from the truth: {total:.2f} s with the models; peak "
-          f"memory {peak:.2f} GiB; flash launches (fwd, dq, dkv) {counts}")
-    check_cycle_log("prepbufr", da, 1)
-    if counts != (per_step, 0, 0):
-        raise AssertionError(f"prepbufr launched {counts}; want ({per_step}, 0, 0)")
-    launches += counts[0]
-    del da
+    with shared_builds():  # the prepbufr and free_run runs take the prefetch run's models
+        da, counts, total, peak, outs = run_da_phase(fa, REAL_OBS_ARGS)
+        err = outs.get("error_obs.npy")
+        phase("real_obs", f"real_simu --use_eval, 2000 synthetic stations: "
+              f"{len(da.cycle_log)} cycles in {total:.2f} s (models "
+              f"{da.timings['models_s']:.2f} s); spin-up {da.timings['spin_up_s']:.2f} s; cycles "
+              + ", ".join(f"{v:.2f}" for v in da.timings["cycle_s"]) + f" s; peak memory "
+              f"{peak:.2f} GiB; error_obs {None if err is None else err.shape}; flash launches "
+              f"(fwd, dq, dkv) {counts}")
+        check_cycle_log("real_obs", da, 2)
+        if counts != (want, 0, 0):
+            raise AssertionError(f"real_obs launched (fwd, dq, dkv) {counts}; want ({want}, 0, 0)")
+        if err is None or err.shape != (2, 204) or not np.isfinite(err).all():
+            raise AssertionError(f"error_obs.npy: {None if err is None else err.shape}; "
+                                 "want (2, 204)")
+        launches = counts[0] + counts_s[0]
+        ref = {"cycle": da.cycle_log[0], "peak": peak, "peak_serial": peak_s,
+               **{k: outs[f"{k}.npy"][0] for k in ("ana_wrmse", "bg_wrmse", "error_obs")}}
+        if not da.prefetch_obs:
+            raise AssertionError("run_da ran without the obs prefetch thread by default")
+        phase("real_obs", prefetch_line(da, peak))
+        obs_equal, bitwise, worst = compare_runs((da, outs), second)
+        phase("real_obs", f"prefetch vs --no_prefetch: obs received equal in every cycle: "
+              f"{obs_equal}; cycle logs, metrics and xb.npy bitwise equal: {bitwise}; worst "
+              f"norm-rel difference {worst:.3g}")
+        if not (obs_equal and bitwise):
+            raise AssertionError("the prefetch and --no_prefetch runs disagree")
+        del da, outs, second
 
-    argv = ["--da_mode", "free_run"] + ONE_CYCLE[2:] + ["--forecast_eval",
-                                                         "--forecast_eval_steps", "2"]
-    da, counts, total, peak, outs = run_da_phase(fa, argv)
-    fw = outs.get("forecast_wrmse.npy")
-    phase("real_obs", f"free_run --forecast_eval_steps 2: {total:.2f} s with the models; peak "
-          f"memory {peak:.2f} GiB; decoder built {da.decoder is not None}; forecast_wrmse "
-          f"{None if fw is None else fw.shape}, z500 at +6 h and +12 h "
-          f"{None if fw is None else fw[0, :, 11]}; flash launches (fwd, dq, dkv) {counts}")
-    check_cycle_log("free_run", da, 1, linesearch=None)
-    if counts != (3 * per_step, 0, 0) or da.decoder is not None:
-        raise AssertionError(f"free_run launched {counts}; want ({3 * per_step}, 0, 0)")
-    if fw is None or fw.shape != (1, 2, 69) or not np.isfinite(fw).all():
-        raise AssertionError(f"forecast_wrmse.npy: {None if fw is None else fw.shape}")
-    launches += counts[0]
-    del da, outs
+        da, counts, total, peak, _ = run_da_phase(fa, ONE_CYCLE + ["--obs_type", "prepbufr"] + CUT)
+        phase("real_obs", f"prepbufr, 1 cycle from the truth: {total:.2f} s with the models; peak "
+              f"memory {peak:.2f} GiB; flash launches (fwd, dq, dkv) {counts}")
+        check_cycle_log("prepbufr", da, 1)
+        if counts != (per_step, 0, 0):
+            raise AssertionError(f"prepbufr launched {counts}; want ({per_step}, 0, 0)")
+        launches += counts[0]
+        del da
 
-    check_micro_real_obs()
-    argv = ["--micro", "--fast_init", "--grid", "32x64", "--solver_grid", "32x64",
-            "--init_lag", "1", "--end_time", "2022-01-01 06:00:00", "--da_mode",
-            "interpolation", "--obs_type", "real_simu", "--use_eval"]
-    da, counts, total, _, outs = run_da_phase(fa, argv)
-    err = outs.get("error_obs.npy")
-    phase("real_obs", f"interpolation, real_simu --use_eval at 32x64 (micro): {total:.2f} s; "
-          f"griddata {da.cycle_log[0]['solve_s']:.2f} s on the host; error_obs "
-          f"{None if err is None else err.shape}; ana z500 "
-          f"{outs['ana_wrmse.npy'][0, 11]:.6g} vs bg {outs['bg_wrmse.npy'][0, 11]:.6g}")
-    check_cycle_log("interpolation", da, 1, linesearch=None)
-    if err is None or err.shape != (1, 204) or not np.isfinite(err).all():
-        raise AssertionError("interpolation: error_obs.npy missing or not finite")
+        argv = ["--da_mode", "free_run"] + ONE_CYCLE[2:] + ["--forecast_eval",
+                                                             "--forecast_eval_steps", "2"]
+        da, counts, total, peak, outs = run_da_phase(fa, argv)
+        fw = outs.get("forecast_wrmse.npy")
+        phase("real_obs", f"free_run --forecast_eval_steps 2: {total:.2f} s with the models; peak "
+              f"memory {peak:.2f} GiB; decoder built {da.decoder is not None}; forecast_wrmse "
+              f"{None if fw is None else fw.shape}, z500 at +6 h and +12 h "
+              f"{None if fw is None else fw[0, :, 11]}; flash launches (fwd, dq, dkv) {counts}")
+        check_cycle_log("free_run", da, 1, linesearch=None)
+        if counts != (3 * per_step, 0, 0) or da.decoder is not None:
+            raise AssertionError(f"free_run launched {counts}; want ({3 * per_step}, 0, 0)")
+        if fw is None or fw.shape != (1, 2, 69) or not np.isfinite(fw).all():
+            raise AssertionError(f"forecast_wrmse.npy: {None if fw is None else fw.shape}")
+        launches += counts[0]
+        del da, outs
+
+        check_micro_real_obs()
+        argv = ["--micro", "--fast_init", "--grid", "32x64", "--solver_grid", "32x64",
+                "--init_lag", "1", "--end_time", "2022-01-01 06:00:00", "--da_mode",
+                "interpolation", "--obs_type", "real_simu", "--use_eval"]
+        da, counts, total, _, outs = run_da_phase(fa, argv)
+        err = outs.get("error_obs.npy")
+        phase("real_obs", f"interpolation, real_simu --use_eval at 32x64 (micro): {total:.2f} s; "
+              f"griddata {da.cycle_log[0]['solve_s']:.2f} s on the host; error_obs "
+              f"{None if err is None else err.shape}; ana z500 "
+              f"{outs['ana_wrmse.npy'][0, 11]:.6g} vs bg {outs['bg_wrmse.npy'][0, 11]:.6g}")
+        check_cycle_log("interpolation", da, 1, linesearch=None)
+        if err is None or err.shape != (1, 204) or not np.isfinite(err).all():
+            raise AssertionError("interpolation: error_obs.npy missing or not finite")
     return launches, ref
 
 
@@ -2064,7 +2067,8 @@ def check_mesh(ref):
               f"real_simu --use_eval, 1 cycle in {r['seconds']:.2f} s (models "
               f"{r['timings']['models_s']:.2f} s, spin-up {r['timings']['spin_up_s']:.2f} s, cycle "
               f"{c['seconds']:.2f} s: obs {c['obs_s']:.2f} s, solve {c['solve_s']:.2f} s); peak "
-              f"memory {r['peak_gib']:.2f} GiB (single process {ref['peak']:.2f} GiB); yo + H "
+              f"memory {r['peak_gib']:.2f} GiB (one process, 2 cycles: {ref['peak_serial']:.2f} "
+              f"GiB with --no_prefetch, {ref['peak']:.2f} GiB with the prefetch); yo + H "
               f"{c['obs_bytes'] / 1e9:.4f} GB on this rank (single process "
               f"{ref['cycle']['obs_bytes'] / 1e9:.4f} GB); obs gridded {c['n_gridded']:.0f}, kept "
               f"{c['n_kept']:.0f} ({ref['cycle']['n_gridded']:.0f}, {ref['cycle']['n_kept']:.0f}); "
@@ -2314,7 +2318,7 @@ def run_phases(timer):
         sc4dvar_launches = check_sc4dvar(fa)
     gc.collect()
     torch.cuda.empty_cache()
-    with timer.phase("real_obs"), shared_builds():
+    with timer.phase("real_obs"):
         real_obs_launches, real_obs_ref = check_real_obs(fa)
     gc.collect()
     torch.cuda.empty_cache()

@@ -92,9 +92,8 @@ def _port_problems(d: Path, mesh=None):
     b1 = tcost.ObsBundle(inp["xb"], inp["yo"], inp["H"], inp["R"])
     b2 = tcost.ObsBundle(inp["xb"], inp["yo2"], inp["H2"], inp["R2"])
     b3 = tcost.ObsBundle(inp["xb"], inp["yo3"], inp["H3"], inp["R3"])
-    hw = b1.xb.shape[-2:]
     tiles = (lambda b: b) if mesh is None else (lambda b: b._replace(
-        **{k: shard(getattr(b, k), mesh, hw) for k in ("yo", "H", "R")}))
+        **{k: shard(getattr(b, k), mesh) for k in ("yo", "H", "R")}))
     return {
         "full": (*tcost.make_vae4dvar_cost(dec, mesh=mesh), tiles(b1)),
         "reduced": (*tcost.make_vae4dvar_cost_reduced(dec),
@@ -125,8 +124,8 @@ def _port_results(d: Path, mesh=None) -> dict:
     x_pred = 0.9 * inp["yo"]
     full_r = b1._replace(R=torch.broadcast_to(inp["R"], inp["yo"].shape).contiguous())
     if mesh is not None:
-        full_r = full_r._replace(R=shard(full_r.R, mesh, HW))
-        x_pred = shard(x_pred, mesh, HW)
+        full_r = full_r._replace(R=shard(full_r.R, mesh))
+        x_pred = shard(x_pred, mesh)
     out["obs_term"] = tcost.obs_term(x_pred, full_r, mesh=mesh)
     z, u = inp["z_probe"], inp["u_probe"]
     for name in ("full", "realwin"):
@@ -140,15 +139,14 @@ def _port_results(d: Path, mesh=None) -> dict:
     runs = [(name, name, "zoom") for name in SOLVES] + [("full_jvp", "full", "jvp-zoom")]
     for key, name, ls in runs:
         cost, to_state, parts, bundle = problems[name]
-        solver = VariationalSolver(cost, to_state, parts, lbfgs_iters=ITERS, linesearch=ls,
-                                   mesh=mesh)
+        solver = VariationalSolver(cost, to_state, parts, lbfgs_iters=ITERS, linesearch=ls)
         zs, xa, diag = solver.solve(z0, bundle, nit=1, gt=inp["gt"][None], verbose=False)
         out.update({f"{key}_z": zs, f"{key}_xa": xa,
                     f"{key}_counts": torch.tensor([diag.n_iters, diag.n_evals]),
                     f"{key}_jbjo": torch.tensor([diag.loss_reg, diag.loss_obs],
                                                 dtype=torch.float64)})
-        if key == "full" and mesh is not None:
-            out["full_yo_shape"] = torch.tensor(solver.last_bundle_shapes["yo"])
+        if key == "full":
+            out["full_yo_shape"] = torch.tensor(bundle.yo.shape)
     return {k: v.detach().numpy() for k, v in out.items()}
 
 
@@ -161,15 +159,12 @@ def _worker(d: Path):
     again = pmesh.init_distributed(device="cuda")
     mesh = pmesh.spatial_mesh_from_arg(f"{MESH[0]}x{MESH[1]}", "cpu")
     out = _port_results(d, mesh)
-    # host_value gathers the tiles of a whole field, and is read as it is
-    # where the field is whole already
+    # host_value gathers the tiles of a whole field
     full = np.load(d / "inputs.npz")["yo3"]
     tile = pmesh.shard(torch.from_numpy(full), mesh)
     gathered = pmesh.host_value(tile, mesh, HW)
     meta = {"rank": rank, "again": again, "mesh": [mesh.sh, mesh.sw, mesh.rank],
             "tile_shape": list(tile.shape), "gathered": bool(np.array_equal(gathered, full)),
-            "whole": bool(np.array_equal(pmesh.host_value(torch.from_numpy(full), mesh, HW),
-                                         full)),
             "digest": pmesh.digest(*(torch.from_numpy(out[f"{s}_{k}"])
                                      for s in (*SOLVES, "full_jvp") for k in ("z", "xa")))}
     try:
@@ -355,6 +350,46 @@ def test_resize_nearest_on_a_tile_is_the_slice(src, out):
                                                      // out[1], src[1] - 1))
 
 
+@pytest.mark.parametrize("mesh_shape", [(1, 2), (2, 2), (2, 4), (4, 2), (1, 8)])
+def test_obs_holdout_error_sums_every_tile_of_the_grid(monkeypatch, mesh_shape):
+    """The cycler's error_obs at 721x1440 (2x2 and up fold both axes onto
+    lon, 721 rows dividing by nothing): each rank's numerator and
+    denominator over its tiles of the analysis, yo, H and the eval mask,
+    summed over the ranks, equal the single process's error at rtol 1e-5
+    (the same f32 sums in another order), on every rank. The ranks are
+    simulated one after another: the all-reduce returns the sum of what
+    every rank handed it."""
+    from types import SimpleNamespace
+
+    from vaevar_tpu_torch.da.cycler import CycledDA
+    from vaevar_tpu_torch.parallel import mesh as tmesh
+
+    hw = (721, 1440)
+    rng = np.random.default_rng(5)
+    xa = torch.from_numpy(rng.standard_normal((3, *hw)).astype(np.float32))
+    yo = (xa + 0.1 * torch.from_numpy(rng.standard_normal((3, *hw)).astype(np.float32)))
+    H = torch.from_numpy((rng.random((3, *hw)) < 0.05).astype(np.float32))
+    mask_eval = (rng.random((3, *hw)) < 0.2).astype(np.float32)
+
+    def error(mesh):
+        da = object.__new__(CycledDA)  # the fields the method reads, no models
+        da.__dict__.update(cfg=SimpleNamespace(grid_hw=hw), mesh=mesh, is_real_obs=False,
+                           _interp=None, mask_eval=mask_eval, _mask_eval_t=None, device="cpu")
+        return da._obs_holdout_error(xa, tmesh.shard(yo, mesh), tmesh.shard(H, mesh))
+
+    want = error(None)
+    sh, sw = mesh_shape
+    handed = []
+    monkeypatch.setattr(tmesh, "all_sum", lambda t: handed.append(t.clone()) or t)
+    for r in range(sh * sw):
+        error(tmesh.SpatialMesh(sh, sw, r))
+    total = torch.stack(handed).sum(0)
+    monkeypatch.setattr(tmesh, "all_sum", lambda t: total.clone())
+    for r in range(sh * sw):
+        np.testing.assert_allclose(error(tmesh.SpatialMesh(sh, sw, r)), want, rtol=1e-5,
+                                   err_msg=f"rank {r} of {sh}x{sw}")
+
+
 def test_spatial_mesh_from_arg_checks_the_launch(monkeypatch):
     """Outside a launch of SH*SW processes --mesh SHxSW raises; TPxSHxSW
     names ROADMAP A.13c; 1x1 is one process without a group."""
@@ -457,7 +492,7 @@ def test_mesh_layout_host_value_and_drift_check(world):
         assert m["rank"] == m["again"] == r
         assert m["mesh"] == [MESH[0], MESH[1], r]
         assert m["tile_shape"] == [2, 204, HW[0] // MESH[0], HW[1] // MESH[1]]
-        assert m["gathered"] and m["whole"]
+        assert m["gathered"]
         assert "replicas drifted apart" in m["drift"]
 
 

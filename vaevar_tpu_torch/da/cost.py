@@ -233,10 +233,13 @@ def _increment_fn(decoder, err_std=None):
 
 
 def _state_fn(increment):
-    """(z, bundle) -> xb + up(increment(z)): the state on xb's grid."""
+    """(z, bundle, tile=None) -> xb + up(increment(z)): the state on xb's
+    grid, or with a `tile` of that grid (parallel/mesh.py::tile_for) the
+    tile of it alone, bit for bit."""
 
-    def to_state(z, bundle):
-        return bundle.xb + resize_nearest(increment(z), bundle.xb.shape[-2:])
+    def to_state(z, bundle, tile=None):
+        xb = bundle.xb if tile is None else bundle.xb[..., tile.rows, tile.cols]
+        return xb + resize_nearest(increment(z), bundle.xb.shape[-2:], tile)
 
     return to_state
 
@@ -334,24 +337,22 @@ def _make_window_obs(flow, flow_hw, da_win: int, interp_matrix=None, mesh=None):
     return window_obs
 
 
-def _full_cost(to_state, flow, flow_hw, da_win, obs_coeff, interp_matrix=None, mesh=None,
-               increment=None):
-    """(cost, to_state, cost_parts) on a full-resolution ObsBundle for
-    (x, bundle) -> the state on xb's grid. With a `mesh`, the obs branch
-    starts at copy_to_ranks(increment(x)), and without a rollout it reads
-    the tile of the state alone, tile(xb) + up(e) on the tile: the tile of
-    to_state bit for bit (cvt.CVTransform adds the same two terms)."""
+def _full_cost(increment, flow, flow_hw, da_win, obs_coeff, interp_matrix=None, mesh=None):
+    """(cost, to_state, cost_parts) on a full-resolution ObsBundle for x ->
+    the low-res physical increment `increment(x)`, to_state(x, bundle) the
+    state on xb's grid. With a `mesh`, the obs branch starts at
+    copy_to_ranks(increment(x)), and without a rollout it reads the tile of
+    the state alone."""
+    to_state = _state_fn(increment)
     window_obs = _make_window_obs(flow, flow_hw, da_win, interp_matrix, mesh)
+    if mesh is None:
+        obs_state = to_state
+    else:
+        branch = _state_fn(lambda x: copy_to_ranks(increment(x)))
+        rollout = da_win > 1 and flow is not None  # the rollout runs on whole states
 
-    def obs_state(x, bundle: ObsBundle):
-        if mesh is None:
-            return to_state(x, bundle)
-        e = copy_to_ranks(increment(x))
-        hw = bundle.xb.shape[-2:]
-        if da_win > 1 and flow is not None:
-            return bundle.xb + resize_nearest(e, hw)
-        tile = tile_for(mesh, bundle.xb.shape)
-        return bundle.xb[..., tile.rows, tile.cols] + resize_nearest(e, hw, tile)
+        def obs_state(x, bundle: ObsBundle):
+            return branch(x, bundle, None if rollout else tile_for(mesh, bundle.xb.shape))
 
     def cost(x, bundle: ObsBundle):
         return 0.5 * torch.sum(x ** 2) + obs_coeff * window_obs(obs_state(x, bundle), bundle)
@@ -372,20 +373,18 @@ def make_vae4dvar_cost(decoder, flow=None, flow_hw=(128, 256), da_win: int = 1,
     augmented channels: the only form for them, as QC'd level-augmented
     innovations do not reduce onto the solver grid. `mesh`: see the module
     docstring."""
-    increment = _increment_fn(decoder, err_std)
-    return _full_cost(_state_fn(increment), flow, flow_hw, da_win, obs_coeff, interp_matrix,
-                      mesh, increment)
+    return _full_cost(_increment_fn(decoder, err_std), flow, flow_hw, da_win, obs_coeff,
+                      interp_matrix, mesh)
 
 
-def make_sc4dvar_cost(transform: Callable, flow=None, flow_hw=(128, 256), da_win: int = 1,
+def make_sc4dvar_cost(transform, flow=None, flow_hw=(128, 256), da_win: int = 1,
                       obs_coeff: float = 1.0, interp_matrix=None, mesh=None):
     """(cost, to_state, cost_parts) on a full-resolution ObsBundle, with the
-    state transform(w, xb) = xb + up(B^1/2 w) (cvt.CVTransform); the form
-    of a window without a flow model and of real obs (`interp_matrix`).
-    With a `mesh`, the tiles are computed from `transform.increment`."""
-    return _full_cost(lambda w, bundle: transform(w, bundle.xb), flow, flow_hw, da_win,
-                      obs_coeff, interp_matrix, mesh,
-                      None if mesh is None else transform.increment)
+    state xb + up(B^1/2 w) of `transform` (a cvt.CVTransform, whose
+    `increment` is B^1/2 w on the solver grid); the form of a window
+    without a flow model and of real obs (`interp_matrix`)."""
+    return _full_cost(transform.increment, flow, flow_hw, da_win, obs_coeff, interp_matrix,
+                      mesh)
 
 
 def _reduced_cost(increment, obs_coeff):

@@ -243,18 +243,26 @@ class CycledDA:
         return VariationalSolver(
             c, to_state, parts, lbfgs_iters=min(cfg.lbfgs_iters, 5) if sc else cfg.lbfgs_iters,
             history=cfg.lbfgs_history, max_segment_evals=cfg.lbfgs_max_evals,
-            linesearch=cfg.lbfgs_linesearch, mesh=self.mesh)
+            linesearch=cfg.lbfgs_linesearch)
+
+    @property
+    def _tile(self):
+        """This rank's tile of every full field on the grid (yo, H, a full R,
+        the eval mask), under a mesh: the cycler tiles them, and the solver
+        takes them as they are."""
+        return None if self.mesh is None else pmesh.tile_for(self.mesh, self.cfg.grid_hw)
 
     def _dev(self, a, tile: bool = False):
         """a as an f32 tensor on the device; with `tile`, only this rank's
-        tile of a full-resolution field crosses to the device."""
+        tile of a full field on the grid crosses to the device (a
+        broadcastable a whole)."""
         if tile:
-            a = pmesh.shard(np.asarray(a), self.mesh, self.cfg.grid_hw)
+            a = pmesh.shard(np.asarray(a), self.mesh)
         return torch.as_tensor(np.asarray(a), dtype=torch.float32, device=self.device)
 
     def _host(self, x):
-        """A device field on the host, whole (a tile all-gathered: every rank
-        calls this)."""
+        """This rank's tile of a grid field, whole on the host (all-gathered:
+        every rank calls this)."""
         return pmesh.host_value(x, self.mesh, self.cfg.grid_hw)
 
     def _check_lockstep(self, *xs):
@@ -402,7 +410,7 @@ class CycledDA:
             self._sync()
             info.update(truth_s=t1 - t0, grid_s=t2 - t1, aug_qc_s=time.perf_counter() - t2,
                         n_gridded=n_gridded, n_kept=n_kept)
-            return yo, H, self._dev(self.R_aug), gt_d
+            return yo, H, self._dev(self.R_aug, tile=True), gt_d
         if cfg.obs_type.startswith("prepbufr"):
             # station-report mask family (da_4dvar.py:190-274): da_win 1 or 6
             t1 = time.perf_counter()
@@ -418,7 +426,8 @@ class CycledDA:
             H = obs_mod.make_obs_mask(cfg.obs_type, cfg.da_win, cfg.grid_hw, self._rng,
                                       self.mask_dir)
         gt_d = self._dev(gt)
-        return pmesh.shard(gt_d, self.mesh), self._dev(H, tile=True), self._dev(self.R), gt_d
+        return (pmesh.shard(gt_d, self.mesh), self._dev(H, tile=True),
+                self._dev(self.R, tile=True), gt_d)
 
     def _score(self, prefix, x, gt0):
         wrmse, bias, mse = score(x, gt0)
@@ -444,7 +453,7 @@ class CycledDA:
         num = torch.sum((xhat - yo0) ** 2 * w, dim=(1, 2))
         den = torch.sum(w, dim=(1, 2))
         if self.mesh is not None:
-            num, den = pmesh.sum_over_tiles(pmesh.tile_for(self.mesh, xa.shape), num, den)
+            num, den = pmesh.sum_over_tiles(self._tile, num, den)
         den = torch.clamp(den, min=1e-10)
         return torch.sqrt(num / den).cpu().numpy()
 
@@ -500,7 +509,7 @@ class CycledDA:
                  "gt": (self.save_gt, gt), "obs": (self.save_obs, yo)}
         for name, (on, x) in dumps.items():
             if on:
-                x = self._host(x)
+                x = self._host(x) if name == "obs" else x.detach().cpu().numpy()
                 if self._writes:
                     np.save(os.path.join(self.work_dir, f"{name}_{stamp}"), x)
 
@@ -602,7 +611,7 @@ class CycledDA:
                 keys = [k for k in ("n_gridded", "n_kept") if k in info]
                 if self.mesh is not None and keys:  # the obs counts of every rank's tile
                     counts = torch.tensor([info[k] for k in keys], dtype=torch.float64)
-                    (counts,) = pmesh.sum_over_tiles(pmesh.tile_for(self.mesh, gt.shape), counts)
+                    (counts,) = pmesh.sum_over_tiles(self._tile, counts)
                     info.update(zip(keys, counts.tolist()))
                 self.last_obs_info = info
                 checksum = self._checksum(yo, H, gt)

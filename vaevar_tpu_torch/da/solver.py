@@ -5,10 +5,10 @@ Port of vaevar_tpu/da/solver.py:66-357 without the XLA dispatch machinery:
 state (the reference's one torch LBFGS stepped nit times), with WRMSE/bias
 and (Jb, Jo) against truth before each segment and after the last. The
 linesearch "auto" resolves at the first solve: "jvp-zoom" when the cost is
-forward-mode differentiable, else "zoom". With a `mesh` (run_da --mesh
-SHxSW) the obs fields of a full-resolution bundle are this rank's tiles;
-the cost, built on the same mesh, sums over the ranks every value L-BFGS
-and the diagnostics read, so the ranks take the same steps.
+forward-mode differentiable, else "zoom". Under run_da --mesh SHxSW the
+bundle's obs fields are this rank's tiles (the cycler tiles them), and the
+cost, built on the mesh, sums over the ranks every value L-BFGS and the
+diagnostics read, so the ranks take the same steps with no solver change.
 """
 
 from __future__ import annotations
@@ -21,7 +21,6 @@ import numpy as np
 import torch
 
 from vaevar_tpu_torch import channels
-from vaevar_tpu_torch.da.cost import ObsBundle
 from vaevar_tpu_torch.da.lbfgs import (
     LINESEARCHES,
     lbfgs_init_state,
@@ -29,7 +28,6 @@ from vaevar_tpu_torch.da.lbfgs import (
     value_and_slope,
 )
 from vaevar_tpu_torch.ops.flash_attn import NoForwardADError
-from vaevar_tpu_torch.parallel.mesh import shard
 from vaevar_tpu_torch.utils import metrics as M
 
 
@@ -52,8 +50,7 @@ class VariationalSolver:
 
     def __init__(self, cost: Callable, to_state: Callable, cost_parts: Callable,
                  lbfgs_iters: int = 10, history: int = 10,
-                 max_segment_evals: int | None = None, linesearch: str = "zoom",
-                 mesh=None):
+                 max_segment_evals: int | None = None, linesearch: str = "zoom"):
         if linesearch != "auto" and linesearch not in LINESEARCHES:
             raise ValueError(f"lbfgs_linesearch {linesearch!r}: expected 'auto', "
                              "'zoom' or 'jvp-zoom'")
@@ -67,8 +64,6 @@ class VariationalSolver:
                                   else lbfgs_iters * 5 // 4)
         self.linesearch = linesearch  # "auto" until the first solve
         self._jvp_checked = linesearch != "jvp-zoom"
-        self.mesh = mesh  # parallel/mesh.SpatialMesh, or None
-        self.last_bundle_shapes: dict = {}  # the full bundle's shapes of the last sharded solve
 
     def _jvp_compatible(self, x0, bundle) -> bool:
         """Whether the cost runs under forward-mode AD: one jvp of the real
@@ -110,25 +105,9 @@ class VariationalSolver:
         jb, jo = self.cost_parts(x, bundle)
         return wrmse.cpu().numpy(), bias.cpu().numpy(), float(jb), float(jo)
 
-    def _shard_inputs(self, bundle):
-        """JAX's `_shard_inputs` (vaevar_tpu/da/solver.py:378-412) for the
-        port's layout: an ObsBundle's full-resolution yo, H and R become this
-        rank's tiles (a field that is a tile already, or broadcastable like
-        a per-channel R, stays as it is). xb, the control, the truth and the
-        reduced bundles stay whole on every rank: the port partitions only
-        the obs fields."""
-        if self.mesh is None or not isinstance(bundle, ObsBundle):
-            return bundle
-        hw = bundle.xb.shape[-2:]
-        bundle = bundle._replace(**{k: shard(getattr(bundle, k), self.mesh, hw)
-                                    for k in ("yo", "H", "R")})
-        self.last_bundle_shapes = {k: tuple(f.shape) for k, f in zip(bundle._fields, bundle)}
-        return bundle
-
     def solve(self, x0, bundle, nit: int = 4, gt=None, verbose: bool = True,
               name: str = "da"):
         """-> (x, analysis state, SolveDiagnostics)."""
-        bundle = self._shard_inputs(bundle)
         self.ensure_linesearch(x0, bundle)
         diag = SolveDiagnostics(linesearch=self.linesearch)
         t0 = time.perf_counter()

@@ -19,7 +19,9 @@ tiled by the JAX package's own rule (`state_spec_for`, `tile_for`: an axis
 goes only on a dim it divides, never an uneven tile). Where JAX's GSPMD
 partitions every array, the port partitions only those fields: the models,
 the control variable, the background, the truth and the analysis stay whole
-on every rank (`replicate`), and the ranks stay in lockstep because every
+on every rank (so the JAX package's `replicate` has no counterpart: each
+rank builds the same models from the same seed and reads the same states),
+and the ranks stay in lockstep because every
 value the solver reads from the tiles is summed over the ranks first
 (`all_sum`, `sum_over_tiles`, and the Megatron-style pair `copy_to_ranks` /
 `sum_over_ranks` inside a cost). `host_value` all-gathers a tiled field.
@@ -296,24 +298,21 @@ def is_full(x) -> bool:
     return len(x.shape) >= 2 and x.shape[-1] > 1 and x.shape[-2] > 1
 
 
-def shard(x, mesh: SpatialMesh | None, hw=None):
-    """This rank's tile of a full field x (numpy or torch, a view); x itself
-    without a mesh, when x is broadcastable, or when x does not lie on the
-    grid `hw` (it is a tile already)."""
+def shard(x, mesh: SpatialMesh | None):
+    """This rank's tile of a whole field x (numpy or torch, a view); x
+    itself without a mesh or when x is broadcastable."""
     if mesh is None or not is_full(x):
-        return x
-    if hw is not None and tuple(x.shape[-2:]) != tuple(hw):
         return x
     t = tile_for(mesh, x.shape)
     return x[..., t.rows, t.cols]
 
 
-def host_value(x, mesh: SpatialMesh | None = None, hw=None) -> np.ndarray:
-    """x as a numpy array on the host, a tile of a (..., *hw) field
-    all-gathered into the whole field first (the JAX package's
-    `host_value`): a collective, so every rank calls it. A whole or
-    broadcastable x is read as it is."""
-    if mesh is None or hw is None or tuple(x.shape[-2:]) == tuple(hw) or not is_full(x):
+def host_value(x, mesh: SpatialMesh | None, hw) -> np.ndarray:
+    """This rank's tile x of a (..., *hw) field, all-gathered into the
+    whole field on the host (the JAX package's `host_value`): a collective,
+    so every rank calls it. x itself, read to the host, without a mesh or
+    on one rank."""
+    if mesh is None or mesh.sh * mesh.sw == 1:
         return x.detach().cpu().numpy()
     parts = [p.cpu().numpy() for p in _all_gather(x)]
     out = np.empty((*x.shape[:-2], *hw), dtype=parts[0].dtype)
@@ -321,19 +320,6 @@ def host_value(x, mesh: SpatialMesh | None = None, hw=None) -> np.ndarray:
         t = tile_for(replace(mesh, rank=r), out.shape)
         out[..., t.rows, t.cols] = part
     return out
-
-
-def replicate(tree, mesh: SpatialMesh | None = None):
-    """The JAX package's `replicate`, a no-op: every tensor a rank holds
-    but the obs fields' tiles is whole on every rank already (each rank
-    builds the same models from the same seed and reads the same states)."""
-    return tree
-
-
-def replicate_missing(tree, mesh: SpatialMesh | None = None):
-    """The JAX package's `replicate_missing`, a no-op for the same reason:
-    the port has no deliberate placement (tp, ep: ROADMAP A.13c) to keep."""
-    return tree
 
 
 def sum_over_tiles(tile: Tile, *parts) -> list:
