@@ -171,7 +171,7 @@ exits nonzero without its last line:
    a 1-cycle run's peak from above, and so the saving).
    (b) micro --mesh 2x2 (4 ranks) reduced 3D-Var and da_win 3 window cycles
    against single-process runs (the same checks). (c) run_da --mesh 1x1
-   through torch.distributed.run with nccl.
+   through torch.distributed.run with nccl, run beside (b).
 The main phase also prints cycle 2's obs seconds (on the prefetch worker)
 and the seconds the loop waited for them. Every phase is timed by
 utils/logger.py's PhaseTimer; its report (seconds per phase, and the total
@@ -190,6 +190,7 @@ import gc
 import json
 import math
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -2046,12 +2047,12 @@ def check_mesh(ref):
     held to the real_obs phase's cycle 1 (`ref`); (b) micro --mesh 2x2 (4
     ranks) reduced 3D-Var and da_win 3 window cycles against single-process
     runs here; (c) run_da --mesh 1x1 through torch.distributed.run with
-    nccl. Returns the forward launches of (a), summed over the ranks."""
+    nccl, beside (b). Returns the forward launches of (a), summed over the
+    ranks."""
     import numpy as np
     import torch
 
     from vaevar_tpu_torch import config as cfgs
-    from vaevar_tpu_torch import run_da
 
     per_step = cfgs.FORECAST_025.lg_depths[0]
     with tempfile.TemporaryDirectory() as d:
@@ -2094,7 +2095,44 @@ def check_mesh(ref):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (b) micro 2x2 on 4 ranks against the single-process runs
+    # (c) the CLI through torch.distributed.run, nccl, world size 1: one micro
+    # process on the card and the host beside (b), which it does not touch
+    with tempfile.TemporaryDirectory() as out, tempfile.TemporaryFile("w+") as log:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+               "--nproc_per_node", "1", "--master_addr", "localhost", "--master_port",
+               str(_free_port()), "-m", "vaevar_tpu_torch.run_da", "--mesh", "1x1",
+               *MESH_MICRO, "--work_dir", out]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, text=True,
+                                cwd=os.path.dirname(os.path.abspath(__file__)),
+                                start_new_session=True)
+        try:
+            check_mesh_micro()
+            proc.wait(timeout=300)
+        finally:
+            if proc.poll() is None:  # torchrun and its worker, on a failure here
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        seconds = time.perf_counter() - t0
+        files = {f for _, _, fs in os.walk(out) for f in fs}
+        log.seek(0)
+        text = log.read()
+    nccl = "mesh: sh 1 x sw 1, rank 0 on cuda:0 (nccl)" in text
+    phase("mesh", f"(c) torch.distributed.run --nproc_per_node 1 run_da --mesh 1x1: exit "
+          f"{proc.returncode} in {seconds:.1f} s, beside (b); nccl process group {nccl}; "
+          f"files {sorted(files)}")
+    if proc.returncode != 0 or not nccl or "xb.npy" not in files:
+        raise AssertionError(f"the nccl run_da run failed:\n{text[-6000:]}")
+    return launches
+
+
+def check_mesh_micro():
+    """The mesh phase's part (b): micro --mesh 2x2 (4 ranks) reduced 3D-Var
+    and da_win 3 window cycles against single-process runs here."""
+    import numpy as np
+
+    from vaevar_tpu_torch import run_da
+
     with tempfile.TemporaryDirectory() as d:
         wall = launch_workers("--mesh-worker", 4,
                               [d, "--runs", ",".join(MESH_MICRO_RUNS), "--mesh", "2x2"], 600)
@@ -2110,25 +2148,6 @@ def check_mesh(ref):
                            ranks[0]["cycle_log"][0], single.cycle_log[0], *rows)
             del single
     phase("mesh", f"(b) 4 ranks, {wall:.1f} s with the workers' start")
-
-    # (c) the CLI through torch.distributed.run, nccl, world size 1
-    with tempfile.TemporaryDirectory() as out:
-        cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
-               "--nproc_per_node", "1", "--master_addr", "localhost", "--master_port",
-               str(_free_port()), "-m", "vaevar_tpu_torch.run_da", "--mesh", "1x1",
-               *MESH_MICRO, "--work_dir", out]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
-                              cwd=os.path.dirname(os.path.abspath(__file__)))
-        files = {f for _, _, fs in os.walk(out) for f in fs}
-    nccl = "mesh: sh 1 x sw 1, rank 0 on cuda:0 (nccl)" in proc.stdout
-    phase("mesh", f"(c) torch.distributed.run --nproc_per_node 1 run_da --mesh 1x1: exit "
-          f"{proc.returncode} in {time.perf_counter() - t0:.1f} s; nccl process group {nccl}; "
-          f"files {sorted(files)}")
-    if proc.returncode != 0 or not nccl or "xb.npy" not in files:
-        raise AssertionError(f"the nccl run_da run failed:\n{proc.stdout[-2000:]}\n"
-                             f"{proc.stderr[-4000:]}")
-    return launches
 
 
 def top_device_ops(trace, n=5):
