@@ -125,7 +125,9 @@ exits nonzero without its last line:
    The prepbufr and free_run runs take the prefetch run's models
    (`shared_builds`: the same roles from the same seed, bit for bit the
    same weights).
-13. osse: the OSSE (vaevar_tpu_torch/osse.py) on the card: the micro VAE
+13. osse: the OSSE (vaevar_tpu_torch/osse.py) on the card, in a process of
+   its own (`--osse-worker`) started with phase 9 and running beside phases
+   9-10, its output printed here: the micro VAE
    trained 120 epochs on SharedModeEra5's NMC errors (its loss must fall
    below 0.35 of its first value), then free_run, vae4dvar, sc4dvar and
    the da_win 3 window cycled for 2 days at 32x64, all with torch's
@@ -170,21 +172,40 @@ exits nonzero without its last line:
    runs' (2 cycles, without and with the prefetch: the one without bounds
    a 1-cycle run's peak from above, and so the saving).
    (b) micro --mesh 2x2 (4 ranks) reduced 3D-Var and da_win 3 window cycles
-   against single-process runs (the same checks). (c) run_da --mesh 1x1
-   through torch.distributed.run with nccl, run beside (b).
+   against single-process runs (the same checks), then in the same ranks
+   the tensor-parallel --mesh 2x1x2 (tp 2 x sh 1 x sw 2: the decoder's and
+   the flow model's LG stages split over each lon half's 2 tp ranks) for
+   the same two cycles (the same checks) and a bf16 3D-Var cycle, whose
+   analysis increment is held within norm-relative 1e-3 of one process's
+   (JAX's sharded-solve bound). (c) run_da --mesh 1x1x1 through
+   torch.distributed.run with nccl, run beside (b). (d) and (e), in 2
+   tensor-parallel worker processes (`--tp-worker`, gloo, tp 2) beside
+   (a): (d) the production VAE_DECODER (215.9 M, f32, --fast_init seed 0)
+   placed at tp 2 on each rank, then tests/test_torch_prod_pinned.py's
+   summary with it, held to JAX's pinned golden within JAX's tolerances,
+   both ranks' summaries bitwise equal; prints the errors, each rank's
+   parameter bytes against the whole model's and its peak. (e) a micro rope
+   LGUnet with a flash stage (2 heads of 32 on its full-grid LG stage)
+   placed at tp 2, forward and one Possloss train step against the unplaced
+   model on the card (atol 1e-4; gradients 1e-3 x max|grad|), each rank's
+   flash (fwd, dq, dkv) launches nonzero; a MoEMlp of 8 experts at the LG
+   stage's widths (dim 192, 90x180) placed by shard_experts at ep 2 against
+   the unplaced module (output rtol 2e-6 + atol 1e-6, losses rtol 1e-6,
+   gradients 5e-5 x max|grad|).
 The main phase also prints cycle 2's obs seconds (on the prefetch worker)
 and the seconds the loop waited for them. Every phase is timed by
 utils/logger.py's PhaseTimer; its report (seconds per phase, and the total
 by the smoke's own clock) comes before the kernels line.
 The second-to-last line is a JSON record of the kernels (launches summed
 over the DA, window, training, record, VAE-training, sc4dvar, real-obs,
-sd_zoo (a), dp and mesh (a) paths (both ranks), each counted from 0; times with the main
+sd_zoo (a), dp, mesh (a) and mesh (e) paths (all ranks), each counted from 0; times with the main
 path's dtypes, and under "bf16" the all-bf16 ones; each bound from the
 function `bound_ms` below); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import gc
 import json
@@ -1773,25 +1794,47 @@ def _free_port():
         return sock.getsockname()[1]
 
 
-def launch_workers(flag, n, argv, timeout):
+def start_workers(flag, n, argv):
     """n worker processes `python3 chip_smoke.py <flag> <argv...>` with
     RANK 0..n-1 and LOCAL_RANK 0 (all on the one card), a rendezvous on a
-    free port; raises with the log of a failed one; returns the seconds."""
+    free port, started; their output goes to temporary files."""
     env = dict(os.environ, WORLD_SIZE=str(n), LOCAL_RANK="0", MASTER_ADDR="localhost",
                MASTER_PORT=str(_free_port()))
-    t0 = time.perf_counter()
+    logs = [tempfile.TemporaryFile("w+") for _ in range(n)]
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), flag, *argv],
-                              env=dict(env, RANK=str(r)), stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True) for r in range(n)]
+                              env=dict(env, RANK=str(r)), stdout=log,
+                              stderr=subprocess.STDOUT, text=True) for r, log in enumerate(logs)]
+    # a failure elsewhere in the smoke leaves none of them running
+    atexit.register(lambda: [p.kill() for p in procs if p.poll() is None])
+    return SimpleNamespace(flag=flag, procs=procs, logs=logs, t0=time.perf_counter())
+
+
+def wait_workers(started, timeout):
+    """Wait for workers that start_workers started; kills them all if one
+    is not done in `timeout` s, raises with the log of a failed one;
+    returns the seconds since their start."""
     try:
-        logs = [p.communicate(timeout=timeout)[0] for p in procs]
+        for p in started.procs:
+            p.wait(timeout=max(1.0, started.t0 + timeout - time.perf_counter()))
     finally:
-        for p in procs:
+        for p in started.procs:
             p.kill()
-    for p, log in zip(procs, logs):
+            p.wait()
+    started.texts = []
+    for log in started.logs:
+        log.seek(0)
+        started.texts.append(log.read())
+        log.close()
+    for p, text in zip(started.procs, started.texts):
         if p.returncode != 0:
-            raise AssertionError(f"{flag} worker failed ({p.returncode}):\n{log[-6000:]}")
-    return time.perf_counter() - t0
+            raise AssertionError(f"{started.flag} worker failed ({p.returncode}):\n"
+                                 f"{text[-6000:]}")
+    return time.perf_counter() - started.t0
+
+
+def launch_workers(flag, n, argv, timeout):
+    """start_workers, then wait_workers: returns the seconds."""
+    return wait_workers(start_workers(flag, n, argv), timeout)
 
 
 def dp_worker(d):
@@ -1973,7 +2016,11 @@ def check_dp(fa, single_step_s):
 MESH_MICRO = ["--micro", "--fast_init", "--grid", "32x64", "--solver_grid", "32x64",
               "--init_lag", "1", "--Nit", "2", "--no-bf16", "--use_eval",
               "--end_time", "2022-01-01 06:00:00"]
-MESH_MICRO_RUNS = {"3dvar": [], "window": ["--da_win", "3"]}
+# name: (flags beside MESH_MICRO, mesh); the single-process run of each takes
+# the flags alone
+MESH_MICRO_RUNS = {"3dvar": ([], "2x2"), "window": (["--da_win", "3"], "2x2"),
+                   "tp_3dvar": ([], "2x1x2"), "tp_window": (["--da_win", "3"], "2x1x2"),
+                   "tp_3dvar_bf16": (["--bf16", "--save_field"], "2x1x2")}
 # the full-width real-obs cycle of part (a): REAL_OBS_ARGS cut to its first cycle
 MESH_REAL_OBS = REAL_OBS_ARGS + ["--end_time", "2022-01-01 06:00:00"]
 
@@ -1981,8 +2028,8 @@ MESH_REAL_OBS = REAL_OBS_ARGS + ["--end_time", "2022-01-01 06:00:00"]
 def mesh_worker(d, argv):
     """One rank of the mesh phase, on the one card over gloo: run_da.main
     for each of the runs `argv` names (`--runs a,b` picks entries of
-    MESH_MICRO_RUNS; else argv is one run's flags), each with the launch
-    counts set to 0 just before and read just after; writes
+    MESH_MICRO_RUNS, each with its mesh; else argv is one run's flags), each
+    with the launch counts set to 0 just before and read just after; writes
     <d>/<run>.<rank>.json."""
     import torch
 
@@ -1992,7 +2039,8 @@ def mesh_worker(d, argv):
 
     rank = pmesh.init_distributed(backend="gloo", device="cuda")
     if argv[0] == "--runs":
-        runs = {n: MESH_MICRO + MESH_MICRO_RUNS[n] + argv[2:] for n in argv[1].split(",")}
+        runs = {n: MESH_MICRO + MESH_MICRO_RUNS[n][0] + ["--mesh", MESH_MICRO_RUNS[n][1]]
+                for n in argv[1].split(",")}
     else:
         runs = {"real_obs": argv}
     for name, flags in runs.items():
@@ -2044,23 +2092,32 @@ def check_mesh(ref):
     """Phase 16: the spatially partitioned solve (run_da --mesh SHxSW,
     parallel/mesh.py). (a) REAL_OBS_ARGS' first cycle as --mesh 1x2 on 2
     ranks over gloo on the one card (nccl refuses two ranks on one device),
-    held to the real_obs phase's cycle 1 (`ref`); (b) micro --mesh 2x2 (4
-    ranks) reduced 3D-Var and da_win 3 window cycles against single-process
-    runs here; (c) run_da --mesh 1x1 through torch.distributed.run with
-    nccl, beside (b). Returns the forward launches of (a), summed over the
-    ranks."""
+    held to the real_obs phase's cycle 1 (`ref`); (b) micro --mesh 2x2 and
+    2x1x2 (4 ranks) reduced 3D-Var and da_win 3 window cycles against
+    single-process runs here, and a bf16 2x1x2 3D-Var cycle; (c) run_da
+    --mesh 1x1x1 through torch.distributed.run with nccl, beside (b); (d),
+    (e) in 2 tensor-parallel workers (`tp_worker`), beside (a). Returns the
+    flash launches of (a) and (e), summed over the ranks."""
     import numpy as np
     import torch
 
     from vaevar_tpu_torch import config as cfgs
 
     per_step = cfgs.FORECAST_025.lg_depths[0]
-    with tempfile.TemporaryDirectory() as d:
-        wall = launch_workers("--mesh-worker", 2, [d, *MESH_REAL_OBS, "--mesh", "1x2"], 900)
+    with tempfile.TemporaryDirectory() as d, tempfile.TemporaryDirectory() as tp_dir:
+        tp_workers = start_workers("--tp-worker", 2, [tp_dir])
+        try:
+            wall = launch_workers("--mesh-worker", 2, [d, *MESH_REAL_OBS, "--mesh", "1x2"],
+                                  900)
+            tp_wall = wait_workers(tp_workers, 600)
+        finally:
+            for p in tp_workers.procs:
+                p.kill()
         ranks = [json.load(open(os.path.join(d, f"real_obs.{r}.json"))) for r in range(2)]
         work = ranks[0]["work_dir"]
         outs = {k: np.load(os.path.join(work, f"{k}.npy"))[0]
                 for k in ("ana_wrmse", "bg_wrmse", "error_obs")}
+        tp_ranks = [json.load(open(os.path.join(tp_dir, f"tp.{r}.json"))) for r in range(2)]
     want_launches = (8 + 1) * per_step
     for r in ranks:
         c = r["cycle_log"][0]
@@ -2091,7 +2148,9 @@ def check_mesh(ref):
                                  f"want half of {ref['cycle']['obs_bytes']}")
         if (c["n_gridded"], c["n_kept"]) != (ref["cycle"]["n_gridded"], ref["cycle"]["n_kept"]):
             raise AssertionError("(a) the ranks' obs counts do not add up to the single run's")
-    launches = sum(r["launches"][0] for r in ranks)
+    counts = {"flash_fwd": sum(r["launches"][0] for r in ranks), "flash_dq": 0, "flash_dkv": 0}
+    for k, v in check_tp(tp_ranks, tp_wall).items():
+        counts[k] += v
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2100,7 +2159,7 @@ def check_mesh(ref):
     with tempfile.TemporaryDirectory() as out, tempfile.TemporaryFile("w+") as log:
         cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
                "--nproc_per_node", "1", "--master_addr", "localhost", "--master_port",
-               str(_free_port()), "-m", "vaevar_tpu_torch.run_da", "--mesh", "1x1",
+               str(_free_port()), "-m", "vaevar_tpu_torch.run_da", "--mesh", "1x1x1",
                *MESH_MICRO, "--work_dir", out]
         t0 = time.perf_counter()
         proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, text=True,
@@ -2117,37 +2176,221 @@ def check_mesh(ref):
         files = {f for _, _, fs in os.walk(out) for f in fs}
         log.seek(0)
         text = log.read()
-    nccl = "mesh: sh 1 x sw 1, rank 0 on cuda:0 (nccl)" in text
-    phase("mesh", f"(c) torch.distributed.run --nproc_per_node 1 run_da --mesh 1x1: exit "
+    nccl = "mesh: tp 1 x sh 1 x sw 1, rank 0 on cuda:0 (nccl)" in text
+    phase("mesh", f"(c) torch.distributed.run --nproc_per_node 1 run_da --mesh 1x1x1: exit "
           f"{proc.returncode} in {seconds:.1f} s, beside (b); nccl process group {nccl}; "
           f"files {sorted(files)}")
     if proc.returncode != 0 or not nccl or "xb.npy" not in files:
         raise AssertionError(f"the nccl run_da run failed:\n{text[-6000:]}")
-    return launches
+    return counts
+
+
+def _increment(work):
+    import numpy as np
+
+    (xa,) = [f for f in os.listdir(work) if f.startswith("xa_")]
+    return np.load(os.path.join(work, xa)) - np.load(os.path.join(work, "xb_" + xa[3:]))
 
 
 def check_mesh_micro():
-    """The mesh phase's part (b): micro --mesh 2x2 (4 ranks) reduced 3D-Var
-    and da_win 3 window cycles against single-process runs here."""
+    """The mesh phase's part (b): micro --mesh 2x2 and --mesh 2x1x2 (4
+    ranks) reduced 3D-Var and da_win 3 window cycles against single-process
+    runs here, and a bf16 --mesh 2x1x2 3D-Var cycle's increment against one
+    process's."""
     import numpy as np
 
     from vaevar_tpu_torch import run_da
 
     with tempfile.TemporaryDirectory() as d:
-        wall = launch_workers("--mesh-worker", 4,
-                              [d, "--runs", ",".join(MESH_MICRO_RUNS), "--mesh", "2x2"], 600)
-        for name, extra in MESH_MICRO_RUNS.items():
+        wall = launch_workers("--mesh-worker", 4, [d, "--runs", ",".join(MESH_MICRO_RUNS)], 600)
+        singles = {}
+        for name, (extra, mesh) in MESH_MICRO_RUNS.items():
             ranks = [json.load(open(os.path.join(d, f"{name}.{r}.json"))) for r in range(4)]
-            single = run_da.main(MESH_MICRO + extra + ["--work_dir", os.path.join(d, "single")])
+            if tuple(extra) not in singles:
+                singles[tuple(extra)] = run_da.main(
+                    MESH_MICRO + extra + ["--work_dir", os.path.join(d, f"single_{name}")])
+            single = singles[tuple(extra)]
+            if len({tuple(r["digests"]) for r in ranks}) != 1:
+                raise AssertionError(f"(b) {name}: the ranks' lockstep digests differ")
+            what = f"(b) micro {name} --mesh {mesh}, rank 0 against one process"
+            if "--bf16" in extra:
+                inc, ref = _increment(ranks[0]["work_dir"]), _increment(single.work_dir)
+                rel = float(np.linalg.norm(inc - ref) / np.linalg.norm(ref))
+                c, c1 = ranks[0]["cycle_log"][0], single.cycle_log[0]
+                phase("mesh", f"{what}: analysis increment norm-rel {rel:.3g} (tol 1e-3); "
+                      f"iterations {c['n_iters']} ({c1['n_iters']}), evals {c['n_evals']} "
+                      f"({c1['n_evals']}); param bytes {c['param_bytes']} ({c1['param_bytes']})")
+                if not rel <= 1e-3:
+                    raise AssertionError(f"{what}: the increment disagrees")
+                continue
             rows = [{k: np.load(os.path.join(w, f"{k}.npy"))[0]
                      for k in ("ana_wrmse", "error_obs")}
                     for w in (ranks[0]["work_dir"], single.work_dir)]
-            if len({tuple(r["digests"]) for r in ranks}) != 1:
-                raise AssertionError(f"(b) {name}: the ranks' lockstep digests differ")
-            compare_cycles(f"(b) micro {name} --mesh 2x2, rank 0 against one process",
-                           ranks[0]["cycle_log"][0], single.cycle_log[0], *rows)
-            del single
+            compare_cycles(what, ranks[0]["cycle_log"][0], single.cycle_log[0], *rows)
+        del singles
     phase("mesh", f"(b) 4 ranks, {wall:.1f} s with the workers' start")
+
+
+# the mesh phase's part (e): a MoEMlp at the LG stage's widths, 8 experts
+TP_MOE = dict(dim=192, hidden=768, num_experts=8)
+
+
+def tp_worker(d):
+    """One rank of the mesh phase's parts (d) and (e): 2 ranks on the one
+    card over gloo, tp 2 (`--mesh 2x1x1`), ep 2. Writes tp.<rank>.json under
+    `d`."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from vaevar_tpu_torch import config as cfgs
+    from vaevar_tpu_torch.models import zoo
+    from vaevar_tpu_torch.models.lgunet import LGUnet
+    from vaevar_tpu_torch.ops import flash_attn as fa
+    from vaevar_tpu_torch.parallel import mesh as pmesh
+    from vaevar_tpu_torch.train import forecast_trainer as ft
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import test_torch_prod_pinned as pinned
+
+    rank = pmesh.init_distributed(backend="gloo", device="cuda")
+    mesh = pmesh.spatial_mesh_from_arg("2x1x1", "cuda")
+    out = {"rank": rank}
+
+    def nbytes(m):
+        return sum(p.numel() * p.element_size() for p in m.parameters())
+
+    # (d) the production decoder at tp 2, JAX's pinned golden
+    t0 = time.perf_counter()
+    decoder = filled(lambda: LGUnet(cfgs.VAE_DECODER), 0).to(mesh.device)
+    out["whole_bytes"] = nbytes(decoder)
+    pmesh.shard_tensor_parallel(decoder, mesh)
+    torch.cuda.synchronize()
+    out.update(build_s=time.perf_counter() - t0, param_bytes=nbytes(decoder),
+               report=pmesh.tensor_parallel_report(decoder))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out["summary"] = pinned.compute_summary("cuda", decoder)
+    torch.cuda.synchronize()
+    out.update(summary_s=time.perf_counter() - t0,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del decoder
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) the micro flash model placed at tp 2: forward and one train step
+    # against the unplaced model, the placed run's launches counted
+    rng = np.random.default_rng(4)
+    x, tar = (torch.from_numpy(rng.standard_normal((1, 69, 32, 64), dtype=np.float32)).cuda()
+              for _ in range(2))
+
+    def run(place):
+        model = micro_model().cuda().eval()
+        if place:
+            pmesh.shard_tensor_parallel(model, mesh)
+        with torch.no_grad():
+            y = model(x)
+        model = micro_model(remat=True).cuda().train()
+        if place:
+            pmesh.shard_tensor_parallel(model, mesh)
+        init_fn, step = ft.make_forecast_train_step(model, "Possloss", lr=1e-4, total_steps=10,
+                                                    out_shape=(138, 32, 64))
+        trainable, opt_state = init_fn()
+        _, _, loss = step(trainable, opt_state, x, [tar])
+        for p in model.parameters():
+            p.data = p.grad
+        grads = pmesh.tensor_parallel_state_dict(model) if place else model.state_dict()
+        return y, loss.item(), torch.cat([grads[k].flatten() for k in sorted(grads)])
+
+    y_ref, loss_ref, g_ref = run(False)
+    fa.flash_fwd_launches = fa.flash_dq_launches = fa.flash_dkv_launches = 0
+    y, loss, g = run(True)
+    torch.cuda.synchronize()
+    out["launches"] = [fa.flash_fwd_launches, fa.flash_dq_launches, fa.flash_dkv_launches]
+    out["micro"] = {"y_err": (y - y_ref).abs().max().item(), "loss": loss, "loss_ref": loss_ref,
+                    "g_err": (g - g_ref).abs().max().item(), "g_scale": g_ref.abs().max().item(),
+                    "finite": bool(torch.isfinite(y).all() and torch.isfinite(g).all())}
+    out["micro_report"] = pmesh.tensor_parallel_report(
+        pmesh.shard_tensor_parallel(micro_model(), mesh))
+
+    # (e) the experts at ep 2 against the unplaced bank, the same router draw
+    torch.manual_seed(0)
+    ref = zoo.MoEMlp(**TP_MOE).cuda()
+    bank = pmesh.shard_experts(copy.deepcopy(ref), pmesh.expert_mesh(2))
+    xm = torch.from_numpy(rng.standard_normal((1, 90, 180, TP_MOE["dim"]),
+                                              dtype=np.float32)).cuda()
+    res = {}
+    for name, m in (("ref", ref), ("ep", bank)):
+        xg = xm.clone().requires_grad_(True)
+        ym, zm, bm = m(xg, rng=torch.Generator(device="cuda").manual_seed(7))
+        (torch.mean(ym ** 2) + zm + bm).backward()
+        res[name] = (ym.detach(), zm.item(), bm.item(), xg.grad,
+                     {k: p.grad for k, p in m.named_parameters()})
+    (y0, z0, b0, gx0, gp0), (y1, z1, b1, gx1, gp1) = res["ref"], res["ep"]
+    n = TP_MOE["num_experts"] // 2
+    block = slice(rank * n, (rank + 1) * n)
+    g_errs = {"input": ((gx1 - gx0).abs().max() / gx0.abs().max()).item()}
+    for k, v in gp1.items():
+        want = gp0[k][block] if k.split(".")[-1] in ("w1", "b1", "w2", "b2") else gp0[k]
+        g_errs[k] = ((v - want).abs().max() / want.abs().max()).item()
+    out["moe"] = {"y_excess": ((y1 - y0).abs() - 1e-6 - 2e-6 * y0.abs()).max().item(),
+                  "y_err": (y1 - y0).abs().max().item(), "z": [z1, z0], "b": [b1, b0],
+                  "g_rel": g_errs, "experts": [block.start, block.stop]}
+    with open(os.path.join(d, f"tp.{rank}.json"), "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def check_tp(ranks, wall):
+    """The mesh phase's parts (d) and (e) from the tp workers' records:
+    prints and checks them; returns (e)'s launches, summed over the ranks."""
+    import numpy as np
+
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    sys.path.insert(0, tests)
+    import test_torch_prod_pinned as pinned
+
+    with open(pinned.ART) as f:
+        golden = json.load(f)
+    for r in ranks:
+        rel = pinned.relative_errors(r["summary"], golden)
+        phase("mesh", f"(d) rank {r['rank']}: VAE_DECODER f32 at tp 2, built and placed in "
+              f"{r['build_s']:.2f} s, {r['param_bytes'] / 1e9:.4f} GB of parameters on this "
+              f"rank against {r['whole_bytes'] / 1e9:.4f} GB whole; pinned summary in "
+              f"{r['summary_s']:.2f} s, peak {r['peak_gib']:.2f} GiB; relative errors against "
+              f"tests/goldens/prod_geometry_pinned.json (tol {pinned.RTOL_SCALAR:g} on the "
+              f"scalars, {pinned.RTOL_PROBE:g} on inc_probe): "
+              + ", ".join(f"{k} {v:.3g}" for k, v in rel.items()))
+        if pinned.misses(rel):
+            raise AssertionError(f"(d) rank {r['rank']}: the tp 2 summary misses JAX's pinned "
+                                 f"golden: {pinned.misses(rel)}")
+    phase("mesh", "(d) placement: " + "; ".join(ranks[0]["report"]))
+    if ranks[0]["summary"] != ranks[1]["summary"]:
+        raise AssertionError("(d) the tp ranks' summaries differ")
+    for r in ranks:
+        m, e = r["micro"], r["moe"]
+        phase("mesh", f"(e) rank {r['rank']}: micro rope flash LGUnet at tp 2 against the "
+              f"unplaced model on the card: forward max|d| {m['y_err']:.3g} (atol 1e-4), train "
+              f"step loss {m['loss']:.7g} vs {m['loss_ref']:.7g}, gradients max|d| "
+              f"{m['g_err']:.3g} <= {1e-3 * m['g_scale']:.3g} (1e-3 x max|grad|); placed flash "
+              f"launches (fwd, dq, dkv) {r['launches']}; placement: "
+              + "; ".join(r["micro_report"]))
+        phase("mesh", f"(e) rank {r['rank']}: MoEMlp {TP_MOE} at 90x180 on experts "
+              f"{e['experts']} at ep 2: output max|d| {e['y_err']:.3g} (rtol 2e-6 + atol "
+              f"1e-6), z {e['z'][0]!r} vs {e['z'][1]!r}, balance {e['b'][0]!r} vs {e['b'][1]!r} "
+              f"(rtol 1e-6); gradients relative to their largest entry: max "
+              f"{max(e['g_rel'].values()):.3g} (tol 5e-5)")
+        if not (m["finite"] and m["y_err"] <= 1e-4 and abs(m["loss"] - m["loss_ref"]) <= 1e-4
+                and m["g_err"] <= 1e-3 * m["g_scale"] and min(r["launches"]) > 0):
+            raise AssertionError(f"(e) rank {r['rank']}: the tp micro model disagrees or "
+                                 f"launched {r['launches']}")
+        if not (e["y_excess"] <= 0 and max(e["g_rel"].values()) <= 5e-5 and all(
+                abs(a - b) <= 1e-6 * abs(b) for a, b in (e["z"], e["b"]))):
+            raise AssertionError(f"(e) rank {r['rank']}: the experts at ep 2 disagree: {e}")
+    phase("mesh", f"(d), (e) 2 ranks, {wall:.1f} s with the workers' start, beside (a)")
+    counts = np.sum([r["launches"] for r in ranks], axis=0)
+    return dict(zip(("flash_fwd", "flash_dq", "flash_dkv"), map(int, counts)))
 
 
 def top_device_ops(trace, n=5):
@@ -2325,6 +2568,9 @@ def run_phases(timer):
         check_cli()
     gc.collect()
     torch.cuda.empty_cache()
+    # the OSSE (micro, deterministic) in a process of its own beside the
+    # record and vae_train phases; its output is replayed where it joins
+    osse_worker = start_workers("--osse-worker", 1, [])
     with timer.phase("record"):
         record_launches = check_record(fa)
     gc.collect()
@@ -2342,7 +2588,14 @@ def run_phases(timer):
     gc.collect()
     torch.cuda.empty_cache()
     with timer.phase("osse"):
-        check_osse()
+        try:
+            osse_s = wait_workers(osse_worker, 900)
+        finally:
+            for p in osse_worker.procs:
+                p.kill()
+        print(osse_worker.texts[0], end="", flush=True)
+        phase("osse", f"its process joined here {osse_s:.1f} s after it started with the record "
+              "phase")
     gc.collect()
     torch.cuda.empty_cache()
     with timer.phase("sd_zoo"):
@@ -2354,7 +2607,7 @@ def run_phases(timer):
     gc.collect()
     torch.cuda.empty_cache()
     with timer.phase("mesh"):
-        mesh_launches = check_mesh(real_obs_ref)
+        mesh_counts = check_mesh(real_obs_ref)
 
     stats = {"flash_fwd": fwd, "flash_dq": bwd["flash_dq"], "flash_dkv": bwd["flash_dkv"]}
     replaces = {"flash_fwd": ("flash_fwd.cu", "vaevar_tpu/ops/pallas_attn.py:47"),
@@ -2365,9 +2618,10 @@ def run_phases(timer):
         main, rec = stats[name]["main"], {
             "name": name, "route": "cuda", "source": f"vaevar_tpu_torch/csrc/{src}",
             "replaces": tpu,
-            "launches": train_counts[name] + dp_counts[name] + sd_counts[name] + (
+            "launches": train_counts[name] + dp_counts[name] + sd_counts[name]
+            + mesh_counts[name] + (
                 launches + window_launches + record_launches + vae_launches + sc4dvar_launches
-                + real_obs_launches + mesh_launches if name == "flash_fwd" else 0),
+                + real_obs_launches if name == "flash_fwd" else 0),
             "max_abs_err": stats[name]["max_abs_err"]}
         rec.update(main)
         rec["share_of_bound"] = main["bound_ms"] / main["ms"]
@@ -2441,6 +2695,14 @@ def check_main(fa):
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-worker"]:
         sys.exit(dp_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--osse-worker"]:
+        import torch
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        sys.exit(check_osse())
+    if sys.argv[1:2] == ["--tp-worker"]:
+        sys.exit(tp_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--mesh-worker"]:
         sys.exit(mesh_worker(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

@@ -1,5 +1,6 @@
-"""The spatially partitioned solve (run_da --mesh SHxSW) against the port's
-single-process solve and JAX's sharded one.
+"""The spatially partitioned solve (run_da --mesh SHxSW), and the same with
+tensor-parallel ranks (TPxSHxSW), against the port's single-process solve
+and JAX's sharded one.
 
 The setup is tests/test_sharded_da.py's micro one: 32x64, the micro VAE
 decoder (latent (1, 8, 32, 64)), free_0005 obs of a perturbed background,
@@ -13,7 +14,16 @@ Four gloo ranks in subprocesses on the CPU, one torch thread each (this file
 is also the worker: `python tests/test_torch_mesh.py <dir>` with torchrun's
 environment), form a 2x2 mesh, each holding its tile of yo, H (and of a full
 R) by JAX's rule. While they run, this process solves the same problems
-without a mesh and JAX solves them on a 2x2 mesh of its CPU devices.
+without a mesh and JAX solves them on a 2x2 mesh of its CPU devices. Then
+four more ranks form a tp x sh x sw mesh of 2x1x2 (`python
+tests/test_torch_mesh.py <dir> 2x1x2`): the decoder placed by
+shard_tensor_parallel over each tile's 2 tp ranks (its 1-head LG stage
+keeps its attention whole, its MLP splits), the obs tiled over sw; they
+solve the reduced and the full cost (the full one with zoom and with
+jvp-zoom) against the single process and JAX's VariationalSolver on a
+{"tp": 2, "sh": 1, "sw": 2} mesh with its shard_tensor_parallel on the
+decoder. The 2x2x2 mesh (8 ranks) against JAX's is in the slow tier, as
+JAX's own (tests/test_sharded_da.py:256-300).
 
 Tolerances:
 - `tile_for` equals JAX's NamedSharding placement exactly (spec,
@@ -30,7 +40,8 @@ Tolerances:
   values are printed with -s). JAX's window solves are in the slow tier:
   each compiles for 40-50 s on the CPU, which would take the file past its
   ~60 s budget.
-- The ranks' controls and analyses: bitwise equal.
+- The ranks' controls and analyses: bitwise equal (tp x sh x sw: every
+  number, on every rank).
 """
 
 from __future__ import annotations
@@ -54,6 +65,8 @@ MESH = (2, 2)
 ITERS = 4
 SOLVES = ("full", "reduced", "window", "realwin")
 JAX_FAST = ("full", "reduced")  # JAX's window solves compile for 40-50 s each
+TP_SOLVES = ("full", "reduced")  # and full_jvp
+TP_AXES = {"tp": 2, "sh": 1, "sw": 2}
 
 
 def _configs(C):
@@ -79,7 +92,7 @@ def _port_problems(d: Path, mesh=None):
     from vaevar_tpu_torch import config as tcfg
     from vaevar_tpu_torch.da import cost as tcost
     from vaevar_tpu_torch.models.lgunet import LGUnet
-    from vaevar_tpu_torch.parallel.mesh import shard
+    from vaevar_tpu_torch.parallel.mesh import shard, shard_tensor_parallel
 
     dec_cfg, flow_cfg = _configs(tcfg)
     models = {}
@@ -87,6 +100,8 @@ def _port_problems(d: Path, mesh=None):
         m = LGUnet(cfg)
         m.load_state_dict(torch.load(d / f"{name}.pt"), strict=True)
         models[name] = m.eval().requires_grad_(False)
+    if mesh is not None:  # a tp x sh x sw mesh splits the decoder (tp 1: nothing)
+        shard_tensor_parallel(models["decoder"], mesh)
     dec, flow = models["decoder"], models["flow"]
     inp = {k: torch.from_numpy(v) for k, v in np.load(d / "inputs.npz").items()}
     b1 = tcost.ObsBundle(inp["xb"], inp["yo"], inp["H"], inp["R"])
@@ -106,8 +121,9 @@ def _port_problems(d: Path, mesh=None):
     }, inp
 
 
-def _port_results(d: Path, mesh=None) -> dict:
-    """Every number the tests compare, from one process or one rank."""
+def _port_results(d: Path, mesh=None, solves=SOLVES) -> dict:
+    """Every number the tests compare, from one process or one rank, for
+    the problems `solves`."""
     from vaevar_tpu_torch.da import cost as tcost
     from vaevar_tpu_torch.da.lbfgs import value_and_slope
     from vaevar_tpu_torch.da.solver import VariationalSolver
@@ -128,7 +144,7 @@ def _port_results(d: Path, mesh=None) -> dict:
         x_pred = shard(x_pred, mesh)
     out["obs_term"] = tcost.obs_term(x_pred, full_r, mesh=mesh)
     z, u = inp["z_probe"], inp["u_probe"]
-    for name in ("full", "realwin"):
+    for name in [n for n in ("full", "realwin") if n in solves]:
         cost, _, _, bundle = problems[name]
         x = z.clone().requires_grad_(True)
         J = cost(x, bundle)
@@ -136,7 +152,7 @@ def _port_results(d: Path, mesh=None) -> dict:
         _, slope = value_and_slope(lambda q: cost(q, bundle), z, u)
         out.update({f"{name}_J": J.detach(), f"{name}_g": g, f"{name}_slope": slope})
     z0 = torch.zeros(LATENT)
-    runs = [(name, name, "zoom") for name in SOLVES] + [("full_jvp", "full", "jvp-zoom")]
+    runs = [(name, name, "zoom") for name in solves] + [("full_jvp", "full", "jvp-zoom")]
     for key, name, ls in runs:
         cost, to_state, parts, bundle = problems[name]
         solver = VariationalSolver(cost, to_state, parts, lbfgs_iters=ITERS, linesearch=ls)
@@ -177,6 +193,18 @@ def _worker(d: Path):
     torch.distributed.destroy_process_group()
 
 
+def _tp_worker(d: Path, arg: str):
+    """One rank of a tp x sh x sw mesh `arg`: the TP_SOLVES problems with
+    the decoder placed over the rank's tp group."""
+    torch.set_num_threads(1)
+    from vaevar_tpu_torch.parallel import mesh as pmesh
+
+    rank = pmesh.init_distributed(backend="gloo", device="cpu")
+    out = _port_results(d, pmesh.spatial_mesh_from_arg(arg, "cpu"), TP_SOLVES)
+    np.savez(d / f"{arg}.rank{rank}.npz", **out)
+    torch.distributed.destroy_process_group()
+
+
 # --- the parent: inputs, the single-process port, JAX ------------------------
 
 
@@ -213,9 +241,11 @@ def _inputs():
                 u_probe=rr.standard_normal(LATENT).astype(np.float32))
 
 
-def _jax_solves(inputs, dec_params, flow_params, names) -> dict:
-    """JAX's VariationalSolver on a 2x2 mesh of its CPU devices, for the
-    problems `names`: {name: analysis}."""
+def _jax_solves(inputs, dec_params, flow_params, names, axes=None) -> dict:
+    """JAX's VariationalSolver on a mesh of its CPU devices (`axes`, the
+    2x2 {"sh", "sw"} mesh by default; with a "tp" axis the decoder placed by
+    its shard_tensor_parallel), for the problems `names`: {name:
+    analysis}."""
     import jax
     import jax.numpy as jnp
 
@@ -241,7 +271,10 @@ def _jax_solves(inputs, dec_params, flow_params, names) -> dict:
         "realwin": lambda: (jcost.make_vae4dvar_cost(dec.apply, flow.apply, flow_hw=HW,
                                                      da_win=2, interp_matrix=j["interp"]), b3),
     }
-    mesh = jmesh.make_mesh({"sh": MESH[0], "sw": MESH[1]}, jax.devices()[:MESH[0] * MESH[1]])
+    axes = axes or {"sh": MESH[0], "sw": MESH[1]}
+    mesh = jmesh.make_mesh(axes, jax.devices()[:int(np.prod(list(axes.values())))])
+    if "tp" in axes:
+        dec_params = jmesh.shard_tensor_parallel(dec_params, mesh)
     params = {"decoder": dec_params, "flow": flow_params}
     out = {}
     for name in names:
@@ -268,27 +301,58 @@ def world(tmp_path_factory):
     np.savez(d / "inputs.npz", **inputs)
 
     n = MESH[0] * MESH[1]
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(REPO), str(HERE)]),
-               MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()), WORLD_SIZE=str(n),
-               OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen([sys.executable, __file__, str(d)], cwd=REPO, text=True,
-                              env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)
-             for r in range(n)]
+    procs = _launch(d, n)
     try:
         torch.set_num_threads(1)
         single = _port_results(d)
         jax_xa = _jax_solves(inputs, dec_params, flow_params, JAX_FAST)
-        logs = [p.communicate(timeout=300) for p in procs]
+        _wait(procs)
     finally:
         for p in procs:
             p.kill()
-    for p, (o, e) in zip(procs, logs):
-        assert p.returncode == 0, f"worker failed:\n{o[-3000:]}\n{e[-6000:]}"
     ranks = [dict(np.load(d / f"rank{r}.npz")) for r in range(n)]
     meta = [json.load(open(d / f"rank{r}.json")) for r in range(n)]
     return dict(inputs=inputs, single=single, jax=jax_xa, ranks=ranks, meta=meta,
-                params=(dec_params, flow_params))
+                params=(dec_params, flow_params), dir=d)
+
+
+def _launch(d: Path, n: int, *args) -> list:
+    """n gloo ranks of this file as workers on `d` (`args`: a tp x sh x sw
+    mesh), with torchrun's environment and a free port."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(REPO), str(HERE)]),
+               MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()), WORLD_SIZE=str(n),
+               OMP_NUM_THREADS="1")
+    return [subprocess.Popen([sys.executable, __file__, str(d), *args], cwd=REPO, text=True,
+                             env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+            for r in range(n)]
+
+
+def _wait(procs):
+    logs = [p.communicate(timeout=300) for p in procs]
+    for p, (o, e) in zip(procs, logs):
+        assert p.returncode == 0, f"worker failed:\n{o[-3000:]}\n{e[-6000:]}"
+
+
+def _tp_run(world, axes) -> dict:
+    """The TP_SOLVES on the ranks of a tp x sh x sw mesh `axes`, and JAX's
+    on the same mesh of its devices, run meanwhile."""
+    arg = "x".join(str(axes[a]) for a in ("tp", "sh", "sw"))
+    n = int(np.prod(list(axes.values())))
+    procs = _launch(world["dir"], n, arg)
+    try:
+        jax_xa = _jax_solves(world["inputs"], *world["params"], TP_SOLVES, axes)
+        _wait(procs)
+    finally:
+        for p in procs:
+            p.kill()
+    return dict(jax=jax_xa, ranks=[dict(np.load(world["dir"] / f"{arg}.rank{r}.npz"))
+                                   for r in range(n)])
+
+
+@pytest.fixture(scope="module")
+def tp_world(world):
+    return _tp_run(world, TP_AXES)
 
 
 # --- the tiling rule ---------------------------------------------------------
@@ -391,8 +455,9 @@ def test_obs_holdout_error_sums_every_tile_of_the_grid(monkeypatch, mesh_shape):
 
 
 def test_spatial_mesh_from_arg_checks_the_launch(monkeypatch):
-    """Outside a launch of SH*SW processes --mesh SHxSW raises; TPxSHxSW
-    names ROADMAP A.13c; 1x1 is one process without a group."""
+    """Outside a launch of TP*SH*SW processes --mesh SHxSW and TPxSHxSW
+    raise; TPxSHxSW parses to (tp, sh, sw), SHxSW to tp 1; malformed meshes
+    raise ValueError; 1x1 and 1x1x1 are one process without a group."""
     from vaevar_tpu_torch.parallel import mesh as tmesh
 
     for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "SLURM_NTASKS",
@@ -400,12 +465,18 @@ def test_spatial_mesh_from_arg_checks_the_launch(monkeypatch):
         monkeypatch.delenv(k, raising=False)
     with pytest.raises(RuntimeError, match="needs 4 processes"):
         tmesh.spatial_mesh_from_arg("2x2", "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.13c"):
+    with pytest.raises(RuntimeError, match="needs 8 processes"):
         tmesh.spatial_mesh_from_arg("2x2x2", "cpu")
-    with pytest.raises(ValueError, match="SHxSW"):
-        tmesh.spatial_mesh_from_arg("4", "cpu")
-    assert tmesh.spatial_mesh_from_arg("1x1", "cpu") == tmesh.SpatialMesh(1, 1, 0,
-                                                                        torch.device("cpu"))
+    assert tmesh.parse_spatial_mesh("2x1x4") == (2, 1, 4)
+    assert tmesh.parse_spatial_mesh("2x4") == (1, 2, 4)
+    for bad in ("4", "2x2x2x2", "0x2", "2x0x2", "ax2", "2x"):
+        with pytest.raises(ValueError, match="SHxSW"):
+            tmesh.spatial_mesh_from_arg(bad, "cpu")
+    one = tmesh.SpatialMesh(1, 1, 0, torch.device("cpu"))
+    assert tmesh.spatial_mesh_from_arg("1x1", "cpu") == one
+    assert tmesh.spatial_mesh_from_arg("1x1x1", "cpu") == one
+    assert one.coords == {"tp": 0, "sh": 0, "sw": 0}
+    assert tmesh.SpatialMesh(2, 2, 6, tp=2).coords == {"tp": 1, "sh": 1, "sw": 0}
 
 
 # --- four ranks against one process and JAX ----------------------------------
@@ -496,5 +567,63 @@ def test_mesh_layout_host_value_and_drift_check(world):
         assert "replicas drifted apart" in m["drift"]
 
 
+# --- tp x sh x sw: the decoder tensor-parallel ------------------------------
+
+
+def _check_tp_solve(world, run, key):
+    """A tp x sh x sw run's solve `key` on rank 0 against the single
+    process: equal counts, the increment within norm-rel 1e-3, Jb and Jo."""
+    s, got = world["single"], run["ranks"][0]
+    np.testing.assert_array_equal(got[f"{key}_counts"], s[f"{key}_counts"])
+    rel = _increment_rel(got[f"{key}_xa"], s[f"{key}_xa"], world["inputs"]["xb"])
+    print(f"{key}: increment norm-rel against the single-process solve {rel:.3g}")
+    assert rel <= 1e-3, rel
+    np.testing.assert_allclose(got[f"{key}_jbjo"], s[f"{key}_jbjo"], rtol=1e-3)
+
+
+def _check_tp_jax(world, run, key):
+    rel = _increment_rel(run["ranks"][0][f"{key}_xa"], run["jax"][key], world["inputs"]["xb"])
+    print(f"{key}: increment norm-rel against JAX's tp x sh x sw mesh solve {rel:.3g}")
+    assert rel <= 1e-3, rel
+
+
+def _check_ranks_bitwise(ranks):
+    for k in ranks[0]:
+        for r in range(1, len(ranks)):
+            np.testing.assert_array_equal(ranks[r][k], ranks[0][k], err_msg=f"rank {r}: {k}")
+
+
+@pytest.mark.parametrize("key", [*TP_SOLVES, "full_jvp"])
+def test_tp_sharded_solve_matches_the_single_process_solve(world, tp_world, key):
+    _check_tp_solve(world, tp_world, key)
+    if key == "full":  # the obs tiled over sw alone; the tp ranks of a tile hold it both
+        assert tuple(tp_world["ranks"][0]["full_yo_shape"]) == (1, 69, HW[0], HW[1] // 2)
+
+
+@pytest.mark.parametrize("key", TP_SOLVES)
+def test_tp_sharded_solve_matches_jax_tp_sharded_solve(world, tp_world, key):
+    _check_tp_jax(world, tp_world, key)
+
+
+def test_tp_ranks_agree_bitwise(tp_world):
+    _check_ranks_bitwise(tp_world["ranks"])
+
+
+@pytest.mark.slow
+def test_2x2x2_solve_matches_single_process_and_jax(world):
+    """tp 2 x sh 2 x sw 2 on 8 ranks against one process and JAX's 2x2x2
+    mesh (tests/test_sharded_da.py:256-300's): slow, as JAX's own."""
+    run = _tp_run(world, {"tp": 2, "sh": 2, "sw": 2})
+    for key in (*TP_SOLVES, "full_jvp"):
+        _check_tp_solve(world, run, key)
+    for key in TP_SOLVES:
+        _check_tp_jax(world, run, key)
+    assert tuple(run["ranks"][0]["full_yo_shape"]) == (1, 69, HW[0] // 2, HW[1] // 2)
+    _check_ranks_bitwise(run["ranks"])
+
+
 if __name__ == "__main__":
-    _worker(Path(sys.argv[1]))
+    if len(sys.argv) == 3:
+        _tp_worker(Path(sys.argv[1]), sys.argv[2])
+    else:
+        _worker(Path(sys.argv[1]))

@@ -20,13 +20,14 @@ observation-level channels (ops/interp.augment_levels) before the
 innovation (da_4dvar.py:1196-1206). Both modes share each form's code: only
 the map from the control to the low-res increment differs.
 
-With a `mesh` (parallel/mesh.py::SpatialMesh, run_da --mesh SHxSW) the
-full-resolution yo, H and a full R are this rank's tiles, and xb stays
-whole. The reductions reduce each tile and sum the partial sums over the
-ranks, so the reduced bundles, and the solves on them, need no collective.
-The full-grid costs evaluate the obs term on the tile: the obs branch
-starts at `copy_to_ranks` and its Jo is summed over the ranks by
-`sum_over_ranks`, so J, its gradient and its jvp slope are every rank's,
+With a `mesh` (parallel/mesh.py::SpatialMesh, run_da --mesh SHxSW or
+TPxSHxSW) the full-resolution yo, H and a full R are this rank's tiles, and
+xb stays whole. The reductions reduce each tile and sum the partial sums
+over the mesh's spatial group (the tiles of one tp index), so the reduced
+bundles, and the solves on them, need no collective of their own. The
+full-grid costs evaluate the obs term on the tile: the obs branch starts at
+`copy_to_ranks` and its Jo is summed over the spatial group by
+`sum_over_tile_ranks`, so J, its gradient and its jvp slope are every tile's,
 while Jb = 1/2 ||x||^2, outside the copy, counts once. The copy sits on the
 low-res increment (69, h, w), the decoder's (or B^1/2's) output: the model's
 backward then runs once, on the summed gradient, and rounds as it does in
@@ -48,7 +49,7 @@ from vaevar_tpu_torch.ops.interp import _nearest_idx, augment_levels, resize_nea
 from vaevar_tpu_torch.parallel.mesh import (
     copy_to_ranks,
     shard,
-    sum_over_ranks,
+    sum_over_tile_ranks,
     sum_over_tiles,
     tile_for,
 )
@@ -109,8 +110,8 @@ def _down_matrices(full_hw, low_hw, device, tile=None):
 
 def reduce_obs(bundle: ObsBundle, low_hw, mesh=None) -> ReducedObs:
     """Exact reduction of (yo, H, R) onto the solver grid (da_win == 1).
-    With a `mesh`, of this rank's tiles, summed over the ranks in one
-    all-reduce: every rank returns the whole ReducedObs."""
+    With a `mesh`, of this rank's tiles, summed over its spatial group in
+    one all-reduce: every rank returns the whole ReducedObs."""
     xb = bundle.xb
     tile = None if mesh is None else tile_for(mesh, xb.shape)
     Mh, Mw = _down_matrices(xb.shape[-2:], low_hw, xb.device, tile)
@@ -281,11 +282,11 @@ def obs_term(x_pred, bundle: ObsBundle, interp_matrix=None, mesh=None):
     """1/2 sum H (x_pred - yo)^2 / R, with x_pred first augmented to the
     observation levels when `interp_matrix` is given. With a `mesh`, x_pred
     and the bundle's obs fields are this rank's tiles, and the sum runs
-    over every rank's tile (`sum_over_ranks`)."""
+    over every rank's tile (`sum_over_tile_ranks`)."""
     if interp_matrix is not None:
         x_pred = augment_levels(x_pred, interp_matrix)
     jo = 0.5 * torch.sum(bundle.H * (x_pred - bundle.yo) ** 2 / bundle.R)
-    return jo if mesh is None else sum_over_ranks(jo, tile_for(mesh, bundle.xb.shape))
+    return jo if mesh is None else sum_over_tile_ranks(jo, tile_for(mesh, bundle.xb.shape))
 
 
 def _window_predict(x0, flow, flow_hw, da_win: int):
@@ -332,7 +333,7 @@ def _make_window_obs(flow, flow_hw, da_win: int, interp_matrix=None, mesh=None):
         for t in range(1, da_win):
             x, jo_t = step(x, bundle.yo[t], bundle.H[t], R[t])
             jo = jo + jo_t
-        return jo if mesh is None else sum_over_ranks(jo, tile_for(mesh, bundle.xb.shape))
+        return jo if mesh is None else sum_over_tile_ranks(jo, tile_for(mesh, bundle.xb.shape))
 
     return window_obs
 
@@ -348,7 +349,7 @@ def _full_cost(increment, flow, flow_hw, da_win, obs_coeff, interp_matrix=None, 
     if mesh is None:
         obs_state = to_state
     else:
-        branch = _state_fn(lambda x: copy_to_ranks(increment(x)))
+        branch = _state_fn(lambda x: copy_to_ranks(increment(x), mesh.group))
         rollout = da_win > 1 and flow is not None  # the rollout runs on whole states
 
         def obs_state(x, bundle: ObsBundle):

@@ -28,10 +28,13 @@ With a `mesh` (parallel/mesh.py::SpatialMesh, run_da --mesh SHxSW) each rank
 prepares and holds only its tile of the full-resolution obs fields (yo, H,
 the eval mask; the prefetch worker too, which runs no collective), while
 the models, the states, the truth and the analysis are whole on every rank;
-the reductions, the costs and the obs-space error sum over the ranks, so
-every rank computes the same cycle. Rank 0 alone writes the work dir; each
-cycle the ranks compare digests of the control and the analysis, and of the
-state they start from, and raise on a mismatch.
+the reductions, the costs and the obs-space error sum over the mesh's
+spatial group, so every rank computes the same cycle. Under --mesh
+TPxSHxSW the models' LG stages are split over each tile's tp group, and
+their sums there keep the ranks equal too. Rank 0 alone writes the work
+dir; each cycle every rank of the world compares digests of the control
+and the analysis, and of the state it starts from, and raises on a
+mismatch.
 """
 
 from __future__ import annotations
@@ -129,7 +132,8 @@ class CycledDA:
     # one worker keeps the synthetic masks' draws in cycle order, so the
     # numbers are those of the serial loop (prefetch_obs=False)
     mesh: object = None  # parallel/mesh.SpatialMesh of a sharded solve: the
-    # obs fields tiled over its ranks, everything else whole on each
+    # obs fields tiled over its ranks, everything else whole on each (or
+    # the models' LG stages split over a tp group)
     metrics_list: dict = field(default_factory=lambda: {k: [] for k in _METRIC_KEYS})
 
     def __post_init__(self):
@@ -179,6 +183,10 @@ class CycledDA:
         for model in (self.decoder, self.flow):
             if model is not None:
                 model.requires_grad_(False)
+        # the cycle log's bytes of the cost's models on this rank (a
+        # tensor-parallel rank holds its slices)
+        self.param_bytes = sum(p.numel() * p.element_size() for m in (self.decoder, self.flow)
+                               if m is not None for p in m.parameters())
         self._solver = self._build_solver()
         # the prefetch worker's stream: its copies, augmentation and QC run
         # beside the solve on the loop's stream
@@ -643,7 +651,7 @@ class CycledDA:
                 self.cycle_log.append({
                     "time": str(current_time), "seconds": secs, "obs_s": obs_s,
                     "obs_wait_s": obs_wait_s, **info, "obs_checksum": checksum,
-                    "obs_bytes": obs_bytes,
+                    "obs_bytes": obs_bytes, "param_bytes": self.param_bytes,
                     "reduce_s": self.last_reduce_s, "solve_s": d.seconds,
                     "jb": list(d.loss_reg), "jo": list(d.loss_obs),
                     "linesearch": d.linesearch, "n_iters": list(d.n_iters),

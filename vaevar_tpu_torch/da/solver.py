@@ -5,10 +5,12 @@ Port of vaevar_tpu/da/solver.py:66-357 without the XLA dispatch machinery:
 state (the reference's one torch LBFGS stepped nit times), with WRMSE/bias
 and (Jb, Jo) against truth before each segment and after the last. The
 linesearch "auto" resolves at the first solve: "jvp-zoom" when the cost is
-forward-mode differentiable, else "zoom". Under run_da --mesh SHxSW the
-bundle's obs fields are this rank's tiles (the cycler tiles them), and the
-cost, built on the mesh, sums over the ranks every value L-BFGS and the
-diagnostics read, so the ranks take the same steps with no solver change.
+forward-mode differentiable, else "zoom". Under run_da --mesh SHxSW (or
+TPxSHxSW) the bundle's obs fields are this rank's tiles (the cycler tiles
+them), and the cost, built on the mesh, sums over the spatial group every
+value L-BFGS and the diagnostics read (and a tensor-parallel model sums its
+slices over the tp group), so the ranks take the same steps with no solver
+change.
 """
 
 from __future__ import annotations

@@ -75,7 +75,7 @@ class WindowAttention(nn.Module):
     """Shifted-window MHSA over (B, *grid, C) with rope or relative-position
     bias (lgunet.py:58-278). 2-D undilated windows take the Swin path (dense
     or flash); dilated token groups or a 3-D window take SD_attn's general
-    path (`_forward_general`, rope only), a dense attention over groups."""
+    path (`_attend_general`, rope only), a dense attention over groups."""
 
     def __init__(self, dim, num_heads, window_size, shift_size, resolution,
                  attn_type="rope", lora_rank=0, dtype=None, flash_min_seq=4096,
@@ -93,12 +93,15 @@ class WindowAttention(nn.Module):
             win = (min(resolution),) * 2
             shift = (0, 0)
         self.win, self.shift, self.dil = win, shift, dil
+        # this module's heads and their width: a tensor-parallel placement
+        # (parallel/tensor_parallel.py) keeps a rank's slice of the heads
         self.num_heads = num_heads
+        self.head_dim = dim // num_heads
         self.attn_type = attn_type
         self.lora_rank = lora_rank
         self.dtype = dtype
         self.flash_min_seq = flash_min_seq
-        head_dim = dim // num_heads
+        head_dim = self.head_dim
         self.scale = head_dim ** -0.5
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
@@ -128,14 +131,15 @@ class WindowAttention(nn.Module):
         self.register_buffer(
             "mask", None if mask is None else torch.from_numpy(mask), persistent=False)
 
-    def _qkv(self, xw, C):
+    def _qkv(self, xw):
         """(B_, N, C) tokens -> q, k, v (B_, h, N, hd), LoRA q added."""
         qkv = dense(xw, self.qkv, self.dtype)
+        width = self.num_heads * self.head_dim
         if self.lora_rank > 0:
             q_lora = dense(dense(xw, self.qA, self.dtype), self.qB, self.dtype)
-            qkv = torch.cat([qkv[..., :C] + q_lora, qkv[..., C:]], dim=-1)
+            qkv = torch.cat([qkv[..., :width] + q_lora, qkv[..., width:]], dim=-1)
         B_, N = xw.shape[:2]
-        qkv = qkv.reshape(B_, N, 3, self.num_heads, C // self.num_heads)
+        qkv = qkv.reshape(B_, N, 3, self.num_heads, self.head_dim)
         return qkv.permute(2, 0, 3, 1, 4)
 
     def _rope(self, t):
@@ -144,9 +148,13 @@ class WindowAttention(nn.Module):
         return apply(t, tables)
 
     def forward(self, x):
+        return dense(self.attend(x), self.proj, self.dtype)
+
+    def attend(self, x):
+        """The heads' outputs (B, *grid, h * hd) of x, before `proj`."""
         if self.general:
-            return self._forward_general(x)
-        B, H, W, C = x.shape
+            return self._attend_general(x)
+        H, W = x.shape[1:3]
         wh, ww = self.win
         sh, sw = self.shift
         N = wh * ww
@@ -155,7 +163,7 @@ class WindowAttention(nn.Module):
             x = win_ops.shift2d(x, -sh, -sw)
         xw = win_ops.window_partition(x, self.win)
         B_ = xw.shape[0]
-        q, k, v = self._qkv(xw, C)  # (B_, h, N, hd)
+        q, k, v = self._qkv(xw)  # (B_, h, N, hd)
 
         if self.attn_type == "rope":
             q = self._rope(q) * self.scale
@@ -173,13 +181,13 @@ class WindowAttention(nn.Module):
             w = torch.softmax(logits, dim=-1).to(v.dtype)
             out = w @ v
 
-        out = out.transpose(1, 2).reshape(B_, N, C)
+        out = out.transpose(1, 2).reshape(B_, N, h * self.head_dim)
         x = win_ops.window_reverse(out, self.win, H, W)
         if sh or sw:
             x = win_ops.shift2d(x, sh, sw)
-        return dense(x, self.proj, self.dtype)
+        return x
 
-    def _forward_general(self, x):
+    def _attend_general(self, x):
         """SD_attn's general path (lgunet.py:160-225) on x (B, *grid, C),
         grid of len(window) axes. Each grid axis splits into (n, w, d): a
         group is one (n..., d...) pair, in window-raster then
@@ -202,7 +210,7 @@ class WindowAttention(nn.Module):
                 + [2 + 3 * i for i in range(nd)] + [1 + 3 * nd])
         xw = x.reshape(*rs, C).permute(perm).reshape(-1, N, C)
         B_ = xw.shape[0]
-        q, k, v = self._qkv(xw, C)
+        q, k, v = self._qkv(xw)
         q = self._rope(q) * self.scale
         k = self._rope(k)
         logits = q.float() @ k.float().transpose(-1, -2)
@@ -213,11 +221,11 @@ class WindowAttention(nn.Module):
         w = torch.softmax(logits, dim=-1).to(v.dtype)
         out = (w @ v).transpose(1, 2)  # (B_, N, h, hd)
         out = out.reshape(B, *(g // (w_ * d_) for g, w_, d_ in zip(grid, win, dil)),
-                          *dil, *win, C)
-        x = out.permute([perm.index(i) for i in range(len(perm))]).reshape(B, *grid, C)
+                          *dil, *win, h * self.head_dim)
+        x = out.permute([perm.index(i) for i in range(len(perm))]).reshape(B, *grid, -1)
         if engage:
             x = torch.roll(x, shift, axes)
-        return dense(x, self.proj, self.dtype)
+        return x
 
 
 class Mlp(nn.Module):
@@ -228,8 +236,12 @@ class Mlp(nn.Module):
         self.dtype = dtype
 
     def forward(self, x):
-        x = F.gelu(dense(x, self.fc1, self.dtype))  # exact erf GELU
-        return dense(x, self.fc2, self.dtype)
+        return dense(self.hidden(x), self.fc2, self.dtype)
+
+    def hidden(self, x):
+        """The hidden units (fc1's outputs, all of them or a tensor-parallel
+        rank's block) after the exact erf GELU."""
+        return F.gelu(dense(x, self.fc1, self.dtype))
 
 
 class Block(nn.Module):

@@ -416,7 +416,11 @@ class MoEDense(nn.Module):
     every token and the combine zeroes the slots not routed (ops/moe.py).
     x and the router's input (`attr`, or x when attr is None) both have
     `attr_dim` channels, as in every zoo caller. Returns
-    (y, z_loss, balance_loss)."""
+    (y, z_loss, balance_loss). After parallel/tensor_parallel.py's
+    `shard_experts` the module holds a rank's block of the experts
+    (`expert_parallel`); the router, its losses and the capacity mask stay
+    whole on every rank, and only the combine's sum over the experts
+    crosses the ranks."""
 
     def __init__(self, features, num_experts, attr_dim, expert_capacity=1.0,
                  router_noise=1e-2, is_scale_prob=True, drop_tokens=True, act=None,
@@ -432,6 +436,7 @@ class MoEDense(nn.Module):
         if act is not None:
             self.w2 = nn.Parameter(_trunc02(torch.empty(num_experts, hid, features)))
             self.b2 = nn.Parameter(torch.zeros(num_experts, features))
+        self.expert_parallel = None  # tensor_parallel.ExpertShard once placed
 
     def forward(self, x, attr=None, rng=None):
         B, H, W, C = x.shape
@@ -443,8 +448,11 @@ class MoEDense(nn.Module):
         z_loss = moe_ops.router_z_loss(logits)
         balance = moe_ops.load_balancing_loss(probs, idx, E)
 
+        ep = self.expert_parallel
+        expert_in, experts, sum_experts = ((tokens, slice(None), None) if ep is None
+                                           else (ep.copy(tokens), ep.experts, ep.sum))
         dt = torch.promote_types(tokens.dtype, self.w1.dtype)
-        expert_out = torch.einsum("btc,ech->ebth", tokens.to(dt), self.w1.to(dt))
+        expert_out = torch.einsum("btc,ech->ebth", expert_in.to(dt), self.w1.to(dt))
         expert_out = expert_out + self.b1[:, None, None]
         if self.act is not None:
             expert_out = torch.einsum("ebth,eho->ebto", self.act(expert_out), self.w2)
@@ -453,8 +461,9 @@ class MoEDense(nn.Module):
         mask = moe_ops.capacity_mask(idx.reshape(-1), E, self.expert_capacity,
                                      self.drop_tokens)
         p_max = probs.amax(dim=-1).reshape(-1)
-        y = moe_ops.moe_combine(expert_out.reshape(E, -1, expert_out.shape[-1]), mask, p_max,
-                                tokens.reshape(-1, C), self.is_scale_prob)
+        y = moe_ops.moe_combine(
+            expert_out.reshape(expert_out.shape[0], -1, expert_out.shape[-1]), mask, p_max,
+            tokens.reshape(-1, C), self.is_scale_prob, experts, sum_experts)
         return y.reshape(B, H, W, self.features), z_loss, balance
 
 

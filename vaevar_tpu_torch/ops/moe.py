@@ -67,15 +67,22 @@ def capacity_mask(expert_index, num_experts: int, capacity_factor: float,
     return one_hot * (position_in_expert <= cap)
 
 
-def moe_combine(expert_outputs, routing_mask, route_probs, x, is_scale_prob: bool = True):
+def moe_combine(expert_outputs, routing_mask, route_probs, x, is_scale_prob: bool = True,
+                experts: slice = slice(None), sum_experts=None):
     """Combine per-expert outputs into the token stream, in f32.
 
     expert_outputs: (E, tokens, d_out), every expert on every token;
     routing_mask: (tokens, E); route_probs: (tokens,) top router prob; x:
     (tokens, d_in), which a dropped token passes through only when
     d_in == d_out. Every token is scaled by its prob, or, without
-    is_scale_prob, by p / p.detach(): 1 in value, with p's gradient."""
-    combined = torch.einsum("etd,te->td", expert_outputs.float(), routing_mask.float())
+    is_scale_prob, by p / p.detach(): 1 in value, with p's gradient. Under
+    expert parallelism expert_outputs holds the mask's `experts` alone, and
+    `sum_experts` sums their partial combine over the ranks that hold the
+    others; the pass-through, from the whole mask, is added once after."""
+    combined = torch.einsum("etd,te->td", expert_outputs.float(),
+                            routing_mask[:, experts].float())
+    if sum_experts is not None:
+        combined = sum_experts(combined)
     if x.shape[-1] == combined.shape[-1]:
         routed = routing_mask.sum(-1, keepdim=True)  # 1 if routed, else 0
         combined = combined + (1.0 - routed) * x.float()

@@ -1,5 +1,6 @@
-"""Process groups and meshes: the port of vaevar_tpu/parallel/mesh.py's dp
-and spatial (sh, sw) surfaces, on torch.distributed.
+"""Process groups and meshes: the port of vaevar_tpu/parallel/mesh.py's dp,
+spatial (sh, sw), tensor-parallel (tp) and expert-parallel (ep) surfaces, on
+torch.distributed.
 
 The reference's only parallel strategy is DDP over NCCL, one process per GPU
 (utils/misc.py:296-369); the JAX package rebuilt it as a "dp" mesh axis. Here
@@ -25,6 +26,16 @@ and the ranks stay in lockstep because every
 value the solver reads from the tiles is summed over the ranks first
 (`all_sum`, `sum_over_tiles`, and the Megatron-style pair `copy_to_ranks` /
 `sum_over_ranks` inside a cost). `host_value` all-gathers a tiled field.
+
+`--mesh TPxSHxSW` adds a tensor-parallel axis in front (JAX's ("tp", "sh",
+"sw") mesh, row-major): the TP ranks of one (sh, sw) tile form a tp group,
+over which the models' LG-stage blocks are split Megatron-style
+(parallel/tensor_parallel.py, `shard_tensor_parallel`; `shard_experts` is
+the expert-parallel placement of the zoo's MoE banks); the SH x SW ranks of
+one tp index form a spatial group, over which the obs sums run. Both kinds
+of group are made on every rank in the same order (`new_group` is
+collective over the world). A `SpatialMesh` with tp 1 makes no groups: its
+sums run over the world.
 
 Nothing falls back: `--mesh N` (or SHxSW) in a run that was not launched as
 that many processes raises, and a failed NCCL init is an error, never a
@@ -166,22 +177,23 @@ def _collective_device():
     return torch.device("cpu")
 
 
-def all_sum(t: torch.Tensor) -> torch.Tensor:
-    """The sum of `t` over the process group, on t's device (`t` itself
-    when no process group is up). Every rank receives the same bits."""
+def all_sum(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of `t` over `group` (None: the whole process group), on t's
+    device (`t` itself when no process group is up). Every rank receives
+    the same bits."""
     if not dist.is_initialized():
         return t
     c = t.detach().to(_collective_device(), copy=True)
-    dist.all_reduce(c)
+    dist.all_reduce(c, group=group)
     return c.to(t.device)
 
 
-def _all_gather(t: torch.Tensor) -> list:
-    """Every rank's `t` (equal shapes), in rank order, on the collective
-    device."""
+def _all_gather(t: torch.Tensor, group=None) -> list:
+    """Every rank's `t` (equal shapes) of `group` (None: the world), in the
+    group's rank order, on the collective device."""
     t = t.detach().to(_collective_device()).contiguous()
-    parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
-    dist.all_gather(parts, t)
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t, group=group)
     return parts
 
 
@@ -222,34 +234,56 @@ def digest(*tensors) -> str:
 
 @dataclass(frozen=True)
 class SpatialMesh:
-    """run_da's `--mesh SHxSW`: sh x sw processes laid out as the JAX
-    package's `make_mesh` lays out its devices (row-major), so rank r sits
-    at (r // sw, r % sw); this one is `rank`, its tensors on `device`."""
+    """run_da's `--mesh SHxSW` or `TPxSHxSW`: tp x sh x sw processes laid
+    out as the JAX package's `make_mesh` lays out its devices over ("tp",
+    "sh", "sw"), row-major, so rank r sits at t = r // (sh sw), then
+    (r % (sh sw)) // sw, r % sw; this one is `rank`, its tensors on
+    `device`. `group` is the process group of its spatial group (the sh x
+    sw ranks of its tp index) and `tp_group` that of its tp group (the tp
+    ranks of its tile); None is the whole world (or no process group), as
+    with tp 1."""
 
     sh: int
     sw: int
     rank: int = 0
     device: torch.device = torch.device("cpu")
+    tp: int = 1
+    group: object = None
+    tp_group: object = None
 
     @property
     def axes(self) -> dict:
+        """The spatial axes, which tile the fields."""
         return {"sh": self.sh, "sw": self.sw}
 
     @property
     def coords(self) -> dict:
-        i, j = divmod(self.rank, self.sw)
-        return {"sh": i, "sw": j}
+        t, r = divmod(self.rank, self.sh * self.sw)
+        i, j = divmod(r, self.sw)
+        return {"tp": t, "sh": i, "sw": j}
+
+
+@dataclass(frozen=True)
+class ExpertMesh:
+    """An "ep" axis of `ep` ranks (JAX's {"ep": E} mesh): this rank's index
+    along it and the process group of its ranks (None: the whole world)."""
+
+    ep: int
+    index: int = 0
+    group: object = None
 
 
 class Tile(NamedTuple):
-    """A rank's tile of a (..., H, W) field: its rows and columns, and
-    whether its sums count (`primary`: where the rule leaves an axis
-    unused, the ranks along it hold the same tile, and only the first adds
-    its partial sums)."""
+    """A rank's tile of a (..., H, W) field: its rows and columns, whether
+    its sums count (`primary`: where the rule leaves an axis unused, the
+    ranks along it hold the same tile, and only the first adds its partial
+    sums), and the process group its sums run over (the mesh's spatial
+    group; None: the world)."""
 
     rows: slice
     cols: slice
     primary: bool
+    group: object = None
 
 
 def state_spec_for(mesh: SpatialMesh, shape) -> tuple:
@@ -288,7 +322,7 @@ def tile_for(mesh: SpatialMesh, shape) -> Tile:
         size = n // parts
         bounds.append(slice(idx * size, (idx + 1) * size))
     primary = all(mesh.coords[a] == 0 for a in ("sh", "sw") if a not in used)
-    return Tile(*bounds, primary)
+    return Tile(*bounds, primary, mesh.group)
 
 
 def is_full(x) -> bool:
@@ -308,13 +342,13 @@ def shard(x, mesh: SpatialMesh | None):
 
 
 def host_value(x, mesh: SpatialMesh | None, hw) -> np.ndarray:
-    """This rank's tile x of a (..., *hw) field, all-gathered into the
-    whole field on the host (the JAX package's `host_value`): a collective,
-    so every rank calls it. x itself, read to the host, without a mesh or
-    on one rank."""
+    """This rank's tile x of a (..., *hw) field, all-gathered over its
+    spatial group into the whole field on the host (the JAX package's
+    `host_value`): a collective, so every rank calls it. x itself, read to
+    the host, without a mesh or on one tile."""
     if mesh is None or mesh.sh * mesh.sw == 1:
         return x.detach().cpu().numpy()
-    parts = [p.cpu().numpy() for p in _all_gather(x)]
+    parts = [p.cpu().numpy() for p in _all_gather(x, mesh.group)]
     out = np.empty((*x.shape[:-2], *hw), dtype=parts[0].dtype)
     for r, part in enumerate(parts):
         t = tile_for(replace(mesh, rank=r), out.shape)
@@ -324,83 +358,146 @@ def host_value(x, mesh: SpatialMesh | None, hw) -> np.ndarray:
 
 def sum_over_tiles(tile: Tile, *parts) -> list:
     """Each of `parts` (this rank's partial sums over its tile) summed over
-    the ranks in one all-reduce; a rank whose tile another rank holds too
-    adds zeros. Every rank receives the same bits."""
+    the tile's group in one all-reduce; a rank whose tile another rank holds
+    too adds zeros. Every rank receives the same bits."""
     flat = torch.cat([p.reshape(-1) for p in parts]) * float(tile.primary)
-    flat = all_sum(flat)
+    flat = all_sum(flat) if tile.group is None else all_sum(flat, tile.group)
     return [v.reshape(p.shape) for v, p in zip(flat.split([p.numel() for p in parts]), parts)]
 
 
 class _CopyToRanks(torch.autograd.Function):
-    """Megatron's "copy": the identity forward, the sum over the ranks of
-    the branch's gradients backward; the tangent passes through."""
+    """Megatron's "copy": the identity forward, the sum over the group's
+    ranks of the branch's gradients backward; the tangent passes through."""
 
     @staticmethod
-    def forward(x):
+    def forward(x, group):
         return x.clone()
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        pass
+        ctx.group = inputs[1]
 
     @staticmethod
     def backward(ctx, g):
-        return all_sum(g)
+        return all_sum(g, ctx.group), None
 
     @staticmethod
-    def jvp(ctx, t):
+    def jvp(ctx, t, _):
         return t.clone()
 
 
 class _SumOverRanks(torch.autograd.Function):
-    """Megatron's "reduce": the sum over the ranks forward, the identity
-    backward; the tangent is summed too, so a jvp reads every rank's slope."""
+    """Megatron's "reduce": the sum over the group's ranks forward, the
+    identity backward; the tangent is summed too, so a jvp reads every
+    rank's slope."""
 
     @staticmethod
-    def forward(x):
-        return all_sum(x)
+    def forward(x, group):
+        return all_sum(x, group)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        pass
+        ctx.group = inputs[1]
 
     @staticmethod
     def backward(ctx, g):
-        return g
+        return g, None
 
     @staticmethod
-    def jvp(ctx, t):
-        return all_sum(t)
+    def jvp(ctx, t, _):
+        return all_sum(t, ctx.group)
 
 
-def copy_to_ranks(x: torch.Tensor) -> torch.Tensor:
-    """x where a rank-local branch of a cost starts (the obs term on the
-    tiles, from the low-res increment): its gradient there is the sum of
-    every rank's."""
-    return _CopyToRanks.apply(x)
+def copy_to_ranks(x: torch.Tensor, group=None) -> torch.Tensor:
+    """x where a rank-local branch starts (the obs term on the tiles, from
+    the low-res increment; a tensor-parallel layer's slice): its gradient
+    there is the sum of every rank's of `group` (None: the world)."""
+    return _CopyToRanks.apply(x, group)
 
 
-def sum_over_ranks(x: torch.Tensor, tile: Tile) -> torch.Tensor:
+def sum_over_ranks(x: torch.Tensor, group=None) -> torch.Tensor:
+    """x summed over the ranks of `group` (None: the world), differentiably
+    in both modes: the rank-local partials of a branch that began at
+    `copy_to_ranks`."""
+    return _SumOverRanks.apply(x, group)
+
+
+def sum_over_tile_ranks(x: torch.Tensor, tile: Tile) -> torch.Tensor:
     """A rank-local scalar of the tiles (the obs term) summed over the
-    ranks, differentiably in both modes; a rank with a duplicate tile
-    adds zero."""
-    return _SumOverRanks.apply(x * float(tile.primary))
+    tile's group by `sum_over_ranks`; a rank with a duplicate tile adds
+    zero."""
+    return sum_over_ranks(x * float(tile.primary), tile.group)
 
 
-def spatial_mesh_from_arg(arg: str, device: str = "cuda") -> SpatialMesh:
-    """run_da's `--mesh`: 'SHxSW' (e.g. 2x4) partitions the observation
-    fields' (lat, lon) grid over SH * SW processes, one per device, which
-    must be the launched world; 'TPxSHxSW' (tensor-parallel LG stages) is
-    not ported. The rank's device is cuda:LOCAL_RANK for `device` cuda,
-    else the CPU."""
+def _groups_along(sizes: dict, along: tuple, rank: int):
+    """The process group of this `rank`'s ranks along the axes `along` of a
+    row-major mesh of `sizes` ({axis: size}): every group of the mesh is
+    made, on every rank in the same order (`new_group` is collective over
+    the world, and ranks that made them in other orders could hang)."""
+    names = list(sizes)
+    ranks = np.arange(int(np.prod(list(sizes.values())))).reshape(list(sizes.values()))
+    rest = [names.index(a) for a in names if a not in along]
+    rows = ranks.transpose(rest + [names.index(a) for a in along]).reshape(
+        -1, int(np.prod([sizes[a] for a in along])))
+    mine = None
+    for members in rows.tolist():
+        g = dist.new_group(members)
+        if rank in members:
+            mine = g
+    return mine
+
+
+def parse_spatial_mesh(arg: str) -> tuple:
+    """(tp, sh, sw) of run_da's `--mesh` 'SHxSW' (tp 1) or 'TPxSHxSW';
+    raises ValueError on anything else."""
     try:
         dims = [int(v) for v in arg.split("x")]
     except ValueError:
         dims = []
-    if len(dims) == 3:
-        raise NotImplementedError(
-            f"--mesh {arg} (TPxSHxSW, tensor-parallel LG stages): ROADMAP A.13c")
-    if len(dims) != 2 or min(dims) < 1:
-        raise ValueError(f"--mesh must be 'SHxSW' (e.g. 2x4), got {arg!r}")
-    _check_world(arg, dims[0] * dims[1])
-    return SpatialMesh(sh=dims[0], sw=dims[1], rank=process_index(), device=_rank_device(device))
+    if len(dims) not in (2, 3) or min(dims) < 1:
+        raise ValueError(f"--mesh must be 'SHxSW' (e.g. 2x4) or 'TPxSHxSW' (e.g. 2x2x2), "
+                         f"got {arg!r}")
+    return tuple(dims) if len(dims) == 3 else (1, *dims)
+
+
+def spatial_mesh_from_arg(arg: str, device: str = "cuda") -> SpatialMesh:
+    """run_da's `--mesh`: 'SHxSW' (e.g. 2x4) partitions the observation
+    fields' (lat, lon) grid over SH * SW processes, one per device;
+    'TPxSHxSW' (e.g. 2x2x2) adds TP tensor-parallel ranks per tile, TP * SH
+    * SW processes, with the tp and spatial groups of a tp > 1 made here on
+    every rank. The mesh must be the launched world. The rank's device is
+    cuda:LOCAL_RANK for `device` cuda, else the CPU."""
+    tp, sh, sw = parse_spatial_mesh(arg)
+    _check_world(arg, tp * sh * sw)
+    mesh = SpatialMesh(sh=sh, sw=sw, rank=process_index(), device=_rank_device(device), tp=tp)
+    if tp > 1 and dist.is_initialized():
+        sizes = {"tp": tp, "sh": sh, "sw": sw}
+        mesh = replace(mesh, tp_group=_groups_along(sizes, ("tp",), mesh.rank),
+                       group=_groups_along(sizes, ("sh", "sw"), mesh.rank))
+    return mesh
+
+
+def expert_mesh(ep: int) -> ExpertMesh:
+    """An "ep" axis of `ep` ranks over the launched world: the world's
+    ranks in consecutive runs of `ep` (the last axis of a row-major
+    (world // ep, ep) mesh), each run one expert-parallel group."""
+    world, rank = process_count(), process_index()
+    if ep < 1 or world % ep:
+        raise ValueError(f"ep {ep} does not divide the world of {world} processes")
+    group = None if ep == world else _groups_along({"rest": world // ep, "ep": ep}, ("ep",),
+                                                    rank)
+    return ExpertMesh(ep, rank % ep, group)
+
+
+_PLACEMENTS = ("shard_tensor_parallel", "shard_experts", "tensor_parallel_state_dict",
+               "tensor_parallel_report", "check_tensor_parallel")
+
+
+def __getattr__(name):
+    # the tensor- and expert-parallel placements live in parallel/
+    # tensor_parallel.py, which builds on the collectives here
+    if name in _PLACEMENTS:
+        from vaevar_tpu_torch.parallel import tensor_parallel
+
+        return getattr(tensor_parallel, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -12,6 +12,8 @@ baselines.
         --data_layout reference
     python -m torch.distributed.run --nproc_per_node 2 \
         -m vaevar_tpu_torch.run_da --mesh 1x2 --fast_init --obs_type real_simu
+    python -m torch.distributed.run --nproc_per_node 8 \
+        -m vaevar_tpu_torch.run_da --mesh 2x2x2 --fast_init
 
 run_da.py's flag names and defaults and its choice of models
 (run_da.py:268-365). Observations: the synthetic families (free_XXXX,
@@ -63,8 +65,15 @@ or gloo with --device cpu): each rank owns cuda:LOCAL_RANK and holds its
 tile of the full-resolution obs fields, tiled by JAX's (lat, lon) rule
 (parallel/mesh.py); every rank builds the same models and runs the same
 cycle, the obs terms summed over the ranks, and rank 0 writes the work
-dir. The mesh must match the launch's world size; --mesh TPxSHxSW (tensor
-parallel) raises (ROADMAP A.13c).
+dir. --mesh TPxSHxSW puts TP tensor-parallel ranks on each tile, TP * SH *
+SW processes laid out as JAX's ("tp", "sh", "sw") mesh: the decoder's and
+the flow model's LG-stage blocks are split over the TP ranks of a tile
+(parallel/tensor_parallel.py; a stage whose heads TP does not divide keeps
+its attention whole, and the log prints the placement of each stage), a
+distinct forecast model stays whole on every rank (run_da.py:330-343), and
+the obs sums run over the SH x SW ranks of one tp index. The mesh must
+match the launch's world size, and TP must divide the LG stages' hidden
+width.
 
 Matrix products and convolutions run in full float32 where the model asks
 for float32: TF32 is switched off for both cuBLAS and cuDNN (cuDNN
@@ -157,8 +166,9 @@ def arg_parser(argv=None):
     p.add_argument("--mesh", type=str, default=None,
                    help="'SHxSW' (e.g. 2x4): the obs fields' (lat, lon) grid "
                         "partitioned over SH*SW processes launched with "
-                        "torch.distributed.run; 'TPxSHxSW' is not ported "
-                        "(ROADMAP A.13c)")
+                        "torch.distributed.run; 'TPxSHxSW' (e.g. 2x2x2) adds TP "
+                        "tensor-parallel ranks per tile for the decoder's and the "
+                        "flow model's LG stages")
     p.add_argument("--no_prefetch", action="store_true",
                    help="disable the obs-prefetch worker thread (serial "
                    "obs read -> solve loop, the reference's structure)")
@@ -278,15 +288,7 @@ def main(argv=None):
         raise SystemExit(
             f"--device {args.device}: no CUDA device is available; pass "
             "--device cpu to run on the CPU")
-    mesh = None
-    if args.mesh:  # checked against the launch before any model is built
-        pmesh.init_distributed(device=args.device)
-        mesh = pmesh.spatial_mesh_from_arg(args.mesh, args.device)
-        device = mesh.device
-        backend = (torch.distributed.get_backend() if torch.distributed.is_initialized()
-                   else "one process")
-        print(f"mesh: sh {mesh.sh} x sw {mesh.sw}, rank {mesh.rank} on {device} ({backend})",
-              flush=True)
+    tp = pmesh.parse_spatial_mesh(args.mesh)[0] if args.mesh else 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -308,6 +310,24 @@ def main(argv=None):
         dec_base = (_micro_decoder(shw, args.vae_ckpt) if args.micro
                     else fit_grid(cfgs.VAE_DECODER, shw))
         latent = {"latent_shape": (1, sum(dec_base.inchans_list), *shw)}
+    forecast_branch = bool(args.forecast_ckpt or (args.fast_init and hw != shw))
+    # the flow model runs inside a window's cost or as the advance; else a
+    # --flow_ckpt goes unread, as run_da.py restores it and never applies it
+    in_cost = args.da_win > 1 and args.da_mode in ("vae4dvar", "sc4dvar")
+    builds_flow = in_cost or not forecast_branch
+    if tp > 1:  # the models the mesh splits (run_da.py:330-343)
+        for base in ([dec_base] if latent else []) + ([flow_base] if builds_flow else []):
+            pmesh.check_tensor_parallel(base, tp)
+    mesh = None
+    if args.mesh:  # checked against the launch before any model is built
+        pmesh.init_distributed(device=args.device)
+        mesh = pmesh.spatial_mesh_from_arg(args.mesh, args.device)
+        device = mesh.device
+        backend = (torch.distributed.get_backend() if torch.distributed.is_initialized()
+                   else "one process")
+        axes = (f"tp {mesh.tp} x " if args.mesh.count("x") == 2 else "") + \
+            f"sh {mesh.sh} x sw {mesh.sw}"
+        print(f"mesh: {axes}, rank {mesh.rank} on {device} ({backend})", flush=True)
     cfg = cfgs.DAConfig(
         da_mode=args.da_mode, da_win=args.da_win, nit=args.Nit,
         obs_std=args.obs_std, obs_coeff=args.obs_coeff, filter_coeff=args.filter_coeff,
@@ -340,11 +360,7 @@ def main(argv=None):
 
         cvt = CVTransform(_load_b_assets(args.coeff_dir, args.scale_factor, device),
                           solver_hw=shw, out_hw=hw, device=device)
-    forecast_branch = bool(args.forecast_ckpt or (args.fast_init and hw != shw))
-    # the flow model runs inside a window's cost or as the advance; else a
-    # --flow_ckpt goes unread, as run_da.py restores it and never applies it
-    in_cost = args.da_win > 1 and args.da_mode in ("vae4dvar", "sc4dvar")
-    if in_cost or not forecast_branch:
+    if builds_flow:
         roles["flow"] = (flow_base.replace(dtype=dtype, remat=block_remat), args.seed + 1,
                          args.flow_ckpt, False)
     if forecast_branch:  # run_da.py:308
@@ -358,9 +374,15 @@ def main(argv=None):
         roles["forecast"] = (fc_base.replace(dtype=dtype), args.seed + 2, args.forecast_ckpt,
                              False)
     models = build_models(roles, device, args.fast_init)
-    if mesh is not None:  # every rank holds the same weights, bit for bit
+    if mesh is not None:  # every rank holds the same weights, bit for bit, before placement
         pmesh.check_replicas(pmesh.digest(*(t for name in sorted(models)
                                             for t in models[name].state_dict().values())))
+    if tp > 1:  # a distinct forecast model stays whole (run_da.py:340-342)
+        for role in ("decoder", "flow"):
+            if role in models:
+                pmesh.shard_tensor_parallel(models[role], mesh)
+                for line in pmesh.tensor_parallel_report(models[role]):
+                    print(f"tensor parallel {role} {line}", flush=True)
     decoder, flow = models.get("decoder"), models.get("flow")
     if forecast_branch:
         forecast_integrate = make_integrate(models["forecast"])
