@@ -89,7 +89,9 @@ exits nonzero without its last line:
    Adam lr 1e-4, sigma 2) on one NMC batch: loss finite, the loss at one
    fixed noise draw lower after the steps than before, more than half the
    parameters moved by lr/2 or more and none by more than 4 lr, no flash
-   launch; seconds per step (the first apart), peak memory, and one
+   launch; seconds per step (the first apart), peak memory (step 1's
+   gradient norms and the parameters after step 2 are kept, off the steps'
+   clock, for phase 17), and one
    more step split into the NMC sample, forward + backward and Adam; then
    run_train_vae --micro trained, resumed, and its vae_latest read by
    run_da --micro --vae_ckpt;
@@ -192,6 +194,23 @@ exits nonzero without its last line:
    stage's widths (dim 192, 90x180) placed by shard_experts at ep 2 against
    the unplaced module (output rtol 2e-6 + atol 1e-6, losses rtol 1e-6,
    gradients 5e-5 x max|grad|).
+17. spatial_train: the VAE trainer's spatial mesh (run_train_vae --mesh
+   DPxSHxSW: LGUnet.partition, the halo exchanges of parallel/spatial.py,
+   the gradients summed over the ranks), its ranks in worker processes
+   (`--spatial-worker`) on the one card over gloo, started after phase 11,
+   running beside phase 12 and joined after phase 13. (a) the micro
+   f32 VAE step (run_train_vae --micro's configs with 2 blocks per stage,
+   so that halos cross both axes) at --mesh 1x2x2 on 4 ranks against one
+   process on the card: loss rel 1e-5, gradients 1e-3 x max|grad|, the
+   ranks bitwise equal, halo exchanges on every rank. (b) run_train_vae's
+   defaults (FLOW_140, VAE_ENCODER + VAE_DECODER, 128x256, b8, bf16, remat)
+   at --mesh 1x1x2 on 2 ranks: 2 train_vae steps on phase 10's batch and
+   noise, held to phase 10's first 2 steps (losses, step-1 gradient norms
+   per tensor, the parameters after step 2; the tolerances and their
+   reasons in check_spatial_train), the ranks bitwise equal, no flash
+   launch; prints each rank's peak memory beside the single process's, its
+   step seconds, step 2's halo exchanges (count, bytes of one and in all,
+   seconds) and the gradient all-reduce alone.
 The main phase also prints cycle 2's obs seconds (on the prefetch worker)
 and the seconds the loop waited for them. Every phase is timed by
 utils/logger.py's PhaseTimer; its report (seconds per phase, and the total
@@ -1107,9 +1126,11 @@ def check_cli():
         raise AssertionError("the trainer CLI did not train, validate, save and resume")
 
 
-def vae_step_on(dev, frames, eps):
+def vae_step_on(dev, frames, eps, mesh=None, **overrides):
     """One micro f32 VAE train step (run_train_vae --micro's configs at
-    32x64, nmc_steps 2) on `dev` with the given noise; returns (loss, the
+    32x64 with `overrides`, nmc_steps 2) on `dev` with the given noise, or
+    with a TrainMesh on this rank's tile of frames and noise (the models
+    partitioned, the gradients summed over the ranks); returns (loss, the
     VAE's gradients as one CPU vector)."""
     import torch
 
@@ -1119,10 +1140,13 @@ def vae_step_on(dev, frames, eps):
     from vaevar_tpu_torch.train import vae_trainer as vt
     from vaevar_tpu_torch.utils.fast_init import fast_init
 
-    flow_cfg, enc_cfg, dec_cfg = cfgs.micro_vae_train_configs(img_size=(32, 64))
+    flow_cfg, enc_cfg, dec_cfg = cfgs.micro_vae_train_configs(img_size=(32, 64), **overrides)
     flow = fast_init(LGUnet(flow_cfg), seed=1).to(dev).eval().requires_grad_(False)
     vae = fast_init(VAE(enc_cfg, dec_cfg), seed=2).to(dev)
-    init_fn, step = vt.make_vae_train_step(vae, flow, latent_hw=(32, 64), nmc_steps=2)
+    if mesh is not None:
+        rows, cols = mesh.tiling.tile((32, 64))
+        frames, eps = frames[..., rows, cols], eps[..., rows, cols]
+    init_fn, step = vt.make_vae_train_step(vae, flow, latent_hw=(32, 64), nmc_steps=2, mesh=mesh)
     m = step(init_fn(), frames.to(dev), eps=eps.to(dev))
     grads = torch.cat([p.grad.flatten().cpu() for p in vae.parameters()])
     return m["loss"].item(), grads
@@ -1136,7 +1160,10 @@ def check_vae_train(fa):
     about lr and no flash launch, seconds per step (the first apart) from
     the step logs, then one more step split into its NMC sample, forward +
     backward and Adam; the CLI at micro size, trained, resumed and its
-    vae_latest read by run_da. Returns the flash launches of the 3 steps."""
+    vae_latest read by run_da. Returns the flash launches of the 3 steps,
+    and what the spatial_train phase holds its ranks to: the micro step's
+    frames and noise, the 3 steps' metrics, the step-1 gradient norms per parameter and the parameters
+    after step 2 (both taken off the steps' clock), and the peak memory."""
     import numpy as np
     import torch
 
@@ -1154,6 +1181,7 @@ def check_vae_train(fa):
     frames = torch.from_numpy(rng.standard_normal((2, 3, 69, 32, 64), dtype=np.float32))
     eps = torch.from_numpy(rng.standard_normal((2, 32, 32, 64), dtype=np.float32))
     (l_cpu, g_cpu), (l_gpu, g_gpu) = (vae_step_on(d, frames, eps) for d in ("cpu", "cuda"))
+    ref = {"micro": {"frames": frames, "eps": eps}}
     scale = g_cpu.abs().max().item()
     gerr = (g_gpu - g_cpu).abs().max().item()
     # f32 through the flow rollout and ~30 VAE layers in another summation
@@ -1177,11 +1205,16 @@ def check_vae_train(fa):
     phase("vae_train", f"VAE_ENCODER + VAE_DECODER {n_vae / 1e6:.1f} M parameters, FLOW_140 "
           f"{sum(p.numel() for p in flow.parameters()) / 1e6:.1f} M, batch {batch.shape} from "
           f"{len(ds)} NMC sequences; set-up {time.perf_counter() - t0:.2f} s")
-    marks = []
+    marks, pauses = [], []
 
     def log(msg):
         torch.cuda.synchronize()
         marks.append((time.perf_counter(), msg))
+        if " iter 0 " in msg:  # step 1's gradients, per parameter
+            ref["grad_norms"] = torch.stack([p.grad.float().norm() for p in vae.parameters()]).cpu()
+        if " iter 1 " in msg:  # the parameters after step 2
+            ref["params"] = {k: v.detach().to("cpu", copy=True) for k, v in vae.state_dict().items()}
+        pauses.append(time.perf_counter() - marks[-1][0])  # off the steps' clock
 
     def latent_noise(seed, err):
         """A noise draw of the latent's shape for the batch of `err`."""
@@ -1213,9 +1246,10 @@ def check_vae_train(fa):
     max_move = max(float(d.max()) for d in moves)
     del moves
     del params_before
-    ends = [t for t, msg in marks if " iter " in msg]
-    secs = [b - a for a, b in zip([t0] + ends[:-1], ends)]
+    ends = [(t, p) for (t, msg), p in zip(marks, pauses) if " iter " in msg]
+    secs = [b - a for a, (b, _) in zip([t0] + [t + p for t, p in ends[:-1]], ends)]
     losses = [h["loss"] for h in hist]
+    ref.update(hist=hist, peak_gib=peak / 2 ** 30)
     prior = [msg for _, msg in marks if "prior-sample" in msg]
     phase("vae_train", "3 train_vae steps at b8 128x256 bf16 remat nmc_steps 4: losses "
           + ", ".join(f"{v:.7g}" for v in losses) + f"; seconds {secs[0]:.3f} (first, with "
@@ -1276,7 +1310,7 @@ def check_vae_train(fa):
           f"{da.cycle_log[0]['xa_finite']}")
     if not (len(first) == len(second) == 2 and resumed and loaded and da.cycle_log[0]["xa_finite"]):
         raise AssertionError("the VAE trainer CLI did not train, resume and hand run_da its VAE")
-    return counts[0]
+    return counts[0], ref
 
 
 def check_sc4dvar(fa):
@@ -2011,6 +2045,233 @@ def check_dp(fa, single_step_s):
     return dict(zip(("flash_fwd", "flash_dq", "flash_dkv"), map(int, counts)))
 
 
+# the spatial_train phase's tolerances for (b), the production VAE at 1x1x2 in
+# bf16 against the vae_train phase's single process (see check_spatial_train)
+SPATIAL_LOSS_TOL = (2 ** -7, 2 ** -6)  # relative, steps 1 and 2
+SPATIAL_NORM_TOL = (2 ** -6, 2 ** -8)  # rel of each tensor, of the largest norm
+ADAM_REACH = 4.01  # lr: two runs' parameters after 2 Adam steps differ by at most this
+# (a)'s micro VAE with 2 blocks per stage, so that its odd blocks shift and
+# their halos cross both axes of the 1x2x2 mesh
+SPATIAL_MICRO = dict(enc_depths=(2, 2), lg_depths=(2,))
+
+
+def spatial_worker(d, part):
+    """One rank of the spatial_train phase, on the one card over gloo.
+    `micro`: the micro f32 VAE step of vae_step_on (SPATIAL_MICRO) at
+    --mesh 1x2x2 (4 ranks) on its tile of the parent's frames and noise;
+    writes its loss, its gradients and its halo exchanges. `prod`: run_train_vae's defaults (FLOW_140 and VAE_ENCODER +
+    VAE_DECODER at 128x256, bf16, remat, b8) at --mesh 1x1x2 (2 ranks), 2
+    train_vae steps on the vae_train phase's batch and noise; writes its
+    metrics, step seconds, peak memory, the halo exchanges of step 2 (bytes
+    and seconds), the gradient all-reduce alone, the step-1 gradient norms
+    and (rank 0) the parameters' distance from the single process's after
+    step 2. Writes <part><rank>.json under `d`."""
+    import torch
+    import torch.distributed as dist
+
+    from vaevar_tpu_torch import config as cfgs
+    from vaevar_tpu_torch.models.lgunet import LGUnet
+    from vaevar_tpu_torch.models.vae import VAE
+    from vaevar_tpu_torch.ops import flash_attn as fa
+    from vaevar_tpu_torch.parallel import mesh as pmesh
+    from vaevar_tpu_torch.parallel import spatial
+    from vaevar_tpu_torch.train import vae_trainer as vt
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = pmesh.init_distributed(backend="gloo", device="cuda")
+    mesh = pmesh.mesh_from_arg("1x2x2" if part == "micro" else "1x1x2", "cuda")
+    dev = mesh.device
+    out = {"rank": rank, "device": str(dev), "coords": mesh.coords}
+    fa.flash_fwd_launches = fa.flash_dq_launches = fa.flash_dkv_launches = 0
+    halo, halo_s = [], []  # this rank's strip in each exchange: bytes, seconds
+    gather = spatial._all_gather
+
+    def timed_gather(t, group=None):
+        torch.cuda.synchronize()  # the exchange's own time, not the queue's
+        t0 = time.perf_counter()
+        parts = gather(t, group)
+        halo_s.append(time.perf_counter() - t0)
+        halo.append(t.numel() * t.element_size())
+        return parts
+
+    spatial._all_gather = timed_gather
+    if part == "micro":
+        data = torch.load(os.path.join(d, "micro.pt"))
+        loss, grads = vae_step_on(dev, data["frames"], data["eps"], mesh, **SPATIAL_MICRO)
+        out.update(loss=loss, grads=grads.tolist(), halo=len(halo))
+    else:
+        from vaevar_tpu_torch.data.era5 import SyntheticEra5
+        from vaevar_tpu_torch.data.nmc import NMCSequenceDataset, batched_loader
+
+        t0 = time.perf_counter()
+        hw, dt = (128, 256), torch.bfloat16
+        flow_cfg, enc_cfg, dec_cfg = (c.replace(img_size=hw, dtype=dt, remat=True)
+                                      for c in (cfgs.FLOW_140, cfgs.VAE_ENCODER, cfgs.VAE_DECODER))
+        flow = filled(lambda: LGUnet(flow_cfg), 0).to(dev).eval().requires_grad_(False)
+        vae = filled(lambda: VAE(enc_cfg, dec_cfg), 1).to(dev)
+        ds = NMCSequenceDataset(SyntheticEra5(hw=hw, seed=0), START, "2022-02-01 00:00:00")
+        batch = next(batched_loader(ds, 8, seed=0))
+        torch.cuda.synchronize()
+        out["setup_s"] = time.perf_counter() - t0
+        marks, norms, halos = [], [], []
+
+        def log(msg):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if " iter 0 " in msg:
+                norms.append(torch.stack([p.grad.float().norm() for p in vae.parameters()])
+                             .cpu().tolist())
+            halos.append((list(halo), sum(halo_s)))
+            halo.clear()
+            halo_s.clear()
+            marks.append((t, time.perf_counter()))  # a step's end, the next one's start
+
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        t0 = time.perf_counter()
+        _, hist = vt.train_vae(vae, flow, [batch] * 2, epochs=1, logger=log, log_every=1,
+                               latent_hw=hw, mesh=mesh)
+        torch.cuda.synchronize()
+        out.update(peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   secs=[end - start for start, (end, _) in zip([t0, marks[0][1]], marks[:2])])
+        # the gradient all-reduce alone: the last step's gradients summed again
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pmesh.all_sum_grads(vae.parameters())
+        torch.cuda.synchronize()
+        rows, cols = mesh.tiling.tile(hw)
+        out.update(allreduce_s=time.perf_counter() - t0, checksum=vt.replicated_checksum(vae),
+                   hist=hist, grad_norms=norms[0], halo_step2=halos[1][0],
+                   halo_step2_s=halos[1][1], n_vae=sum(p.numel() for p in vae.parameters()),
+                   batch_tile=list(batch[..., rows, cols].shape))
+        if rank == 0:  # the ranks are bitwise equal (train_vae's replica check)
+            want = torch.load(os.path.join(d, "prod_params.pt"), mmap=True)
+            moved = far = 0
+            for k, v in vae.state_dict().items():
+                diff = (v.detach().cpu() - want[k]).abs()
+                moved = max(moved, float(diff.max()))
+                far += int((diff > 0.5e-4).sum())
+            out.update(max_param_diff=moved, share_beyond_half_lr=far / out["n_vae"])
+    out["launches"] = [fa.flash_fwd_launches, fa.flash_dq_launches, fa.flash_dkv_launches]
+    with open(os.path.join(d, f"{part}{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def start_spatial_train(ref):
+    """Phase 17's workers, started beside the real_obs phase:
+    (a) 4 `--spatial-worker micro` ranks and (b) 2 `--spatial-worker prod`
+    ranks, all on the one card over gloo, with the vae_train phase's micro
+    inputs and the parameters of its single process after step 2 written
+    to their directory."""
+    import shutil
+
+    import torch
+
+    d = tempfile.mkdtemp(prefix="spatial_train")
+    atexit.register(shutil.rmtree, d, True)
+    torch.save(ref["micro"], os.path.join(d, "micro.pt"))
+    torch.save(ref.pop("params"), os.path.join(d, "prod_params.pt"))
+    return d, (start_workers("--spatial-worker", 4, [d, "micro"]),
+               start_workers("--spatial-worker", 2, [d, "prod"]))
+
+
+def check_spatial_train(started, ref):
+    """Phase 17: the VAE trainer's spatial mesh (run_train_vae --mesh
+    DPxSHxSW: LGUnet.partition, the halo exchanges of parallel/spatial.py,
+    the gradients summed over the ranks), its workers started by
+    start_spatial_train. (a) the micro f32 step at 1x2x2 on 4 ranks against
+    the one process on the card (vae_train phase): loss rel 1e-5, gradients
+    1e-3 x max|grad| (f32 sums in other orders, as the micro card-vs-CPU
+    step), the ranks bitwise equal. (b) the production VAE at 1x1x2, b8
+    bf16 remat, 2 train_vae steps on 2 ranks against the vae_train phase's
+    first 2 steps on the same batch and noise. The tile changes the GEMMs'
+    shapes, and so which bf16 products round where; the tolerances, with
+    their reasons: loss, rec and kld of step 1 within 2^-7 relative (sums
+    of non-negative squares and KL terms, each computed from bf16 outputs
+    that may round one ulp, 2^-8, apart: at most two ulps of a term), of
+    step 2 within 2^-6 (it starts from parameters that differ by up to 2 lr
+    where step 1's gradient was within round-off of zero); each tensor's
+    step-1 gradient norm within 2^-6 of its own plus 2^-8 of the largest
+    (the weight gradients are bf16 GEMM outputs, rounded per rank and then
+    summed, back-propagated through bf16 layers; a norm averages over the
+    tensor); the parameters after step 2 within 4.01 lr (Adam's reach: two
+    runs move a parameter at most 2.0014 lr apart per step, so more is no
+    Adam step of equal parameters); the ranks bitwise equal. Prints each
+    rank's peak memory beside the single process's, its step seconds, the
+    halo exchanges of step 2 (count, bytes of one and in all, seconds) and
+    the gradient all-reduce alone."""
+    import numpy as np
+    import torch
+
+    d, (micro, prod) = started
+    try:
+        wall = [wait_workers(w, 600) for w in (micro, prod)]
+        ranks = {part: [json.load(open(os.path.join(d, f"{part}{r}.json"))) for r in range(n)]
+                 for part, n in (("micro", 4), ("prod", 2))}
+    finally:
+        for w in (micro, prod):
+            for p in w.procs:
+                p.kill()
+    l1, g1 = vae_step_on("cuda", ref["micro"]["frames"], ref["micro"]["eps"], **SPATIAL_MICRO)
+    scale = g1.abs().max().item()
+    errs = [(abs(r["loss"] - l1) / abs(l1), (torch.tensor(r["grads"]) - g1).abs().max().item())
+            for r in ranks["micro"]]
+    same = all(r["grads"] == ranks["micro"][0]["grads"] and r["loss"] == ranks["micro"][0]["loss"]
+               for r in ranks["micro"])
+    phase("spatial_train", f"(a) micro f32 VAE step at --mesh 1x2x2, 4 ranks on the card over "
+          f"gloo, vs one process on the card: loss {ranks['micro'][0]['loss']:.7g} vs "
+          f"{l1:.7g} (rel {max(e[0] for e in errs):.3g}, tol 1e-5); gradients max|d| "
+          f"{max(e[1] for e in errs):.3g} <= {1e-3 * scale:.3g} (1e-3 x max|grad|); ranks "
+          f"bitwise equal {same}; halo exchanges per rank {[r['halo'] for r in ranks['micro']]}; "
+          f"flash launches {ranks['micro'][0]['launches']}; {wall[0]:.1f} s with the workers' "
+          "start")
+    if not (same and all(e[0] <= 1e-5 and e[1] <= 1e-3 * scale for e in errs)
+            and all(r["halo"] > 0 and r["launches"] == [0, 0, 0] for r in ranks["micro"])):
+        raise AssertionError("the 1x2x2 micro VAE step disagrees with one process")
+
+    single = ref["hist"][:2]
+    r0 = ranks["prod"][0]
+    phase("spatial_train", f"(b) run_train_vae's defaults at --mesh 1x1x2: VAE_ENCODER + "
+          f"VAE_DECODER {r0['n_vae'] / 1e6:.1f} M, FLOW_140, b8 128x256 bf16 remat; each rank's "
+          f"frames tile {r0['batch_tile']}")
+    for r in ranks["prod"]:
+        halo = r["halo_step2"]
+        phase("spatial_train", f"(b) rank {r['rank']} on {r['device']} (gloo): set-up "
+              f"{r['setup_s']:.2f} s; step seconds " + ", ".join(f"{v:.3f}" for v in r["secs"])
+              + f"; peak memory {r['peak_gib']:.2f} GiB against {ref['peak_gib']:.2f} GiB in "
+              f"one process (11.94 GiB, PERF.md section 5); step 2's halo exchanges: "
+              f"{len(halo)}, {min(halo, default=0)}-{max(halo, default=0)} bytes each "
+              f"(this rank's strip), {sum(halo) / 1e6:.3f} MB in all, "
+              f"{r['halo_step2_s']:.3f} s (each from a synchronized start); the gradient "
+              f"all-reduce alone (gloo, {4 * r['n_vae'] / 1e9:.2f} GB of f32) "
+              f"{r['allreduce_s']:.3f} s; flash launches {r['launches']}; checksum "
+              f"{r['checksum']!r}")
+    lerr = [max(abs(h[k] - s[k]) / abs(s[k]) for k in ("loss", "rec_sse", "kld"))
+            for h, s in zip(r0["hist"], single)]
+    n1, n2 = np.asarray(ref["grad_norms"].tolist()), np.asarray(r0["grad_norms"])
+    nerr = np.abs(n2 - n1) - (SPATIAL_NORM_TOL[0] * n1 + SPATIAL_NORM_TOL[1] * n1.max())
+    lr = 1e-4
+    phase("spatial_train", "(b) vs the vae_train phase's single process, steps 1-2: losses "
+          + ", ".join(f"{h['loss']:.7g} vs {s['loss']:.7g}" for h, s in zip(r0["hist"], single))
+          + f"; max rel (loss, rec, kld) per step " + ", ".join(f"{e:.3g}" for e in lerr)
+          + f" (tol 2^-7, 2^-6); step-1 gradient norms: max rel "
+          f"{np.max(np.abs(n2 - n1) / np.maximum(n1, 1e-30)):.3g}, worst margin {nerr.max():.3g} "
+          f"(<= 0: within 2^-6 of each + 2^-8 of the largest, {n1.max():.4g}); parameters "
+          f"after step 2 max|d| {r0['max_param_diff']:.3g} <= {ADAM_REACH * lr:.3g} "
+          f"({ADAM_REACH} lr), {100 * r0['share_beyond_half_lr']:.3f} % beyond lr/2; "
+          f"{wall[1]:.1f} s with the workers' start")
+    bad = [r for r in ranks["prod"] if r["launches"] != [0, 0, 0] or not r["halo_step2"]
+           or r["hist"] != r0["hist"] or r["checksum"] != r0["checksum"]]
+    if bad or not (lerr[0] <= SPATIAL_LOSS_TOL[0] and lerr[1] <= SPATIAL_LOSS_TOL[1]
+                   and (nerr <= 0).all() and r0["max_param_diff"] <= ADAM_REACH * lr
+                   and all(np.isfinite([h["loss"] for h in r0["hist"]]))):
+        raise AssertionError("the 1x1x2 production VAE steps disagree with one process, or "
+                             "the ranks differ")
+
+
 # the micro cycles of the mesh phase's part (b): reduced 3D-Var and the da_win
 # 3 reduced window, f32, one cycle after a 1-step spin-up (no flash stage)
 MESH_MICRO = ["--micro", "--fast_init", "--grid", "32x64", "--solver_grid", "32x64",
@@ -2576,13 +2837,16 @@ def run_phases(timer):
     gc.collect()
     torch.cuda.empty_cache()
     with timer.phase("vae_train"):
-        vae_launches = check_vae_train(fa)
+        vae_launches, vae_ref = check_vae_train(fa)
     gc.collect()
     torch.cuda.empty_cache()
     with timer.phase("sc4dvar"):
         sc4dvar_launches = check_sc4dvar(fa)
     gc.collect()
     torch.cuda.empty_cache()
+    # the spatial_train phase's ranks run beside real_obs, whose time is
+    # mostly the host's
+    spatial = start_spatial_train(vae_ref)
     with timer.phase("real_obs"):
         real_obs_launches, real_obs_ref = check_real_obs(fa)
     gc.collect()
@@ -2596,6 +2860,8 @@ def run_phases(timer):
         print(osse_worker.texts[0], end="", flush=True)
         phase("osse", f"its process joined here {osse_s:.1f} s after it started with the record "
               "phase")
+    with timer.phase("spatial_train"):
+        check_spatial_train(spatial, vae_ref)
     gc.collect()
     torch.cuda.empty_cache()
     with timer.phase("sd_zoo"):
@@ -2703,6 +2969,8 @@ if __name__ == "__main__":
         sys.exit(check_osse())
     if sys.argv[1:2] == ["--tp-worker"]:
         sys.exit(tp_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--spatial-worker"]:
+        sys.exit(spatial_worker(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--mesh-worker"]:
         sys.exit(mesh_worker(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

@@ -92,11 +92,12 @@ def _worker(d: Path):
     os.environ["WORLD_SIZE"] = "2"
     mesh = pmesh.mesh_from_arg("2", "cpu")
     out["mesh"] = [mesh.dp, mesh.rank, str(mesh.device), mesh.distributed]
-    for arg in ("3", "2x1x1"):
-        try:
-            pmesh.mesh_from_arg(arg, "cpu")
-        except (RuntimeError, NotImplementedError) as e:
-            out[f"mesh_{arg}"] = f"{type(e).__name__}: {e}"
+    try:
+        pmesh.mesh_from_arg("3", "cpu")
+    except RuntimeError as e:
+        out["mesh_3"] = f"{type(e).__name__}: {e}"
+    m = pmesh.mesh_from_arg("2x1x1", "cpu")  # DPx1x1 is --mesh DP
+    out["mesh_2x1x1"] = [type(m).__name__, m.dp, m.rank, str(m.device), m.distributed]
 
     inputs = np.load(d / "inputs.npz")
     fc_cfg, flow_cfg, enc_cfg, dec_cfg = _configs(tcfg)
@@ -347,8 +348,7 @@ def test_init_distributed_and_mesh_from_arg(world):
         assert "different worlds" in out["second_world"]
         assert out["mesh"] == [2, r, "cpu", True]
         assert out["mesh_3"].startswith("RuntimeError: --mesh 3 needs 3 processes")
-        assert out["mesh_2x1x1"].startswith("NotImplementedError") and \
-            "ROADMAP A.13b" in out["mesh_2x1x1"]
+        assert out["mesh_2x1x1"] == ["DPMesh", 2, r, "cpu", True]
 
 
 def test_mesh_without_a_launch_raises(monkeypatch):

@@ -278,9 +278,9 @@ def test_cli_needs_a_card_or_device_cpu(tmp_path):
         pytest.skip("this host has a CUDA device")
     with pytest.raises(SystemExit, match="--device cpu"):
         run_train_vae.main(["--micro", "--out_dir", str(tmp_path)])
-    # --mesh 2 outside a 2-process launch never trains dp=1; spatial
-    # sharding is not ported
+    # --mesh 2 (or 2x1x1, the same mesh) outside a 2-process launch never
+    # trains dp=1
     with pytest.raises(RuntimeError, match="needs 2 processes"):
         run_train_vae.main(["--device", "cpu", "--mesh", "2"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A.13b"):
+    with pytest.raises(RuntimeError, match="needs 2 processes"):
         run_train_vae.main(["--device", "cpu", "--mesh", "2x1x1"])

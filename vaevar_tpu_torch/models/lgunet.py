@@ -20,6 +20,13 @@ Mixed precision mirrors flax, not torch.autocast: params stay f32; layers
 with a compute dtype cast input and weights to it; `x + pos_embed` promotes
 the encoder and LG residual streams to f32; PatchMerging/PatchExpand and the
 last LayerNorm before a head run in f32; the output is cast to f32.
+
+`LGUnet.partition(tiling)` (parallel/spatial.py, docs/SPATIAL_TRAINING.md)
+puts the model in its spatially partitioned mode: the input, the output and
+every activation are this rank's (lat, lon) tile of the whole, the shifted
+windows' rolls exchange halos with the neighbouring tiles, the pos embeds
+are sliced to the tile and the shift masks keep the tile's windows; the
+parameters stay whole and replicated.
 """
 
 from __future__ import annotations
@@ -77,6 +84,8 @@ class WindowAttention(nn.Module):
     or flash); dilated token groups or a 3-D window take SD_attn's general
     path (`_attend_general`, rope only), a dense attention over groups."""
 
+    tiling = None  # parallel/spatial.py's Tiling in the partitioned mode
+
     def __init__(self, dim, num_heads, window_size, shift_size, resolution,
                  attn_type="rope", lora_rank=0, dtype=None, flash_min_seq=4096,
                  dilated_size=None):
@@ -93,6 +102,7 @@ class WindowAttention(nn.Module):
             win = (min(resolution),) * 2
             shift = (0, 0)
         self.win, self.shift, self.dil = win, shift, dil
+        self.resolution = tuple(resolution)
         # this module's heads and their width: a tensor-parallel placement
         # (parallel/tensor_parallel.py) keeps a rank's slice of the heads
         self.num_heads = num_heads
@@ -159,8 +169,9 @@ class WindowAttention(nn.Module):
         sh, sw = self.shift
         N = wh * ww
         h = self.num_heads
+        roll = win_ops.shift2d if self.tiling is None else self.tiling.roll
         if sh or sw:
-            x = win_ops.shift2d(x, -sh, -sw)
+            x = roll(x, -sh, -sw)
         xw = win_ops.window_partition(x, self.win)
         B_ = xw.shape[0]
         q, k, v = self._qkv(xw)  # (B_, h, N, hd)
@@ -184,8 +195,28 @@ class WindowAttention(nn.Module):
         out = out.transpose(1, 2).reshape(B_, N, h * self.head_dim)
         x = win_ops.window_reverse(out, self.win, H, W)
         if sh or sw:
-            x = win_ops.shift2d(x, sh, sw)
+            x = roll(x, sh, sw)
         return x
+
+    def tile_mask(self, tiling, name: str):
+        """This attention's (module `name`) shift mask in the partitioned
+        mode on `tiling`: the rows of its tile's windows, in raster order
+        (None without a mask). Its tile of the grid must hold whole
+        windows, or this raises."""
+        H, W = self.resolution
+        rows, cols = tiling.tile((H, W), name)
+        th, tw = rows.stop - rows.start, cols.stop - cols.start
+        (wh, ww), N = self.win, self.win[0] * self.win[1]
+        if th % wh or tw % ww:
+            raise ValueError(
+                f"{name}: its {th}x{tw} tile of the {H}x{W} grid does not hold whole "
+                f"{wh}x{ww} windows (mesh sh={tiling.sh}, sw={tiling.sw}); a window cut by a "
+                "tile is the forecast half's re-tiling, ROADMAP A.13d")
+        if self.mask is None:
+            return None
+        m = self.mask.reshape(H // wh, W // ww, N, N)
+        m = m[rows.start // wh:rows.stop // wh, cols.start // ww:cols.stop // ww]
+        return m.reshape(-1, N, N).contiguous()
 
     def _attend_general(self, x):
         """SD_attn's general path (lgunet.py:160-225) on x (B, *grid, C),
@@ -351,8 +382,19 @@ class _PatchEmbed(nn.Module):
         return y.permute(0, 2, 3, 1)
 
 
+def _tile_of(pe, tiling):
+    """The (1, H, W, C) pos embed `pe`, or its tile in the partitioned mode:
+    the whole parameter takes a gradient that is zero outside the tile."""
+    if tiling is None:
+        return pe
+    rows, cols = tiling.tile(pe.shape[1:3])
+    return pe[:, rows, cols]
+
+
 class GroupEncoder(nn.Module):
     """Per-variable-group hierarchical encoder (lgunet.py:470-504)."""
+
+    tiling = None  # parallel/spatial.py's Tiling in the partitioned mode
 
     def __init__(self, cfg, in_chans):
         super().__init__()
@@ -369,7 +411,7 @@ class GroupEncoder(nn.Module):
         self.norm = nn.LayerNorm(cfg.enc_dim * 2 ** (len(cfg.enc_depths) - 1), eps=1e-6)
 
     def forward(self, x):
-        x = self.patch_embed(x) + self.absolute_pos_embed  # f32 stream
+        x = self.patch_embed(x) + _tile_of(self.absolute_pos_embed, self.tiling)  # f32 stream
         skips = []
         for stage in self.layers:
             x = stage(x)
@@ -432,6 +474,8 @@ class LGStack(nn.Module):
     (B, 1, Hg, Wg, C) grid, with 3-D windows and rope3 (shift w // 2 per
     axis); the full-grid stage stays 2-D and undilated."""
 
+    tiling = None  # parallel/spatial.py's Tiling in the partitioned mode
+
     def __init__(self, cfg):
         super().__init__()
         Hg, Wg = cfg.lg_resolution
@@ -450,7 +494,7 @@ class LGStack(nn.Module):
             self.layers.append(stage)
 
     def forward(self, x):
-        x = x + self.pos_embed
+        x = x + _tile_of(self.pos_embed, self.tiling)
         if self.win3d:
             x = x[:, None]
         for i, stage in enumerate(self.layers):
@@ -474,6 +518,8 @@ class Decoder(nn.Module):
 
 class LGUnet(nn.Module):
     """(B, C_in, H, W) -> (B, C_out, H, W) float32, mean || std layout."""
+
+    _tiling = None  # set by `partition`
 
     def __init__(self, cfg):
         super().__init__()
@@ -506,3 +552,67 @@ class LGUnet(nn.Module):
             stds.append(y[..., c // 2:])
         y = torch.cat(means + stds, dim=-1)
         return y.permute(0, 3, 1, 2).float()
+
+    def partition(self, tiling):
+        """Put the model in its spatially partitioned mode on `tiling`
+        (parallel/spatial.py::Tiling, a rank's tile of an sh x sw mesh) and
+        return it: forward then maps this rank's (B, C_in, h, w) tile of the
+        input to its tile of the output, exchanging halos with the other
+        ranks of the tiling (every rank of it runs the same forward). The
+        parameters stay whole. Raises ValueError, naming the level, its
+        grid, the tile and the window, where the partition would need what
+        the forecast half brings (ROADMAP A.13d): a tile that cuts a
+        window, a patch embed or head whose kernel exceeds its stride on a
+        split axis, the rope full-grid LG stage, the general path (dilated
+        or 3-D windows), or tensor-parallel blocks. A second call with the
+        same tiling does nothing."""
+        from vaevar_tpu_torch.parallel.tensor_parallel import _RowParallel
+
+        if self._tiling is not None:
+            if self._tiling != tiling:
+                raise ValueError("the model is partitioned on another tiling already")
+            return self
+        cfg = self.cfg
+        mesh = f"mesh sh={tiling.sh}, sw={tiling.sw}"
+        if cfg.lg_full_attn_first:
+            Hg, Wg = cfg.lg_resolution
+            raise ValueError(
+                f"net.layers.0: the rope full-grid LG stage attends its whole {Hg}x{Wg} grid "
+                f"({mesh}); its query tiles against all-gathered keys are ROADMAP A.13d")
+        for name, m in self.named_modules():
+            if isinstance(m, WindowAttention) and m.general:
+                raise ValueError(
+                    f"{name}: the general path (dilated {m.dil} or 3-D window {m.win} on the "
+                    f"{'x'.join(map(str, m.resolution))} grid) groups tokens across the whole "
+                    f"grid ({mesh}); not partitioned (ROADMAP A.13d)")
+            if isinstance(m, _RowParallel):
+                raise ValueError(f"{name}: a tensor-parallel block ({mesh}); the trainers' "
+                                 "mesh has no tp axis (ROADMAP A.13d)")
+        H, W = cfg.img_size
+        tiling.tile((H, W), "the input grid")
+        for axis, n, size, k, st in (("lat", tiling.sh, H, cfg.patch_size[0], cfg.stride[0]),
+                                     ("lon", tiling.sw, W, cfg.patch_size[1], cfg.stride[1])):
+            if n > 1 and (k != st or (size // n) % st):
+                raise ValueError(
+                    f"the patch embed and head (kernel {k}, stride {st} along {axis}) on a "
+                    f"{axis} tile of {size // n} of the {H}x{W} grid ({mesh}): a kernel that "
+                    "exceeds its stride, or a tile its stride does not divide, reads across "
+                    "tiles (ROADMAP A.13d)")
+        pr = cfg.patches_resolution
+        for i in range(1, len(cfg.enc_depths)):  # PatchMerging's 2x2 groups stay in a tile
+            res = (pr[0] // 2 ** (i - 1), pr[1] // 2 ** (i - 1))
+            rows, cols = tiling.tile(res, f"level {i - 1}")
+            if (rows.stop - rows.start) % 2 or (cols.stop - cols.start) % 2:
+                raise ValueError(f"level {i - 1}: its tile of the {res[0]}x{res[1]} grid "
+                                 f"({mesh}) has an odd side; PatchMerging needs even tiles")
+        # every check before any change: a refused model stays as it was (the
+        # pos embeds' grids are their first stages' attention grids)
+        masks = [(m, m.tile_mask(tiling, name)) for name, m in self.named_modules()
+                 if isinstance(m, WindowAttention)]
+        for m, mask in masks:
+            m.mask, m.tiling = mask, tiling
+        for m in self.modules():
+            if isinstance(m, (GroupEncoder, LGStack)):
+                m.tiling = tiling
+        self._tiling = tiling
+        return self

@@ -50,6 +50,14 @@ class VAE(nn.Module):
     def decoder_hr(self, z, out_hw=(721, 1440)):
         return resize_nearest(self.dec(z), out_hw)
 
+    def partition(self, tiling):
+        """Both halves in their spatially partitioned mode on `tiling`
+        (`LGUnet.partition`): x, the latent and eps are then this rank's
+        tiles. Returns the VAE."""
+        self.enc.partition(tiling)
+        self.dec.partition(tiling)
+        return self
+
     def forward(self, x, generator: torch.Generator | None = None, eps=None):
         mu, logvar = self.encoder(x)
         z = self.sampling(mu, logvar, generator, eps)

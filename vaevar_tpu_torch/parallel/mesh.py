@@ -10,8 +10,15 @@ the reference's SLURM_NTASKS / SLURM_PROCID), `mesh_from_arg` turns the CLI's
 `--mesh DP` into a `DPMesh` whose rank owns `cuda:LOCAL_RANK` (or the CPU),
 and the trainers wrap their models in DistributedDataParallel on it. A dp=N
 run computes what a dp=1 run computes on the global batch, the ranks' local
-batches in rank order (`global_batch`). The trainers' spatial axes
-(`--mesh DPxSHxSW`) are ROADMAP A.13b's training part.
+batches in rank order (`global_batch`).
+
+The VAE trainer's `--mesh DPxSHxSW` (SH * SW > 1) is a `TrainMesh`: DP x SH x
+SW processes in JAX's row-major ("dp", "sh", "sw") order, each holding its
+dp rows' (lat, lon) tile of the frames and of every activation of a
+spatially partitioned LGUnet (`TrainMesh.tiling`, parallel/spatial.py,
+docs/SPATIAL_TRAINING.md); the parameter gradients are summed over the world
+(`all_sum_grads`). `DPx1x1` is `--mesh DP`. The forecast trainer's spatial
+mesh is ROADMAP A.13d and raises.
 
 run_da's `--mesh SHxSW` is the spatially partitioned solve
 (`spatial_mesh_from_arg`, a `SpatialMesh`): SH x SW processes, one per
@@ -135,23 +142,40 @@ class DPMesh:
         return dist.is_initialized()
 
 
-def mesh_from_arg(arg: str, device: str = "cuda") -> DPMesh:
-    """CLI `--mesh` parser shared by the training CLIs: 'DP' (e.g. '8') is
-    pure data parallelism over DP processes, one per device, and must equal
-    the launched world size; 'DPxSHxSW' (spatial sharding) is not ported.
-    The rank's device is cuda:LOCAL_RANK for `device` cuda, else the CPU."""
+def parse_train_mesh(arg: str) -> tuple:
+    """(dp, sh, sw) of the training CLIs' `--mesh`: 'DP' (sh = sw = 1) or
+    'DPxSHxSW'; raises ValueError on anything else."""
     try:
         dims = [int(v) for v in arg.split("x")]
     except ValueError:
         dims = []
-    if len(dims) == 3:
-        raise NotImplementedError(
-            f"--mesh {arg} (DPxSHxSW, spatial sharding): ROADMAP A.13b")
-    if len(dims) != 1 or dims[0] < 1:
+    if len(dims) not in (1, 3) or min(dims) < 1:
         raise ValueError(f"--mesh must be 'DP' or 'DPxSHxSW', got {arg!r}")
-    world = process_count()
-    _check_world(arg, dims[0])
-    return DPMesh(dp=dims[0], rank=process_index(), device=_rank_device(device))
+    return (dims[0], 1, 1) if len(dims) == 1 else tuple(dims)
+
+
+def mesh_from_arg(arg: str, device: str = "cuda"):
+    """CLI `--mesh` parser shared by the training CLIs. 'DP' (e.g. '8'), or
+    'DPx1x1', is pure data parallelism over DP processes, one per device: a
+    DPMesh. 'DPxSHxSW' with SH * SW > 1 (e.g. '1x2x2') adds the spatial
+    partition: a TrainMesh, with its groups made here on every rank. The
+    mesh must be the launched world. The rank's device is cuda:LOCAL_RANK
+    for `device` cuda, else the CPU."""
+    dp, sh, sw = parse_train_mesh(arg)
+    _check_world(arg, dp * sh * sw)
+    if sh * sw == 1:
+        return DPMesh(dp=dp, rank=process_index(), device=_rank_device(device))
+    mesh = TrainMesh(dp, sh, sw, rank=process_index(), device=_rank_device(device))
+    if dist.is_initialized():
+        sizes = {"dp": dp, "sh": sh, "sw": sw}
+        groups = {}
+        for name, along in (("group", ("sh", "sw")), ("dp_group", ("dp",)),
+                            ("lat_group", ("sh",)), ("lon_group", ("sw",))):
+            n = int(np.prod([sizes[a] for a in along]))
+            if 1 < n < dp * sh * sw:  # a group of the world is the world (None)
+                groups[name] = _groups_along(sizes, along, mesh.rank)
+        mesh = replace(mesh, **groups)
+    return mesh
 
 
 def _check_world(arg, n):
@@ -227,6 +251,84 @@ def digest(*tensors) -> str:
     for t in tensors:
         h.update(t.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes())
     return h.hexdigest()
+
+
+# --- the training mesh of run_train_vae --mesh DPxSHxSW ----------------------
+
+
+@dataclass(frozen=True)
+class TrainMesh:
+    """The VAE trainer's `--mesh DPxSHxSW` with SH * SW > 1: dp x sh x sw
+    processes laid out as JAX's `make_mesh({"dp", "sh", "sw"})`, row-major,
+    so rank r sits at d = r // (sh sw), then (r % (sh sw)) // sw, r % sw;
+    this one is `rank`, its tensors on `device`. `group` is its spatial
+    group (the sh x sw ranks of its dp index), `dp_group` its dp group (the
+    dp ranks of its tile; None with dp 1), `lat_group` and `lon_group` the
+    ranks of its tile's column and row of tiles, over which the halos go;
+    None is the whole world where a group would span it."""
+
+    dp: int
+    sh: int
+    sw: int
+    rank: int = 0
+    device: torch.device = torch.device("cpu")
+    group: object = None
+    dp_group: object = None
+    lat_group: object = None
+    lon_group: object = None
+
+    @property
+    def distributed(self) -> bool:
+        return dist.is_initialized()
+
+    @property
+    def coords(self) -> dict:
+        d, r = divmod(self.rank, self.sh * self.sw)
+        s, w = divmod(r, self.sw)
+        return {"dp": d, "sh": s, "sw": w}
+
+    @property
+    def tiling(self):
+        """This rank's tile of every (..., H, W) field: the JAX trainers'
+        P(..., "sh", "sw"), with its halo and gather groups."""
+        from vaevar_tpu_torch.parallel.spatial import Tiling
+
+        c = self.coords
+        return Tiling(self.sh, self.sw, c["sh"], c["sw"], self.group, self.lat_group,
+                      self.lon_group)
+
+    def batch_spec(self, b: int) -> tuple:
+        """(start, stop) of this rank's rows of the global batch of dp x b
+        (JAX's `batch_spec`, P("dp")): its dp index's b rows."""
+        d = self.coords["dp"]
+        return d * b, (d + 1) * b
+
+
+_GRAD_BUCKET = 2 ** 24  # elements per all-reduce of all_sum_grads: 64 MB of f32
+
+
+def all_sum_grads(params, group=None) -> None:
+    """Replace each parameter's gradient by its sum over `group` (None:
+    the world), in place, in all-reduces of up to _GRAD_BUCKET elements of
+    the flattened gradients (a parameter without one adds zeros). Every
+    rank receives the same bits."""
+    if not dist.is_initialized():
+        return
+    params = [p for p in params if p.requires_grad]
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    start = 0
+    while start < len(params):
+        stop, n = start, 0
+        while stop < len(params) and (n == 0 or n + params[stop].numel() <= _GRAD_BUCKET):
+            n += params[stop].numel()
+            stop += 1
+        chunk = params[start:stop]
+        flat = all_sum(torch.cat([p.grad.reshape(-1) for p in chunk]), group)
+        for p, g in zip(chunk, flat.split([p.numel() for p in chunk])):
+            p.grad.copy_(g.view_as(p.grad))
+        start = stop
 
 
 # --- the spatial mesh of run_da --mesh SHxSW ----------------------------------

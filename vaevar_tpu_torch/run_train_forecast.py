@@ -23,8 +23,9 @@ Each rank owns cuda:LOCAL_RANK (nccl; gloo with --device cpu) and takes
 every N-th batch of the time-ordered stream (`rank_strided`), so
 --batch_size is the per-rank batch and the global batch is N times it. Rank
 0 alone writes the log file, the scalars, the checkpoints and params_latest.
---mesh N in a run not launched as N processes raises, and so does
---mesh DPxSHxSW (spatial sharding, ROADMAP A.13b).
+--mesh N in a run not launched as N processes raises. --mesh DPx1x1 is
+--mesh DP; a spatial --mesh DPxSHxSW (SH x SW > 1) raises NotImplementedError
+(ROADMAP A.13d: FORECAST_025's partition, docs/SPATIAL_TRAINING.md section 6).
 """
 
 from __future__ import annotations
@@ -57,7 +58,7 @@ def arg_parser(argv=None):
                    help="ignore an existing checkpoint_latest in --out_dir")
     p.add_argument("--mesh", type=str, default=None,
                    help="'N': data-parallel over N processes launched by torch.distributed.run "
-                   "(DPxSHxSW: ROADMAP A.13b)")
+                   "(DPx1x1 likewise; SH x SW > 1: ROADMAP A.13d)")
     p.add_argument("--lr", type=float, default=5e-6)
     p.add_argument("--loss_type", type=str, default="Possloss",
                    choices=["Possloss", "LpLoss"])
@@ -102,6 +103,17 @@ def rank_strided(it, rank: int, world: int):
             group = []
 
 
+def refuse_spatial_mesh(dims, arg):
+    """The forecast trainer's spatial mesh (SH x SW > 1) is not ported: it
+    raises, before any launch check, and never runs replicated. DPx1x1 is
+    --mesh DP."""
+    if dims[1] * dims[2] > 1:
+        raise NotImplementedError(
+            f"--mesh {arg}: the forecast trainer's (lat, lon) partition (FORECAST_025's "
+            "uneven window columns at sw > 1 and its full-grid flash stage with Nq != Nk): "
+            "ROADMAP A.13d")
+
+
 def main(argv=None):
     """Run the task; returns (trainable, per-step losses) for `train`."""
     args = arg_parser(argv)
@@ -116,6 +128,7 @@ def main(argv=None):
                          "--device cpu to run on the CPU")
     mesh = None
     if args.mesh:
+        refuse_spatial_mesh(pmesh.parse_train_mesh(args.mesh), args.mesh)
         pmesh.init_distributed(device=args.device)
         mesh = pmesh.mesh_from_arg(args.mesh, args.device)
         device = mesh.device

@@ -28,7 +28,21 @@ Each rank owns cuda:LOCAL_RANK (nccl; gloo with --device cpu) and reads its
 shard of every epoch's permutation (`batched_loader(..., rank, world_size)`),
 so --batch_size is the per-rank batch. Rank 0 alone writes the log file, the
 checkpoints and vae_latest. --mesh N in a run not launched as N processes
-raises, and so does --mesh DPxSHxSW (spatial sharding, ROADMAP A.13b).
+raises.
+
+--mesh DPxSHxSW also partitions the grid over (lat, lon), DP x SH x SW
+processes in JAX's row-major (dp, sh, sw) order (docs/SPATIAL_TRAINING.md):
+
+    python -m torch.distributed.run --nproc_per_node 4 \
+        -m vaevar_tpu_torch.run_train_vae --mesh 1x2x2 ...
+
+Each rank reads its dp index's shard of every epoch's permutation
+(--batch_size is the per-dp-rank batch) and keeps its (lat, lon) tile of
+the frames; FLOW_140 and the VAE run partitioned (LGUnet.partition: halo
+exchanges for the shifted windows), the gradients are summed over the world
+before Adam, and the step is the global step. DPx1x1 is --mesh DP. A grid
+the mesh does not tile evenly, or a tile that cuts a window at some level
+of a model, raises ValueError; a world other than DP x SH x SW raises.
 """
 
 from __future__ import annotations
@@ -56,8 +70,8 @@ def arg_parser(argv=None):
     p.add_argument("--no_resume", action="store_true",
                    help="ignore an existing checkpoint_latest in --out_dir")
     p.add_argument("--mesh", type=str, default=None,
-                   help="'N': data-parallel over N processes launched by torch.distributed.run "
-                   "(DPxSHxSW: ROADMAP A.13b)")
+                   help="'N': data-parallel over N processes launched by torch.distributed.run; "
+                   "'DPxSHxSW': DP x SH x SW processes, each with its (lat, lon) tile")
     p.add_argument("--out_dir", type=str, default="output/vae")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--bf16", action=argparse.BooleanOptionalAction, default=True,
@@ -91,6 +105,9 @@ def main(argv=None):
         mesh = pmesh.mesh_from_arg(args.mesh, args.device)
         device = mesh.device
     rank, world = pmesh.process_index(), pmesh.process_count()
+    # the loader's shard: this rank's dp index among the dp ranks
+    dp_rank, dp_world = ((mesh.coords["dp"], mesh.dp) if isinstance(mesh, pmesh.TrainMesh)
+                         else (rank, world))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -117,6 +134,11 @@ def main(argv=None):
               else SyntheticEra5(hw=hw, seed=args.seed))
     ds = NMCSequenceDataset(source, args.start_time, args.end_time, length=5)
     logger.info(f"dataset: {len(ds)} sequences")
+    if mesh is not None:
+        dims = (f"dp {mesh.dp} x sh {mesh.sh} x sw {mesh.sw}" if isinstance(mesh, pmesh.TrainMesh)
+                else f"dp {mesh.dp}")
+        logger.info(f"mesh: {dims}, rank {rank} on {device}"
+                    + (f" ({torch.distributed.get_backend()})" if mesh.distributed else ""))
 
     if args.micro:
         flow_cfg, enc_cfg, dec_cfg = cfgs.micro_vae_train_configs(img_size=hw, dtype=dtype)
@@ -147,7 +169,7 @@ def main(argv=None):
         # reshuffles each epoch and shards the sample stream across ranks
         # (DistributedSampler analogue)
         return prefetched(batched_loader(ds, args.batch_size, seed=args.seed, epoch=epoch,
-                                         rank=rank, world_size=world))
+                                         rank=dp_rank, world_size=dp_world))
 
     vae, history = train_vae(
         vae, flow, loader_factory, epochs=args.epochs, sigma=args.sigma, lr=args.lr,

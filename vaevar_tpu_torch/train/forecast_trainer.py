@@ -106,7 +106,12 @@ def make_forecast_train_step(
     `model` (on its device) and its optimizer state; `train_step(trainable,
     opt_state, inp, tars)` takes one AdamW step in place and returns
     (trainable, opt_state, loss). With a distributed `mesh` the step runs
-    under DDP on this rank's local batch and the loss is the global batch's."""
+    under DDP on this rank's local batch and the loss is the global batch's.
+    A spatial mesh (a TrainMesh) raises: ROADMAP A.13d."""
+    if isinstance(mesh, pmesh.TrainMesh):
+        raise NotImplementedError(
+            f"the forecast trainer on a dp {mesh.dp} x sh {mesh.sh} x sw {mesh.sw} mesh: "
+            "its (lat, lon) partition is ROADMAP A.13d")
 
     objective = None  # the loss module (under DDP with a distributed mesh)
 

@@ -29,6 +29,17 @@ each rank's loss is scaled by N before the backward: the all-reduced
 gradient is then the global sum's, as the JAX package's. Losses are logged
 as global sums, and the ranks' parameter checksums must agree bit for bit at
 every epoch end.
+
+The spatial mesh (`--mesh DPxSHxSW`, a parallel/mesh.TrainMesh,
+docs/SPATIAL_TRAINING.md) partitions both models (`LGUnet.partition`):
+each rank holds its dp rows' (lat, lon) tile of the frames and of every
+activation, rolls FLOW_140 out on it, and draws its rows and its tile of
+the global noise. The ELBO is a sum over the batch and the grid, so the
+ranks' partial sums add up to the global loss, and the parameter gradients
+are summed over all DP x SH x SW ranks before Adam by manual all-reduces
+after the backward (`pmesh.all_sum_grads`), not DDP: DDP averages, and its
+bucketed all-reduces would run beside the halo exchanges on other groups.
+Every rank receives the same sum, so the replicas stay bitwise equal.
 """
 
 from __future__ import annotations
@@ -46,9 +57,12 @@ from vaevar_tpu_torch.train.builder import make_optimizer
 from vaevar_tpu_torch.utils import jax_random
 
 
-def nmc_error_sample(frames, fengwu, latent_hw, nmc_steps: int = 4, err_std=None):
+def nmc_error_sample(frames, fengwu, latent_hw, nmc_steps: int = 4, err_std=None,
+                     tiling=None):
     """frames: (B, >nmc_steps, C, H, W) normalized. Returns (B, C, *latent_hw).
-    `err_std` (C,) defaults to channels.ERR_STD[:C]."""
+    `err_std` (C,) defaults to channels.ERR_STD[:C]. With a `tiling`
+    (parallel/spatial.py) frames and fengwu are partitioned: frames is this
+    rank's tile of the grid and the result its tile of the latent grid."""
     C = frames.shape[2]
     with torch.no_grad():
         pred = frames[:, 0]
@@ -59,7 +73,12 @@ def nmc_error_sample(frames, fengwu, latent_hw, nmc_steps: int = 4, err_std=None
     err_std = torch.as_tensor(np.asarray(err_std), dtype=torch.float32,
                               device=frames.device).reshape(1, -1, 1, 1)
     err = (frames[:, nmc_steps] - pred) / err_std
-    return resize_nearest(err, latent_hw)
+    if tiling is None:
+        return resize_nearest(err, latent_hw)
+    if (err.shape[-2] * tiling.sh, err.shape[-1] * tiling.sw) == tuple(latent_hw):
+        return err  # the identity resize of the whole field: its tile is this tile
+    rows, cols = tiling.tile(latent_hw, "the latent grid")
+    return resize_nearest(tiling.gather(err), latent_hw, pmesh.Tile(rows, cols, True))
 
 
 def vae_loss(vae, err, sigma: float, eps=None):
@@ -78,9 +97,16 @@ def make_vae_train_step(vae, fengwu, sigma: float = 2.0, lr: float = 1e-4,
     is the reparameterization noise of `frames` (torch's default generator
     draws it when None). With a distributed `mesh` the VAE runs under DDP,
     `frames` and `eps` are this rank's rows of the global batch, and the
-    metrics are global sums."""
+    metrics are global sums. With a TrainMesh the VAE and fengwu are
+    partitioned here, `frames` and `eps` are also this rank's (lat, lon)
+    tiles, and the gradients are summed over the world (module docstring)."""
     model, world = vae, 1
-    if mesh is not None and mesh.distributed:
+    tiling = mesh.tiling if isinstance(mesh, pmesh.TrainMesh) else None
+    if tiling is not None:
+        vae.partition(tiling)
+        fengwu.partition(tiling)
+        world = pmesh.process_count()
+    elif mesh is not None and mesh.distributed:
         from torch.nn.parallel import DistributedDataParallel
 
         dev = next(vae.parameters()).device
@@ -93,13 +119,16 @@ def make_vae_train_step(vae, fengwu, sigma: float = 2.0, lr: float = 1e-4,
         return make_optimizer(vae.parameters(), "Adam", lr)
 
     def train_step(optimizer, frames, eps=None):
-        err = nmc_error_sample(frames, fengwu, latent_hw, nmc_steps, err_std)
+        err = nmc_error_sample(frames, fengwu, latent_hw, nmc_steps, err_std, tiling)
         optimizer.zero_grad(set_to_none=True)
         if eps is not None:
             eps = eps.to(err.device)
         total, sse, kld = vae_loss(model, err, sigma, eps=eps)
-        # DDP averages gradients over the ranks; the ELBO sums over the batch
-        (total * world if world > 1 else total).backward()
+        if tiling is not None:  # this rank's share of the global gradient, summed
+            total.backward()
+            pmesh.all_sum_grads(vae.parameters())
+        else:  # DDP averages gradients over the ranks; the ELBO sums over the batch
+            (total * world if world > 1 else total).backward()
         optimizer.step()
         m = torch.stack([total.detach(), sse.detach(), kld.detach()])
         if world > 1:
@@ -147,7 +176,9 @@ def train_vae(
     shapes, and the probe's iterator is closed. With `sample_at_epoch_end`
     each epoch ends with a prior sample's std in the log. With a
     distributed `mesh` (parallel/mesh.DPMesh) each batch is this rank's
-    local batch and the VAE trains under DDP (see the module docstring).
+    local batch and the VAE trains under DDP (see the module docstring);
+    with a TrainMesh each batch is this rank's dp rows, whole, of which it
+    takes its (lat, lon) tile, and both models run partitioned.
     With `ckpt_dir`, {VAE, Adam state} is saved at every epoch end as
     checkpoint_latest (after checkpoint_best when the epoch's mean loss
     improves; rank 0 writes), and training resumes from checkpoint_latest
@@ -160,6 +191,11 @@ def train_vae(
     factory = data_iter if callable(data_iter) else (lambda _e: data_iter)
     key, latent_c = jax_random.prng_key(seed), sum(vae.dec.cfg.inchans_list)
     world, rank = (pmesh.process_count(), pmesh.process_index()) if mesh is not None else (1, 0)
+    tiling = mesh.tiling if isinstance(mesh, pmesh.TrainMesh) else None
+    # the noise's tile of the latent grid and this rank's rows of the batch
+    latent_tile = None if tiling is None else tiling.tile(latent_hw, "the latent grid")
+    rows_of = ((lambda b: (rank * b, (rank + 1) * b)) if tiling is None else mesh.batch_spec)
+    n_dp = world if tiling is None else mesh.dp
 
     if init_params is None:
         probe = iter(factory(0))
@@ -188,11 +224,15 @@ def train_vae(
         vae.train()
         epoch_losses = []
         for j, batch in enumerate(factory(epoch)):
-            frames = torch.as_tensor(np.asarray(batch), dtype=torch.float32).to(device)
+            batch = np.asarray(batch)
+            if tiling is not None:
+                rows, cols = tiling.tile(batch.shape[-2:], "the frames")
+                batch = batch[..., rows, cols]
+            frames = torch.as_tensor(batch, dtype=torch.float32).to(device)
             b = frames.shape[0]
             eps = jax_random.normal(jax_random.fold_in(jax_random.fold_in(key, epoch), j),
-                                    (world * b, latent_c, *latent_hw), device,
-                                    rows=(rank * b, (rank + 1) * b))
+                                    (n_dp * b, latent_c, *latent_hw), device,
+                                    rows=rows_of(b), tile=latent_tile)
             m = train_step(optimizer, frames, eps)
             rec = {k: float(v) for k, v in m.items()}
             if (j + 1) % log_every == 0:
@@ -204,9 +244,11 @@ def train_vae(
             # prior sample sanity check (model/model.py:648-653)
             vae.eval()
             z = jax_random.normal(jax_random.fold_in(key, 10_000 + epoch),
-                                  (1, latent_c, *latent_hw), device)
+                                  (1, latent_c, *latent_hw), device, tile=latent_tile)
             with torch.no_grad():
                 y = vae.decoder(z)
+            if tiling is not None:
+                y = tiling.gather(y)
             logger(f"epoch {epoch} prior-sample std {float(y.float().std(correction=0)):.3f}")
         if mesh is not None:
             pmesh.check_replicas(replicated_checksum(vae))

@@ -12,7 +12,9 @@ run's noise on any device:
   uniforms bit for bit, and XLA's inverse error function within a few ulp.
   `rows=(start, stop)` computes only those rows of the first axis, equal
   to the same rows of the whole draw: a data-parallel rank draws its own
-  rows of the global batch's noise and nothing more.
+  rows of the global batch's noise and nothing more. `tile=(rows, cols)`
+  (two slices) restricts the last two axes the same way: a spatially
+  partitioned rank draws its (lat, lon) tile.
 - `uniform(key, shape, minval, maxval)`: `jax.random.uniform(key, shape,
   float32, minval, maxval)`, bit for bit (the MoE router's jitter).
 
@@ -56,20 +58,31 @@ def fold_in(key: tuple[int, int], data: int) -> tuple[int, int]:
     return _threefry2x32(key[0], key[1], 0, int(data) & _M32)
 
 
-def _bits(key, shape, device, rows=None):
+def _bits(key, shape, device, rows=None, tile=None):
     """jax.random's 32 random bits per element of `shape` (partitionable),
-    or of its rows start:stop along the first axis for `rows=(start, stop)`
-    (each element's bits hash its flat index alone)."""
+    or of its rows start:stop along the first axis for `rows=(start, stop)`,
+    and of the (row slice, column slice) `tile` of its last two axes (each
+    element's bits hash its flat index alone)."""
     start, stop = (0, shape[0]) if rows is None else rows
     per_row = math.prod(shape[1:])
-    idx = torch.arange(start * per_row, stop * per_row, dtype=torch.int64, device=device)
+    if tile is None:
+        idx = torch.arange(start * per_row, stop * per_row, dtype=torch.int64, device=device)
+        out_shape = (stop - start, *shape[1:])
+    else:
+        H, W = shape[-2:]
+        h, w = (torch.arange(H, dtype=torch.int64, device=device)[tile[0]],
+                torch.arange(W, dtype=torch.int64, device=device)[tile[1]])
+        lead = torch.arange(start * (per_row // (H * W)), stop * (per_row // (H * W)),
+                            dtype=torch.int64, device=device)
+        idx = ((lead[:, None, None] * H + h[:, None]) * W + w).reshape(-1)
+        out_shape = (stop - start, *shape[1:-2], len(h), len(w))
     b0, b1 = _threefry2x32(key[0], key[1], idx >> 32, idx & _M32)
-    return (b0 ^ b1).reshape(stop - start, *shape[1:])
+    return (b0 ^ b1).reshape(out_shape)
 
 
-def _unit_floats(key, shape, device, rows=None):
+def _unit_floats(key, shape, device, rows=None, tile=None):
     """Floats in [0, 1) from the mantissa bits, bitwise jax.random's."""
-    one = (_bits(key, tuple(shape), device, rows) >> 9) | 0x3F800000  # in [1, 2)
+    one = (_bits(key, tuple(shape), device, rows, tile) >> 9) | 0x3F800000  # in [1, 2)
     return one.to(torch.int32).view(torch.float32) - 1.0
 
 
@@ -102,12 +115,14 @@ def _erfinv(x):
     return p * x
 
 
-def normal(key: tuple[int, int], shape, device="cpu", rows=None) -> torch.Tensor:
+def normal(key: tuple[int, int], shape, device="cpu", rows=None, tile=None) -> torch.Tensor:
     """jax.random.normal(key, shape, float32) on `device`, or its rows
-    start:stop along the first axis for `rows=(start, stop)`: uniform floats
-    in (-1, 1) from the mantissa bits (bitwise JAX's), then sqrt(2) erfinv
-    with XLA's polynomial (within 4 ulp of JAX's: log1p differs)."""
-    floats = _unit_floats(key, shape, device, rows)
+    start:stop along the first axis for `rows=(start, stop)` and its
+    `tile=(row slice, column slice)` of the last two axes: uniform floats in
+    (-1, 1) from the mantissa bits (bitwise JAX's), then sqrt(2) erfinv with
+    XLA's polynomial (within 4 ulp of JAX's: log1p differs); a restricted
+    draw is the same slice of the whole draw, bit for bit."""
+    floats = _unit_floats(key, shape, device, rows, tile)
     lo = torch.tensor(np.nextafter(np.float32(-1.0), np.float32(0.0)), device=device)
     u = torch.maximum(lo, floats * (1.0 - lo) + lo)
     return _erfinv(u) * np.float32(np.sqrt(2.0))
