@@ -61,7 +61,9 @@ exits nonzero without its last line:
    pair, then one eval step. Checks finite and falling losses, a finite
    nonzero gradient at every LG stage-0 qkv, and the launch counts (8
    forward, 4 dq, 4 dkv per train step; 4 forward for the eval step);
-   prints seconds per step and peak device memory;
+   prints seconds per step and peak device memory (the inputs, step 1's
+   gradient norms and the parameters after step 2 are kept, off the steps'
+   clock, for phase 18);
 8. the trainer CLI on the card (run_train_forecast --micro --grid 32x64):
    2 steps with validation and a checkpoint, then a second run that resumes
    at the saved step;
@@ -211,13 +213,35 @@ exits nonzero without its last line:
    launch; prints each rank's peak memory beside the single process's, its
    step seconds, step 2's halo exchanges (count, bytes of one and in all,
    seconds) and the gradient all-reduce alone.
+18. spatial_forecast: the forecast trainer's spatial mesh (run_train_forecast
+   --mesh DPxSHxSW: window-aligned tiles where an even tile would cut a
+   window, `retile` in and out of such a level, the full-grid LG stage run
+   whole on every rank through the flash kernels, each rank's share of the
+   loss, the gradients summed over the ranks), its ranks in worker
+   processes (`--spatial-forecast-worker`) on the one card over gloo,
+   started after phase 8, running beside phases 9-11 and joined after
+   phase 11. (a) a micro f32 Possloss step (the CPU tests' rope micro at
+   16x48, head dims 32 and 64, flash_min_seq 48, so that the full-grid
+   stage launches the kernels) at --mesh 1x1x2 on 2 ranks and 2x1x2 on 4
+   against one process on the card: loss rel 1e-5, gradients 1e-3 x
+   max|grad|, the ranks bitwise equal, each rank's flash launches those of
+   one process. (b) FORECAST_025 at 721x1440, b1, bf16, remat, Possloss
+   at --mesh 1x1x2 on 2 ranks (each the lon half: the 90x180 level on 96 +
+   84 columns): 2 steps on phase 7's inputs and weights, held to phase 7's
+   first 2 steps (losses, step-1 gradient norms per tensor, the parameters
+   after step 2; check_spatial_train's bf16 tolerances), the ranks bitwise
+   equal, (8, 4, 4) flash launches per rank and step; prints each rank's
+   peak memory beside phase 7's, its step seconds, each step's exchanges
+   by kind (halo rolls, retiles, the stage-0 gather and its backward's
+   all-reduce: count, bytes, seconds) and the gradient all-reduce alone.
 The main phase also prints cycle 2's obs seconds (on the prefetch worker)
 and the seconds the loop waited for them. Every phase is timed by
 utils/logger.py's PhaseTimer; its report (seconds per phase, and the total
 by the smoke's own clock) comes before the kernels line.
 The second-to-last line is a JSON record of the kernels (launches summed
 over the DA, window, training, record, VAE-training, sc4dvar, real-obs,
-sd_zoo (a), dp, mesh (a) and mesh (e) paths (all ranks), each counted from 0; times with the main
+sd_zoo (a), dp, mesh (a), mesh (e) and spatial_forecast (b) paths (all
+ranks), each counted from 0; times with the main
 path's dtypes, and under "bf16" the all-bf16 ones; each bound from the
 function `bound_ms` below); the last line is {"ok": true, "device": {...}}.
 """
@@ -230,6 +254,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import signal
 import statistics
 import subprocess
@@ -1031,7 +1056,11 @@ def check_micro_window():
 
 def check_forecast_training(fa):
     """Phase 7: FORECAST_025 train steps at full width; returns the launch
-    counts of the phase."""
+    counts of the phase, the last step's seconds and what the
+    spatial_forecast phase holds its ranks to: the first 2 steps' losses,
+    the step-1 gradient norm of each tensor of the trainable and the file of
+    its parameters after step 2 (both taken off the steps' clock), the inputs'
+    file and the peak memory."""
     from datetime import datetime, timedelta
 
     import numpy as np
@@ -1063,10 +1092,15 @@ def check_forecast_training(fa):
           f"parameters + 2 x {n_bounds / 1e6:.1f} M logvar bounds; set-up "
           f"{time.perf_counter() - t0:.2f} s")
 
+    ref_dir = tempfile.mkdtemp(prefix="train_ref")
+    atexit.register(shutil.rmtree, ref_dir, True)
+    ref = {"inputs": os.path.join(ref_dir, "inputs.pt"),
+           "params": os.path.join(ref_dir, "params.pt")}
+    torch.save({"inp": inp.cpu(), "tar": tar.cpu()}, ref["inputs"])
     torch.cuda.reset_peak_memory_stats()
     counts = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
     losses, secs = [], []
-    for _ in range(3):
+    for k in range(3):
         fa.flash_fwd_launches = fa.flash_dq_launches = fa.flash_dkv_launches = 0
         t0 = time.perf_counter()
         trainable, opt_state, loss = step(trainable, opt_state, inp, [tar])
@@ -1078,10 +1112,16 @@ def check_forecast_training(fa):
             raise AssertionError(f"train step launched (fwd, dq, dkv) {got}; want (8, 4, 4)")
         for name, n in zip(counts, got):
             counts[name] += n
+        if k == 0:  # off the steps' clock: the spatial_forecast phase's references
+            ref["norms"] = [float(p.grad.float().norm()) for p in ft.trainable_parameters(trainable)]
+        if k == 1:
+            torch.save({k: v.detach().cpu() for k, v in named_trainable(trainable)},
+                       ref["params"])
     qkv = [blk.attn.qkv.weight.grad for blk in model.net.layers[0].blocks]
     qkv_ok = all(g is not None and bool(torch.isfinite(g).all()) and g.abs().max().item() > 0
                  for g in qkv)
     peak = torch.cuda.max_memory_allocated()
+    ref.update(losses=losses[:2], peak_gib=peak / 2 ** 30)
     phase("train", f"3 steps: losses " + ", ".join(f"{v:.6g}" for v in losses)
           + f"; seconds {secs[0]:.3f} (first), " + ", ".join(f"{v:.3f}" for v in secs[1:])
           + f"; peak memory {peak / 2**30:.2f} GiB; LG stage-0 qkv gradients finite and "
@@ -1101,7 +1141,16 @@ def check_forecast_training(fa):
     if got != (4, 0, 0) or not (np.isfinite(loss) and torch.isfinite(pred).all()):
         raise AssertionError(f"eval step: launches {got}, loss {loss}")
     counts["flash_fwd"] += got[0]
-    return counts, secs[-1]
+    return counts, secs[-1], ref
+
+
+def named_trainable(trainable):
+    """(name, tensor) of a forecast trainable: the model's state_dict under
+    model.<key>, then the logvar bounds."""
+    for k, v in trainable["model"].state_dict().items():
+        yield f"model.{k}", v
+    for k in ("max_logvar", "min_logvar"):
+        yield k, trainable[k]
 
 
 def check_cli():
@@ -2166,8 +2215,6 @@ def start_spatial_train(ref):
     ranks, all on the one card over gloo, with the vae_train phase's micro
     inputs and the parameters of its single process after step 2 written
     to their directory."""
-    import shutil
-
     import torch
 
     d = tempfile.mkdtemp(prefix="spatial_train")
@@ -2270,6 +2317,285 @@ def check_spatial_train(started, ref):
                    and all(np.isfinite([h["loss"] for h in r0["hist"]]))):
         raise AssertionError("the 1x1x2 production VAE steps disagree with one process, or "
                              "the ranks differ")
+
+
+# the spatial_forecast phase's (a): the CPU tests' rope micro at 16x48 (LG
+# stages (1, 2): a full-grid stage 0 and a windowed, shifted stage 1 on a 4x12
+# grid whose 3 window columns sw=2 cuts into 8 + 4 window-aligned columns;
+# tests/test_torch_spatial_forecast.py) at widths the flash kernels take (head
+# dims 32 and 64) and flash_min_seq 48, so that stage 0 launches them
+FORECAST_MICRO = dict(img_size=(16, 48), lg_depths=(1, 2), lg_heads=(2, 2), enc_dim=32,
+                      embed_dim=64, flash_min_seq=48, inchans_list=(4, 13),
+                      outchans_list=(8, 26), remat=True)
+
+
+def forecast_micro_step(fa, dev, batch, mesh=None):
+    """One micro f32 Possloss step (FORECAST_MICRO, b2) on `dev`, or with a
+    TrainMesh on this rank's dp rows and tile of the batch (the model
+    partitioned, the gradients summed over the ranks); returns (loss, the
+    trainable's gradients as one CPU vector, the flash launches)."""
+    import torch
+
+    from vaevar_tpu_torch import config as cfgs
+    from vaevar_tpu_torch.models.lgunet import LGUnet
+    from vaevar_tpu_torch.train import forecast_trainer as ft
+    from vaevar_tpu_torch.utils.fast_init import fast_init
+
+    cfg = cfgs.micro_config(**FORECAST_MICRO)
+    model = fast_init(LGUnet(cfg), seed=3).to(dev).train()
+    init_fn, step = ft.make_forecast_train_step(model, "Possloss", lr=1e-4, total_steps=10,
+                                                out_shape=(34, *cfg.img_size), mesh=mesh)
+    trainable, opt_state = init_fn()
+    x, y = batch["inp"], batch["tar"]
+    if mesh is not None:
+        lo, hi = mesh.batch_spec(2 // mesh.dp)
+        rows, cols = mesh.tiling.tile(cfg.img_size)
+        x, y = x[lo:hi, :, rows, cols], y[lo:hi, :, rows, cols]
+    fa.flash_fwd_launches = fa.flash_dq_launches = fa.flash_dkv_launches = 0
+    _, _, loss = step(trainable, opt_state, x.to(dev), [y.to(dev)])
+    grads = torch.cat([p.grad.flatten() for p in ft.trainable_parameters(trainable)]).cpu()
+    return loss.item(), grads, [fa.flash_fwd_launches, fa.flash_dq_launches,
+                                fa.flash_dkv_launches]
+
+
+def spatial_forecast_worker(d, part):
+    """One rank of the spatial_forecast phase, on the one card over gloo.
+    `prod` (2 ranks, --mesh 1x1x2): FORECAST_025 at 721x1440, b1, bf16,
+    remat, Possloss, the train phase's model, inputs, lr and schedule, 2
+    train steps on this rank's lon tile; writes the losses, the step
+    seconds, the launches and the exchanges (count, bytes, seconds; by
+    kind: halo roll, retile, the full-grid stage's gather and its
+    backward's all-reduce) of each step, the step-1 gradient norms, the
+    peak memory, the gradient all-reduce alone and (rank 0) the parameters'
+    distance from the train phase's after step 2; then (a)'s micro step at
+    1x1x2. `micro` (4 ranks, --mesh 2x1x2): (a)'s micro step. Writes
+    <part><rank>.json and the micro gradients micro_<mesh>_<rank>.pt under
+    `d`."""
+    import torch
+    import torch.distributed as dist
+
+    from vaevar_tpu_torch import channels
+    from vaevar_tpu_torch import config as cfgs
+    from vaevar_tpu_torch.models.lgunet import LGUnet
+    from vaevar_tpu_torch.ops import flash_attn as fa
+    from vaevar_tpu_torch.parallel import mesh as pmesh
+    from vaevar_tpu_torch.parallel import spatial
+    from vaevar_tpu_torch.train import forecast_trainer as ft
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = pmesh.init_distributed(backend="gloo", device="cuda")
+    arg = "2x1x2" if part == "micro" else "1x1x2"
+    mesh = pmesh.mesh_from_arg(arg, "cuda")
+    dev = mesh.device
+    out = {"rank": rank, "device": str(dev), "coords": mesh.coords}
+    batch = torch.load(os.path.join(d, "micro_batch.pt"))
+    if part == "prod":
+        # each exchange by kind: (bytes this rank sends, seconds from a
+        # synchronized start)
+        kind, log = [None], {"halo": [], "retile": [], "gather": [], "gather_bwd": []}
+
+        def tagged(name, fn):
+            def call(*a):
+                kind.append(name)
+                try:
+                    return fn(*a)
+                finally:
+                    kind.pop()
+            return call
+
+        def timed(name, fn):
+            def call(t, group=None):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = fn(t, group)
+                log.setdefault(name or kind[-1] or "other", []).append(
+                    (t.numel() * t.element_size(), time.perf_counter() - t0))
+                return got
+            return call
+
+        spatial._move = tagged("retile", spatial._move)
+        spatial._roll = tagged("halo", spatial._roll)
+        spatial.Tiling._gather_whole = tagged("gather", spatial.Tiling._gather_whole)
+        spatial._all_gather = timed(None, spatial._all_gather)
+        spatial.all_sum = timed("gather_bwd", spatial.all_sum)
+
+        t0 = time.perf_counter()
+        cfg = cfgs.FORECAST_025.replace(dtype=torch.bfloat16)  # remat on
+        model = filled(lambda: LGUnet(cfg), 0).to(dev).train()
+        hw = cfg.img_size
+        rows, cols = mesh.tiling.tile(hw)
+        ref = torch.load(os.path.join(d, "train_inputs.pt"))
+        inp, tar = (ref[k][..., rows, cols].contiguous().to(dev) for k in ("inp", "tar"))
+        init_fn, step = ft.make_forecast_train_step(model, "Possloss", lr=LR,
+                                                    total_steps=TOTAL_STEPS,
+                                                    out_shape=(2 * channels.N_CHANNELS, *hw),
+                                                    mesh=mesh)
+        trainable, opt_state = init_fn()
+        torch.cuda.synchronize()
+        out.update(setup_s=time.perf_counter() - t0, tile=list(inp.shape),
+                   layout=str(model.net.layout), losses=[], secs=[], launches=[],
+                   exchanges=[])
+        torch.cuda.reset_peak_memory_stats()
+        for k in range(2):
+            dist.barrier()
+            for v in log.values():
+                v.clear()
+            fa.flash_fwd_launches = fa.flash_dq_launches = fa.flash_dkv_launches = 0
+            t0 = time.perf_counter()
+            trainable, opt_state, loss = step(trainable, opt_state, inp, [tar])
+            out["losses"].append(loss.item())
+            torch.cuda.synchronize()
+            out["secs"].append(time.perf_counter() - t0)
+            out["launches"].append([fa.flash_fwd_launches, fa.flash_dq_launches,
+                                    fa.flash_dkv_launches])
+            out["exchanges"].append({name: [len(v), sum(b for b, _ in v),
+                                            min((b for b, _ in v), default=0),
+                                            max((b for b, _ in v), default=0),
+                                            sum(s for _, s in v)]
+                                     for name, v in log.items()})
+            if k == 0:
+                out["norms"] = [float(p.grad.float().norm())
+                                for p in ft.trainable_parameters(trainable)]
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        out["checksum"] = ft.trainable_checksum(trainable)
+        pmesh.check_replicas(out["checksum"])
+        # the all-reduce alone: the last step's gradients summed again
+        params = ft.trainable_parameters(trainable)
+        out["grad_bytes"] = sum(p.numel() * 4 for p in params)
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pmesh.all_sum_grads(params)
+        torch.cuda.synchronize()
+        out["allreduce_s"] = time.perf_counter() - t0
+        if rank == 0:  # the ranks are bitwise equal (check_replicas)
+            want = torch.load(os.path.join(d, "train_params.pt"), mmap=True)
+            moved = far = n = 0
+            for name, v in named_trainable(trainable):
+                diff = (v.detach().cpu() - want[name]).abs()
+                moved = max(moved, float(diff.max()))
+                far += int((diff > 0.5 * LR).sum())
+                n += diff.numel()
+            out.update(max_param_diff=moved, share_beyond_half_lr=far / n)
+        del model, trainable, opt_state, step, init_fn, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    loss, grads, launched = forecast_micro_step(fa, dev, batch, mesh)
+    out["micro"] = {"mesh": arg, "loss": loss, "launches": launched}
+    torch.save(grads, os.path.join(d, f"micro_{arg}_{rank}.pt"))
+    with open(os.path.join(d, f"{part}{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def start_spatial_forecast(ref):
+    """Phase 18's workers, started beside the record, vae_train and sc4dvar
+    phases: 2 `--spatial-forecast-worker prod` ranks ((b), then (a) at
+    1x1x2) and 4 `--spatial-forecast-worker micro` ranks ((a) at 2x1x2),
+    all on the one card over gloo, with the train phase's inputs and
+    parameters after step 2 and (a)'s batch in their directory."""
+    import numpy as np
+    import torch
+
+    d = tempfile.mkdtemp(prefix="spatial_forecast")
+    atexit.register(shutil.rmtree, d, True)
+    shutil.move(ref["inputs"], os.path.join(d, "train_inputs.pt"))
+    shutil.move(ref.pop("params"), os.path.join(d, "train_params.pt"))
+    rng = np.random.default_rng(7)
+    torch.save({k: torch.from_numpy(rng.standard_normal((2, 17, *FORECAST_MICRO["img_size"]),
+                                                        dtype=np.float32))
+                for k in ("inp", "tar")}, os.path.join(d, "micro_batch.pt"))
+    return d, (start_workers("--spatial-forecast-worker", 2, [d, "prod"]),
+               start_workers("--spatial-forecast-worker", 4, [d, "micro"]))
+
+
+def check_spatial_forecast(fa, started, ref):
+    """Phase 18: the forecast trainer's spatial mesh (run_train_forecast
+    --mesh DPxSHxSW: window-aligned tiles at the 90x180 level, the
+    full-grid LG stage whole on every rank, each rank's share of the loss,
+    the gradients summed over the ranks), its workers started by
+    start_spatial_forecast. (a) the micro f32 step at 1x1x2 and 2x1x2
+    against one process on the card: loss rel 1e-5, gradients 1e-3 x
+    max|grad| (f32 sums in other orders), the ranks bitwise equal, the
+    flash kernels launched by stage 0. (b) FORECAST_025 at 1x1x2, b1 bf16
+    remat Possloss, 2 steps on 2 ranks against the train phase's first 2 on
+    the same inputs and weights, with the spatial_train phase's bf16
+    tolerances and reasons (check_spatial_train): losses within 2^-7 (step
+    1) and 2^-6 (step 2) relative, each tensor's step-1 gradient norm within
+    2^-6 of its own plus 2^-8 of the largest, the parameters after step 2
+    within 4.01 lr; the ranks bitwise equal; (8, 4, 4) flash launches per
+    rank and step (stage 0 runs whole on each rank). Prints each rank's
+    peak memory beside the train phase's, its step seconds, the exchanges
+    of each step (count and bytes by kind) and the gradient all-reduce
+    alone. Returns (b)'s launches, summed over the ranks and steps."""
+    import numpy as np
+    import torch
+
+    d, (prod, micro) = started
+    try:
+        wall = [wait_workers(w, 900) for w in (prod, micro)]
+        ranks = {part: [json.load(open(os.path.join(d, f"{part}{r}.json"))) for r in range(n)]
+                 for part, n in (("prod", 2), ("micro", 4))}
+    finally:
+        for w in (prod, micro):
+            for p in w.procs:
+                p.kill()
+    batch = torch.load(os.path.join(d, "micro_batch.pt"))
+    l1, g1, launched = forecast_micro_step(fa, "cuda", batch)
+    scale = g1.abs().max().item()
+    for arg, part, n in (("1x1x2", "prod", 2), ("2x1x2", "micro", 4)):
+        got = [(r["micro"], torch.load(os.path.join(d, f"micro_{arg}_{r['rank']}.pt")))
+               for r in ranks[part]]
+        lerr = max(abs(m["loss"] - l1) / abs(l1) for m, _ in got)
+        gerr = max((g - g1).abs().max().item() for _, g in got)
+        same = all(m["loss"] == got[0][0]["loss"] and torch.equal(g, got[0][1]) for m, g in got)
+        phase("spatial_forecast", f"(a) micro f32 Possloss step at --mesh {arg}, {n} ranks on "
+              f"the card over gloo, vs one process on the card: loss {got[0][0]['loss']:.7g} vs "
+              f"{l1:.7g} (rel {lerr:.3g}, tol 1e-5); gradients max|d| {gerr:.3g} <= "
+              f"{1e-3 * scale:.3g} (1e-3 x max|grad|); ranks bitwise equal {same}; flash "
+              f"launches per rank {[m['launches'] for m, _ in got]} (one process {launched})")
+        if not (same and lerr <= 1e-5 and gerr <= 1e-3 * scale
+                and all(m["launches"] == launched and min(launched) > 0 for m, _ in got)):
+            raise AssertionError(f"the {arg} micro forecast step disagrees with one process")
+
+    r0 = ranks["prod"][0]
+    phase("spatial_forecast", f"(b) FORECAST_025 721x1440 b1 bf16 remat Possloss at --mesh "
+          f"1x1x2: each rank's input tile {r0['tile']}; the 90x180 level's tiles: {r0['layout']}")
+    for r in ranks["prod"]:
+        phase("spatial_forecast", f"(b) rank {r['rank']} on {r['device']} (gloo): set-up "
+              f"{r['setup_s']:.2f} s; losses " + ", ".join(f"{v:.7g}" for v in r["losses"])
+              + "; step seconds " + ", ".join(f"{v:.3f}" for v in r["secs"])
+              + f"; peak memory {r['peak_gib']:.2f} GiB against {ref['peak_gib']:.2f} GiB in "
+              f"one process (the train phase); launches per step (fwd, dq, dkv) "
+              f"{r['launches']}; the gradient all-reduce alone (gloo, "
+              f"{r['grad_bytes'] / 1e9:.2f} GB of f32) {r['allreduce_s']:.3f} s; checksum "
+              f"{r['checksum']!r}")
+        for k, ex in enumerate(r["exchanges"]):
+            phase("spatial_forecast", f"(b) rank {r['rank']} step {k + 1} exchanges (count, "
+                  "bytes sent in all, smallest-largest, seconds from a synchronized start): "
+                  + "; ".join(f"{name} {c}, {b / 1e6:.3f} MB, {lo}-{hi} B, {t:.3f} s"
+                              for name, (c, b, lo, hi, t) in ex.items()))
+    lerr = [abs(a - b) / abs(b) for a, b in zip(r0["losses"], ref["losses"])]
+    n1, n2 = np.asarray(ref["norms"]), np.asarray(r0["norms"])
+    nerr = np.abs(n2 - n1) - (SPATIAL_NORM_TOL[0] * n1 + SPATIAL_NORM_TOL[1] * n1.max())
+    phase("spatial_forecast", "(b) vs the train phase's single process, steps 1-2: losses "
+          + ", ".join(f"{a:.7g} vs {b:.7g}" for a, b in zip(r0["losses"], ref["losses"]))
+          + "; rel " + ", ".join(f"{e:.3g}" for e in lerr) + " (tol 2^-7, 2^-6); step-1 "
+          f"gradient norms: max rel {np.max(np.abs(n2 - n1) / np.maximum(n1, 1e-30)):.3g}, "
+          f"worst margin {nerr.max():.3g} (<= 0: within 2^-6 of each + 2^-8 of the largest, "
+          f"{n1.max():.4g}); parameters after step 2 max|d| {r0['max_param_diff']:.3g} <= "
+          f"{ADAM_REACH * LR:.3g} ({ADAM_REACH} lr), {100 * r0['share_beyond_half_lr']:.3f} % "
+          f"beyond lr/2; workers {wall[0]:.1f} s and {wall[1]:.1f} s with their start")
+    bad = [r for r in ranks["prod"] if any(c != [8, 4, 4] for c in r["launches"])
+           or r["losses"] != r0["losses"] or r["checksum"] != r0["checksum"]]
+    if bad or not (lerr[0] <= SPATIAL_LOSS_TOL[0] and lerr[1] <= SPATIAL_LOSS_TOL[1]
+                   and (nerr <= 0).all() and r0["max_param_diff"] <= ADAM_REACH * LR
+                   and all(np.isfinite(r0["losses"]))):
+        raise AssertionError("the 1x1x2 FORECAST_025 steps disagree with one process, or the "
+                             "ranks differ")
+    counts = np.sum([r["launches"] for r in ranks["prod"]], axis=(0, 1))
+    return dict(zip(("flash_fwd", "flash_dq", "flash_dkv"), map(int, counts)))
 
 
 # the micro cycles of the mesh phase's part (b): reduced 3D-Var and the da_win
@@ -2822,7 +3148,7 @@ def run_phases(timer):
     torch.cuda.empty_cache()
 
     with timer.phase("train"):
-        train_counts, step_s = check_forecast_training(fa)
+        train_counts, step_s, train_ref = check_forecast_training(fa)
     gc.collect()
     torch.cuda.empty_cache()
     with timer.phase("cli"):
@@ -2832,6 +3158,8 @@ def run_phases(timer):
     # the OSSE (micro, deterministic) in a process of its own beside the
     # record and vae_train phases; its output is replayed where it joins
     osse_worker = start_workers("--osse-worker", 1, [])
+    # the spatial_forecast phase's ranks beside record, vae_train and sc4dvar
+    forecast_mesh = start_spatial_forecast(train_ref)
     with timer.phase("record"):
         record_launches = check_record(fa)
     gc.collect()
@@ -2842,6 +3170,10 @@ def run_phases(timer):
     torch.cuda.empty_cache()
     with timer.phase("sc4dvar"):
         sc4dvar_launches = check_sc4dvar(fa)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with timer.phase("spatial_forecast"):
+        sf_counts = check_spatial_forecast(fa, forecast_mesh, train_ref)
     gc.collect()
     torch.cuda.empty_cache()
     # the spatial_train phase's ranks run beside real_obs, whose time is
@@ -2885,7 +3217,7 @@ def run_phases(timer):
             "name": name, "route": "cuda", "source": f"vaevar_tpu_torch/csrc/{src}",
             "replaces": tpu,
             "launches": train_counts[name] + dp_counts[name] + sd_counts[name]
-            + mesh_counts[name] + (
+            + mesh_counts[name] + sf_counts[name] + (
                 launches + window_launches + record_launches + vae_launches + sc4dvar_launches
                 + real_obs_launches if name == "flash_fwd" else 0),
             "max_abs_err": stats[name]["max_abs_err"]}
@@ -2971,6 +3303,8 @@ if __name__ == "__main__":
         sys.exit(tp_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--spatial-worker"]:
         sys.exit(spatial_worker(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--spatial-forecast-worker"]:
+        sys.exit(spatial_forecast_worker(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--mesh-worker"]:
         sys.exit(mesh_worker(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

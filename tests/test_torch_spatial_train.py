@@ -550,9 +550,12 @@ def _refusal_cases():
 
     micro16 = C.micro_vae_configs(img_size=(16, 32))[1]
     return {
-        # the 4x8 LG grid clamps its window to 4x4; a 2-row tile cuts it
-        "windows_cut": (micro16, (2, 1), "does not hold whole 4x4 windows"),
-        "full_grid_stage": (C.micro_config(img_size=HW), (1, 2), "full-grid LG stage"),
+        # the 4x8 LG grid clamps its window to 4x4: one window row for 2 ranks
+        "windows_cut": (micro16, (2, 1), "has 1 row of 4x4 windows for the 2 ranks"),
+        # the rope model's 8x16 level has 4 window columns for 8 ranks (its
+        # full-grid LG stage runs whole, tests/test_torch_spatial_forecast.py)
+        "full_grid_stage": (C.micro_config(img_size=HW), (1, 8),
+                            "has 4 columns of 4x4 windows for the 8 ranks"),
         "general_path": (C.micro_config(img_size=HW, lg_full_attn_first=False,
                                         window_size=(4, 4), dilated_size=(1, 2)),
                          (1, 2), "general path"),
@@ -565,7 +568,7 @@ def _refusal_cases():
                                   "uneven_tile"])
 def test_partition_refuses_what_the_forecast_half_takes(case):
     """Each raises ValueError (never runs replicated) and names the level,
-    the grid, the tile and the window, or the dim and the axis."""
+    the grid, the window and the mesh, or the dim and the axis."""
     from vaevar_tpu_torch.models.lgunet import LGUnet
     from vaevar_tpu_torch.parallel.spatial import Tiling
 
@@ -574,10 +577,11 @@ def test_partition_refuses_what_the_forecast_half_takes(case):
     with pytest.raises(ValueError, match=match) as err:
         model.partition(Tiling(sh, sw))
     if case == "windows_cut":
-        assert "enc.enc_list.0.layers.1.blocks.0.attn: its 2x8 tile of the 4x8 grid" \
-            in str(err.value)
+        assert "enc.enc_list.0.layers.1, level 1: its 4x8 grid" in str(err.value)
+    if case == "full_grid_stage":
+        assert "enc.enc_list.0.layers.1, level 1: its 8x16 grid" in str(err.value)
     if case != "uneven_tile":
-        assert "A.13d" in str(err.value)
+        assert "mesh sh=" in str(err.value)
     # a refused model is left as it was: no module partitioned, no mask cut
     fresh = LGUnet(cfg)
     assert model._tiling is None
@@ -607,12 +611,22 @@ def test_partition_refuses_a_kernel_over_its_stride_and_tensor_parallel():
 
 
 def test_forecast_trainer_refuses_a_spatial_mesh():
-    """make_forecast_train_step on a TrainMesh raises, naming A.13d."""
+    """make_forecast_train_step on a TrainMesh partitions the rope model
+    with its full-grid LG stage (run whole on every rank) and refuses only
+    a mesh that cannot tile it: ValueError, the model left whole."""
+    from vaevar_tpu import config as C
+    from vaevar_tpu_torch.models.lgunet import LGUnet
     from vaevar_tpu_torch.parallel import mesh as pmesh
     from vaevar_tpu_torch.train import forecast_trainer as ft
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A.13d"):
-        ft.make_forecast_train_step(torch.nn.Linear(1, 1), mesh=pmesh.TrainMesh(1, 1, 2))
+    model = LGUnet(C.micro_config(img_size=HW))
+    mesh = pmesh.TrainMesh(1, 1, 2, rank=1)
+    ft.make_forecast_train_step(model, mesh=mesh, out_shape=(138, *HW))
+    assert model._tiling == mesh.tiling and model.net.layout.cols == (8, 8)
+    model = LGUnet(C.micro_config(img_size=HW))
+    with pytest.raises(ValueError, match="4 columns of 4x4 windows for the 8 ranks"):
+        ft.make_forecast_train_step(model, mesh=pmesh.TrainMesh(1, 1, 8))
+    assert model._tiling is None
 
 
 def test_train_mesh_parse_and_launch_checks(monkeypatch):

@@ -305,16 +305,16 @@ def test_cli_trains_resumes_and_evaluates_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("flag", ["--mesh", "--data_dir"])
 def test_cli_refuses_what_is_not_ported(flag, tmp_path):
-    """The forecast trainer's spatial --mesh DPxSHxSW is not ported (ROADMAP
-    A.13d) and raises before any launch check; --mesh DP and DPx1x1 are
-    (tests/test_torch_dp.py), and the VAE trainer's spatial mesh is
-    (tests/test_torch_spatial_train.py). --data_dir is (A.11a): a
-    store without the run's frames fails loudly instead of falling back to
-    the synthetic source."""
+    """Every --mesh is ported: DP and DPx1x1 (tests/test_torch_dp.py) and
+    the spatial DPxSHxSW (tests/test_torch_spatial_forecast.py), so a
+    spatial mesh outside a launch of its processes reaches the launch check
+    and raises it, not a refusal; --data_dir is (A.11a): a store without the
+    run's frames fails loudly instead of falling back to the synthetic
+    source."""
     from vaevar_tpu_torch import run_train_forecast
 
     if flag == "--mesh":
-        with pytest.raises(NotImplementedError, match="ROADMAP A.13d"):
+        with pytest.raises(RuntimeError, match="--mesh 2x2x2 needs 8 processes"):
             run_train_forecast.main(["--device", "cpu", flag, "2x2x2"])
         return
     with pytest.raises(FileNotFoundError, match="2022-01-01_00.npy"):

@@ -23,10 +23,14 @@ last LayerNorm before a head run in f32; the output is cast to f32.
 
 `LGUnet.partition(tiling)` (parallel/spatial.py, docs/SPATIAL_TRAINING.md)
 puts the model in its spatially partitioned mode: the input, the output and
-every activation are this rank's (lat, lon) tile of the whole, the shifted
-windows' rolls exchange halos with the neighbouring tiles, the pos embeds
-are sliced to the tile and the shift masks keep the tile's windows; the
-parameters stay whole and replicated.
+every activation are this rank's (lat, lon) tile of the whole (at a level
+whose even tiles would cut its windows, its window-aligned tile, with a
+`retile` at the level's entry and exit), the shifted windows' rolls
+exchange halos with the neighbouring tiles, the pos embeds are sliced to
+the tile and the shift masks keep the tile's windows; a full-grid LG stage
+runs whole on every rank, on its input gathered from the tiles
+(`gather_whole`), and keeps the rank's tile of its output. The parameters
+stay whole and replicated.
 """
 
 from __future__ import annotations
@@ -198,20 +202,14 @@ class WindowAttention(nn.Module):
             x = roll(x, sh, sw)
         return x
 
-    def tile_mask(self, tiling, name: str):
-        """This attention's (module `name`) shift mask in the partitioned
-        mode on `tiling`: the rows of its tile's windows, in raster order
-        (None without a mask). Its tile of the grid must hold whole
-        windows, or this raises."""
+    def tile_mask(self, tiling, layout):
+        """This attention's shift mask in the partitioned mode on `tiling`,
+        its grid tiled by `layout` (parallel/spatial.py, tiles of whole
+        windows): the rows of this rank's windows, in raster order (None
+        without a mask)."""
         H, W = self.resolution
-        rows, cols = tiling.tile((H, W), name)
-        th, tw = rows.stop - rows.start, cols.stop - cols.start
+        rows, cols = layout.tile(tiling.s, tiling.w)
         (wh, ww), N = self.win, self.win[0] * self.win[1]
-        if th % wh or tw % ww:
-            raise ValueError(
-                f"{name}: its {th}x{tw} tile of the {H}x{W} grid does not hold whole "
-                f"{wh}x{ww} windows (mesh sh={tiling.sh}, sw={tiling.sw}); a window cut by a "
-                "tile is the forecast half's re-tiling, ROADMAP A.13d")
         if self.mask is None:
             return None
         m = self.mask.reshape(H // wh, W // ww, N, N)
@@ -302,7 +300,13 @@ class BasicLayer(nn.Module):
     lgunet.py:373-432), plus an optional `downsample` applied first or
     `upsample` applied last (the reference's stage key layout). With
     `dilated`, `cfg.dilated_size` is trimmed to the window's rank
-    (lgunet.py:394-397); the full-grid LG stage passes dilated=False."""
+    (lgunet.py:394-397); the full-grid LG stage passes dilated=False. In the
+    partitioned mode `moves` holds the (from, to) layouts of the retile
+    before the blocks (after `downsample`) and of the one after them
+    (before `upsample`), each None where the tiles stay."""
+
+    tiling = None  # parallel/spatial.py's Tiling in the partitioned mode
+    moves = (None, None)
 
     def __init__(self, cfg, dim, num_heads, depth, resolution, window,
                  shifted=True, dilated=True, downsample=None, upsample=None):
@@ -330,11 +334,15 @@ class BasicLayer(nn.Module):
     def forward(self, x):
         if self.downsample is not None:
             x = self.downsample(x)
+        if self.moves[0] is not None:
+            x = self.tiling.retile(x, *self.moves[0])
         for blk in self.blocks:
             if self.remat and torch.is_grad_enabled():
                 x = checkpoint(blk, x, use_reentrant=False)
             else:
                 x = blk(x)
+        if self.moves[1] is not None:
+            x = self.tiling.retile(x, *self.moves[1])
         if self.upsample is not None:
             x = self.upsample(x)
         return x
@@ -382,12 +390,16 @@ class _PatchEmbed(nn.Module):
         return y.permute(0, 2, 3, 1)
 
 
-def _tile_of(pe, tiling):
-    """The (1, H, W, C) pos embed `pe`, or its tile in the partitioned mode:
-    the whole parameter takes a gradient that is zero outside the tile."""
+def _tile_of(pe, tiling, layout=None):
+    """The (1, H, W, C) pos embed `pe`, or its tile in the partitioned mode
+    (under `layout`, else the even tiles): the whole parameter takes a
+    gradient that is zero outside the tile."""
     if tiling is None:
         return pe
-    rows, cols = tiling.tile(pe.shape[1:3])
+    if layout is None:
+        rows, cols = tiling.tile(pe.shape[1:3])
+    else:
+        rows, cols = layout.tile(tiling.s, tiling.w)
     return pe[:, rows, cols]
 
 
@@ -472,9 +484,14 @@ class LGStack(nn.Module):
     grid unshifted when `lg_full_attn_first`, later stages are windowed. A
     3-D `lg_window_size` runs the windowed stages on x[:, None], a
     (B, 1, Hg, Wg, C) grid, with 3-D windows and rope3 (shift w // 2 per
-    axis); the full-grid stage stays 2-D and undilated."""
+    axis); the full-grid stage stays 2-D and undilated. In the partitioned
+    mode the stack runs on the tiles of `layout` (retiled from and back to
+    the encoder's last level by `moves`), and the full-grid stage runs whole
+    on every rank."""
 
     tiling = None  # parallel/spatial.py's Tiling in the partitioned mode
+    layout = None
+    moves = (None, None)
 
     def __init__(self, cfg):
         super().__init__()
@@ -494,15 +511,25 @@ class LGStack(nn.Module):
             self.layers.append(stage)
 
     def forward(self, x):
-        x = x + _tile_of(self.pos_embed, self.tiling)
+        if self.moves[0] is not None:
+            x = self.tiling.retile(x, *self.moves[0])
+        x = x + _tile_of(self.pos_embed, self.tiling, self.layout)
         if self.win3d:
             x = x[:, None]
         for i, stage in enumerate(self.layers):
             if i == 0 and self.full_first and self.win3d:
                 x = stage(x[:, 0])[:, None]
+            elif i == 0 and self.full_first and self.tiling is not None:
+                # every token attends to every other: the stage runs whole on
+                # every rank, which keeps its tile of the output
+                rows, cols = self.layout.tile(self.tiling.s, self.tiling.w)
+                x = stage(self.tiling.gather_whole(x, self.layout))[:, rows, cols]
             else:
                 x = stage(x)
-        return x[:, 0] if self.win3d else x
+        x = x[:, 0] if self.win3d else x
+        if self.moves[1] is not None:
+            x = self.tiling.retile(x, *self.moves[1])
+        return x
 
 
 class Decoder(nn.Module):
@@ -558,14 +585,18 @@ class LGUnet(nn.Module):
         (parallel/spatial.py::Tiling, a rank's tile of an sh x sw mesh) and
         return it: forward then maps this rank's (B, C_in, h, w) tile of the
         input to its tile of the output, exchanging halos with the other
-        ranks of the tiling (every rank of it runs the same forward). The
-        parameters stay whole. Raises ValueError, naming the level, its
-        grid, the tile and the window, where the partition would need what
-        the forecast half brings (ROADMAP A.13d): a tile that cuts a
-        window, a patch embed or head whose kernel exceeds its stride on a
-        split axis, the rope full-grid LG stage, the general path (dilated
-        or 3-D windows), or tensor-parallel blocks. A second call with the
-        same tiling does nothing."""
+        ranks of the tiling (every rank of it runs the same forward). Each
+        level runs on the tiles of `Tiling.layout` for its windows: the even
+        tiles, or window-aligned ones where those would cut a window; the
+        full-grid LG stage runs whole on every rank. The parameters stay
+        whole. Raises ValueError, naming what it refuses, where a level has
+        fewer window rows or columns than ranks along an axis, a patch
+        embed or head's kernel exceeds its stride on a split axis or a tile
+        its stride does not divide, PatchMerging or PatchExpand would see a
+        tile of odd size, the model takes the general path (dilated or 3-D
+        windows), or its blocks are tensor-parallel. Every check runs
+        before any change, so a refused model stays as it was. A second
+        call with the same tiling does nothing."""
         from vaevar_tpu_torch.parallel.tensor_parallel import _RowParallel
 
         if self._tiling is not None:
@@ -574,22 +605,16 @@ class LGUnet(nn.Module):
             return self
         cfg = self.cfg
         mesh = f"mesh sh={tiling.sh}, sw={tiling.sw}"
-        if cfg.lg_full_attn_first:
-            Hg, Wg = cfg.lg_resolution
-            raise ValueError(
-                f"net.layers.0: the rope full-grid LG stage attends its whole {Hg}x{Wg} grid "
-                f"({mesh}); its query tiles against all-gathered keys are ROADMAP A.13d")
         for name, m in self.named_modules():
             if isinstance(m, WindowAttention) and m.general:
                 raise ValueError(
                     f"{name}: the general path (dilated {m.dil} or 3-D window {m.win} on the "
                     f"{'x'.join(map(str, m.resolution))} grid) groups tokens across the whole "
-                    f"grid ({mesh}); not partitioned (ROADMAP A.13d)")
+                    f"grid ({mesh}); it is not partitioned")
             if isinstance(m, _RowParallel):
                 raise ValueError(f"{name}: a tensor-parallel block ({mesh}); the trainers' "
-                                 "mesh has no tp axis (ROADMAP A.13d)")
+                                 "mesh has no tp axis")
         H, W = cfg.img_size
-        tiling.tile((H, W), "the input grid")
         for axis, n, size, k, st in (("lat", tiling.sh, H, cfg.patch_size[0], cfg.stride[0]),
                                      ("lon", tiling.sw, W, cfg.patch_size[1], cfg.stride[1])):
             if n > 1 and (k != st or (size // n) % st):
@@ -597,22 +622,88 @@ class LGUnet(nn.Module):
                     f"the patch embed and head (kernel {k}, stride {st} along {axis}) on a "
                     f"{axis} tile of {size // n} of the {H}x{W} grid ({mesh}): a kernel that "
                     "exceeds its stride, or a tile its stride does not divide, reads across "
-                    "tiles (ROADMAP A.13d)")
-        pr = cfg.patches_resolution
-        for i in range(1, len(cfg.enc_depths)):  # PatchMerging's 2x2 groups stay in a tile
-            res = (pr[0] // 2 ** (i - 1), pr[1] // 2 ** (i - 1))
-            rows, cols = tiling.tile(res, f"level {i - 1}")
-            if (rows.stop - rows.start) % 2 or (cols.stop - cols.start) % 2:
-                raise ValueError(f"level {i - 1}: its tile of the {res[0]}x{res[1]} grid "
-                                 f"({mesh}) has an odd side; PatchMerging needs even tiles")
-        # every check before any change: a refused model stays as it was (the
-        # pos embeds' grids are their first stages' attention grids)
-        masks = [(m, m.tile_mask(tiling, name)) for name, m in self.named_modules()
-                 if isinstance(m, WindowAttention)]
+                    "tiles")
+        tiling.tile((H, W), "the input grid")
+        moves, layouts = self._layouts(tiling, mesh)
+        # every check before any change: a refused model stays as it was
+        masks = []
+        for name, m in self.named_modules():
+            if isinstance(m, BasicLayer) and not (self.net.full_first and m is self.net.layers[0]):
+                for blk in m.blocks:
+                    masks.append((blk.attn, blk.attn.tile_mask(tiling, layouts[name])))
         for m, mask in masks:
             m.mask, m.tiling = mask, tiling
-        for m in self.modules():
-            if isinstance(m, (GroupEncoder, LGStack)):
+        for name, m in self.named_modules():
+            if isinstance(m, (GroupEncoder, LGStack, BasicLayer)):
                 m.tiling = tiling
+            if name in moves:
+                m.moves = moves[name]
+        self.net.layout = layouts["net"]
         self._tiling = tiling
         return self
+
+    def _layouts(self, tiling, mesh):
+        """The partitioned mode's plan on `tiling`: ({module name: (move in,
+        move out)}, {module name: the layout its blocks run on}), each move
+        a (from, to) pair of layouts or None. The encoder's levels start on
+        the patch embed's even tiles and each runs on `Tiling.layout` for
+        its windows (PatchMerging halves the previous level's tiles, which
+        must be even); the LG stack runs on the layout of its windowed
+        stages (the encoder's last, without any); each decoder level leaves
+        its blocks on half its next level's tiles (PatchExpand doubles
+        them), the last on the patch embed's even tiles for the head."""
+        cfg = self.cfg
+        moves, layouts = {}, {}
+
+        def level_layout(stage, res, what):
+            wins = {tuple(blk.attn.win) for blk in stage.blocks}
+            return tiling.layout(res, wins.pop() if wins else None, what)
+
+        pr = cfg.patches_resolution
+        L = len(cfg.enc_depths)
+        res = [(pr[0] // 2 ** i, pr[1] // 2 ** i) for i in range(L)]
+        first = tiling.layout(pr, None, "the patch embed's grid")
+        for g in range(len(self.enc.enc_list)):
+            cur = first
+            for i in range(L):
+                name = f"enc.enc_list.{g}.layers.{i}"
+                stage = self.enc.enc_list[g].layers[i]
+                if i > 0:
+                    if not cur.even():
+                        raise ValueError(f"{name}: PatchMerging of level {i - 1}'s tiles "
+                                         f"({cur}) of the {res[i - 1][0]}x{res[i - 1][1]} grid "
+                                         f"({mesh}) needs even tiles")
+                    cur = cur.halved()
+                want = level_layout(stage, res[i], f"{name}, level {i}")
+                moves[name] = (None if cur == want else (cur, want), None)
+                layouts[name] = cur = want
+        deepest = cur
+        lg = deepest
+        for i, stage in enumerate(self.net.layers):
+            name = f"net.layers.{i}"
+            if i == 0 and self.net.full_first:
+                continue  # gathered whole: any tiles
+            lg = level_layout(stage, cfg.lg_resolution, f"{name}, the LG grid")
+        for i in range(len(self.net.layers)):
+            layouts[f"net.layers.{i}"] = lg
+        layouts["net"] = lg
+        moves["net"] = (None if lg == deepest else (deepest, lg),
+                        None if lg == deepest else (lg, deepest))
+        for g in range(len(self.dec.dec_list)):
+            for i in range(L):
+                name = f"dec.dec_list.{g}.layers_up.{i}"
+                stage = self.dec.dec_list[g].layers_up[i]
+                level = L - 1 - i
+                here = level_layout(stage, res[level], f"{name}, level {level}")
+                if level > 0:
+                    nxt = layouts[f"enc.enc_list.{g}.layers.{level - 1}"]
+                    if not nxt.even():
+                        raise ValueError(f"{name}: PatchExpand onto level {level - 1}'s tiles "
+                                         f"({nxt}) of the {res[level - 1][0]}x"
+                                         f"{res[level - 1][1]} grid ({mesh}) needs even tiles")
+                    out = nxt.halved()
+                else:
+                    out = first
+                moves[name] = (None, None if here == out else (here, out))
+                layouts[name] = here
+        return moves, layouts

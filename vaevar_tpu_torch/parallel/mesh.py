@@ -12,13 +12,12 @@ and the trainers wrap their models in DistributedDataParallel on it. A dp=N
 run computes what a dp=1 run computes on the global batch, the ranks' local
 batches in rank order (`global_batch`).
 
-The VAE trainer's `--mesh DPxSHxSW` (SH * SW > 1) is a `TrainMesh`: DP x SH x
-SW processes in JAX's row-major ("dp", "sh", "sw") order, each holding its
-dp rows' (lat, lon) tile of the frames and of every activation of a
-spatially partitioned LGUnet (`TrainMesh.tiling`, parallel/spatial.py,
+The trainers' `--mesh DPxSHxSW` (SH * SW > 1) is a `TrainMesh`: DP x SH x SW
+processes in JAX's row-major ("dp", "sh", "sw") order, each holding its dp
+rows' (lat, lon) tile of the frames and of every activation of a spatially
+partitioned LGUnet (`TrainMesh.tiling`, parallel/spatial.py,
 docs/SPATIAL_TRAINING.md); the parameter gradients are summed over the world
-(`all_sum_grads`). `DPx1x1` is `--mesh DP`. The forecast trainer's spatial
-mesh is ROADMAP A.13d and raises.
+(`all_sum_grads`). Both trainers take it. `DPx1x1` is `--mesh DP`.
 
 run_da's `--mesh SHxSW` is the spatially partitioned solve
 (`spatial_mesh_from_arg`, a `SpatialMesh`): SH x SW processes, one per
@@ -253,19 +252,22 @@ def digest(*tensors) -> str:
     return h.hexdigest()
 
 
-# --- the training mesh of run_train_vae --mesh DPxSHxSW ----------------------
+# --- the training mesh of run_train_vae / run_train_forecast --mesh DPxSHxSW --
 
 
 @dataclass(frozen=True)
 class TrainMesh:
-    """The VAE trainer's `--mesh DPxSHxSW` with SH * SW > 1: dp x sh x sw
-    processes laid out as JAX's `make_mesh({"dp", "sh", "sw"})`, row-major,
-    so rank r sits at d = r // (sh sw), then (r % (sh sw)) // sw, r % sw;
-    this one is `rank`, its tensors on `device`. `group` is its spatial
-    group (the sh x sw ranks of its dp index), `dp_group` its dp group (the
-    dp ranks of its tile; None with dp 1), `lat_group` and `lon_group` the
-    ranks of its tile's column and row of tiles, over which the halos go;
-    None is the whole world where a group would span it."""
+    """The trainers' `--mesh DPxSHxSW` with SH * SW > 1 (run_train_vae and
+    run_train_forecast): dp x sh x sw processes laid out as JAX's
+    `make_mesh({"dp", "sh", "sw"})`, row-major, so rank r sits at
+    d = r // (sh sw), then (r % (sh sw)) // sw, r % sw; this one is `rank`,
+    its tensors on `device`. `group` is its spatial group (the sh x sw ranks
+    of its dp index: the gathers of a whole field, the LpLoss norms),
+    `dp_group` its dp group (the dp ranks of its tile; None with dp 1: the
+    forecast trainer's validation gathers the dp rows over it),
+    `lat_group` and `lon_group` the ranks of its tile's column and row of
+    tiles, over which the halos and re-tilings go; None is the whole world
+    where a group would span it."""
 
     dp: int
     sh: int

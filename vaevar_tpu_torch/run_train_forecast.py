@@ -23,9 +23,26 @@ Each rank owns cuda:LOCAL_RANK (nccl; gloo with --device cpu) and takes
 every N-th batch of the time-ordered stream (`rank_strided`), so
 --batch_size is the per-rank batch and the global batch is N times it. Rank
 0 alone writes the log file, the scalars, the checkpoints and params_latest.
---mesh N in a run not launched as N processes raises. --mesh DPx1x1 is
---mesh DP; a spatial --mesh DPxSHxSW (SH x SW > 1) raises NotImplementedError
-(ROADMAP A.13d: FORECAST_025's partition, docs/SPATIAL_TRAINING.md section 6).
+--mesh N in a run not launched as N processes raises.
+
+--mesh DPxSHxSW also partitions the grid over (lat, lon), DP x SH x SW
+processes in JAX's row-major (dp, sh, sw) order (docs/SPATIAL_TRAINING.md):
+
+    python -m torch.distributed.run --nproc_per_node 2 \
+        -m vaevar_tpu_torch.run_train_forecast --mesh 1x1x2 ...
+
+Every rank of a dp index reads the same frames (the batches are strided
+over the dp index, so --batch_size is the per-dp-rank batch) and keeps its
+(lat, lon) tile; the model runs partitioned (LGUnet.partition: halo
+exchanges for the shifted windows, window-aligned tiles where an even tile
+would cut a window, the full-grid LG stage whole on every rank), each
+rank's loss is its share of the global one, the gradients are summed over
+the world before AdamW, and the step is the global step. DPx1x1 is --mesh
+DP. A grid the mesh does not tile evenly, a level with fewer window rows or
+columns than ranks along an axis, or a patch kernel over its stride on a
+split axis (FORECAST_025's lat kernel 3 at SH > 1) raises ValueError; a
+world other than DP x SH x SW raises. The calculate_q and eval_rollout
+tasks run unpartitioned, as in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -57,8 +74,8 @@ def arg_parser(argv=None):
     p.add_argument("--no_resume", action="store_true",
                    help="ignore an existing checkpoint_latest in --out_dir")
     p.add_argument("--mesh", type=str, default=None,
-                   help="'N': data-parallel over N processes launched by torch.distributed.run "
-                   "(DPx1x1 likewise; SH x SW > 1: ROADMAP A.13d)")
+                   help="'N': data-parallel over N processes launched by torch.distributed.run; "
+                   "'DPxSHxSW': DP x SH x SW processes, each with its (lat, lon) tile")
     p.add_argument("--lr", type=float, default=5e-6)
     p.add_argument("--loss_type", type=str, default="Possloss",
                    choices=["Possloss", "LpLoss"])
@@ -103,17 +120,6 @@ def rank_strided(it, rank: int, world: int):
             group = []
 
 
-def refuse_spatial_mesh(dims, arg):
-    """The forecast trainer's spatial mesh (SH x SW > 1) is not ported: it
-    raises, before any launch check, and never runs replicated. DPx1x1 is
-    --mesh DP."""
-    if dims[1] * dims[2] > 1:
-        raise NotImplementedError(
-            f"--mesh {arg}: the forecast trainer's (lat, lon) partition (FORECAST_025's "
-            "uneven window columns at sw > 1 and its full-grid flash stage with Nq != Nk): "
-            "ROADMAP A.13d")
-
-
 def main(argv=None):
     """Run the task; returns (trainable, per-step losses) for `train`."""
     args = arg_parser(argv)
@@ -128,11 +134,14 @@ def main(argv=None):
                          "--device cpu to run on the CPU")
     mesh = None
     if args.mesh:
-        refuse_spatial_mesh(pmesh.parse_train_mesh(args.mesh), args.mesh)
         pmesh.init_distributed(device=args.device)
         mesh = pmesh.mesh_from_arg(args.mesh, args.device)
         device = mesh.device
     rank, world = pmesh.process_index(), pmesh.process_count()
+    # the batches' stride: this rank's dp index among the dp ranks (every
+    # spatial rank of a dp index reads the same frames and keeps its tile)
+    dp_rank, dp_world = ((mesh.coords["dp"], mesh.dp) if isinstance(mesh, pmesh.TrainMesh)
+                         else (rank, world))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -152,7 +161,9 @@ def main(argv=None):
     hw = tuple(int(v) for v in args.grid.split("x"))
     logger = get_logger("train_forecast", args.out_dir, rank=rank)
     if mesh is not None:
-        logger.info(f"mesh: dp {mesh.dp}, rank {rank} on {device}"
+        dims = (f"dp {mesh.dp} x sh {mesh.sh} x sw {mesh.sw}" if isinstance(mesh, pmesh.TrainMesh)
+                else f"dp {mesh.dp}")
+        logger.info(f"mesh: {dims}, rank {rank} on {device}"
                     + (f" ({torch.distributed.get_backend()})" if mesh.distributed else ""))
     source = (LocalNpyStore(args.data_dir, hw) if args.data_dir
               else SyntheticEra5(hw=hw, seed=args.seed))
@@ -230,11 +241,11 @@ def main(argv=None):
     def train_factory(epoch):
         del epoch  # time-ordered stream, sequential over the archive
         return prefetched(rank_strided(pair_iter(args.batch_size, 6, n_targets, t0, train_end),
-                                       rank, world))
+                                       dp_rank, dp_world))
 
     def val_factory():
         return prefetched(rank_strided(pair_iter(args.batch_size, 6, n_targets, v0, v1),
-                                       rank, world))
+                                       dp_rank, dp_world))
 
     with (ScalarWriter(args.out_dir) if rank == 0 else contextlib.nullcontext()) as writer:
         trainable, history = ft.train_forecast(

@@ -27,6 +27,20 @@ the JAX package's dp axis computes it. Validation all-gathers pred and
 target, so every rank computes the same metrics and keeps the same
 checkpoint_best; the ranks' checksums (model and bounds) must agree bit for
 bit at every epoch end.
+
+The spatial mesh (`mesh` a parallel/mesh.TrainMesh, `--mesh DPxSHxSW`,
+docs/SPATIAL_TRAINING.md) partitions the model (`LGUnet.partition`): each
+rank holds its dp rows' (lat, lon) tile of the frames and of every
+activation, and its loss is its exact share of the global one (`_Share`):
+Possloss's sums over its tile divided by the global field and batch, the
+logvar bounds' tile taken from the whole parameters, their 0.01 term added
+on rank 0 alone; LpLoss's squared norms summed over the spatial group before
+the square root (`sum_over_ranks`, whose backward hands each rank the
+gradient of its own partial sum). The gradients, the bounds' included, are
+summed over the world before AdamW (`pmesh.all_sum_grads`, not DDP), so
+the step is the global one and every rank receives the same sum.
+Validation gathers pred and target over the spatial group and the dp group
+before the recorder.
 """
 
 from __future__ import annotations
@@ -41,16 +55,43 @@ from vaevar_tpu_torch import channels
 from vaevar_tpu_torch.parallel import mesh as pmesh
 
 
-def lp_loss(pred, target):
+class _Share(NamedTuple):
+    """A rank's part of the global loss on a TrainMesh: its (rows, cols)
+    tile of the global output grid `hw`, the global batch, whether it adds
+    the logvar bounds' term (rank 0 of the world, once), and its spatial
+    group (None: the world)."""
+
+    tile: tuple
+    hw: tuple
+    batch: int
+    bounds: bool
+    group: object
+
+
+def lp_loss(pred, target, share: _Share | None = None):
+    """Relative L2 per sample, averaged over the batch. With a `share` pred
+    and target are a rank's tile: the squared norms are summed over the
+    spatial group first, and the value is its dp rows' sum over the global
+    batch (the same on every rank of the group)."""
     B = pred.shape[0]
+    if share is not None:
+        sq = torch.stack([((pred - target) ** 2).reshape(B, -1).sum(1),
+                          (target ** 2).reshape(B, -1).sum(1)])
+        d2, n2 = pmesh.sum_over_ranks(sq, share.group)
+        return (d2.sqrt() / n2.sqrt()).sum() / share.batch
     d = torch.linalg.vector_norm(pred.reshape(B, -1) - target.reshape(B, -1), dim=1)
     n = torch.linalg.vector_norm(target.reshape(B, -1), dim=1)
     return (d / n).mean()
 
 
-def poss_loss(pred, target, max_logvar, min_logvar, inc_var_loss: bool = True):
-    """Gaussian NLL with clamped logvar; pred has 2x target channels."""
+def poss_loss(pred, target, max_logvar, min_logvar, inc_var_loss: bool = True,
+              share: _Share | None = None):
+    """Gaussian NLL with clamped logvar; pred has 2x target channels. With
+    a `share` pred and target are a rank's tile and this is its part of
+    the global loss (`_Share`)."""
     mean, logvar = torch.chunk(pred, 2, dim=1)
+    if share is not None:
+        return _poss_share(mean, logvar, target, max_logvar, min_logvar, inc_var_loss, share)
     B = pred.shape[0]
     lv = logvar.reshape(B, -1)
     lv = max_logvar - torch.nn.functional.softplus(max_logvar - lv)
@@ -65,6 +106,26 @@ def poss_loss(pred, target, max_logvar, min_logvar, inc_var_loss: bool = True):
     return total.mean()
 
 
+def _poss_share(mean, logvar, target, max_logvar, min_logvar, inc_var_loss, share):
+    """A rank's part of Possloss: its tile's sums over the global field
+    size and batch, the bounds (1, C H W) viewed as (1, C, H, W) and cut to
+    the tile, and the bounds' term on one rank of the world."""
+    C = target.shape[1]
+    rows, cols = share.tile
+    mx = max_logvar.view(1, C, *share.hw)[..., rows, cols]
+    mn = min_logvar.view(1, C, *share.hw)[..., rows, cols]
+    lv = mx - torch.nn.functional.softplus(mx - logvar)
+    lv = mn + torch.nn.functional.softplus(lv - mn)
+    if inc_var_loss:
+        total = ((mean - target) ** 2 * torch.exp(-lv)).sum() + lv.sum()
+    else:
+        total = ((mean - target) ** 2).sum()
+    total = total / (C * share.hw[0] * share.hw[1]) / share.batch
+    if share.bounds:
+        total = total + 0.01 * max_logvar.mean() - 0.01 * min_logvar.mean()
+    return total
+
+
 def cosine_decay(step: int, total_steps: int) -> float:
     """optax.cosine_decay_schedule's factor (alpha 0) at update `step`."""
     t = min(step, total_steps) / total_steps
@@ -76,21 +137,44 @@ class OptState(NamedTuple):
     scheduler: torch.optim.lr_scheduler.LambdaLR
 
 
-def _loss(trainable, inp, tars, loss_type, two_step):
-    """(loss, first prediction) of the one- or two-step objective."""
+def _loss(trainable, inp, tars, loss_type, two_step, mesh=None):
+    """(loss, first prediction) of the one- or two-step objective; on a
+    TrainMesh inp, tars and the prediction are this rank's tiles and the
+    loss its part of the global one (`_Share`)."""
     model = trainable["model"]
     nch = tars[0].shape[1]
+    share = _share(mesh, model, inp.shape[0])
 
     def one(pred, tar):
         if loss_type == "Possloss":
-            return poss_loss(pred, tar, trainable["max_logvar"], trainable["min_logvar"])
-        return lp_loss(pred[:, :tar.shape[1]], tar)
+            return poss_loss(pred, tar, trainable["max_logvar"], trainable["min_logvar"],
+                             share=share)
+        return lp_loss(pred[:, :tar.shape[1]], tar, share)
 
     pred = model(inp)
     loss = one(pred, tars[0])
     if two_step and len(tars) > 1:
         loss = loss + one(model(pred[:, :nch]), tars[1])
     return loss, pred
+
+
+def _share(mesh, model, b: int):
+    """This rank's `_Share` of the loss on a TrainMesh (`b` its local
+    batch); None otherwise."""
+    if not isinstance(mesh, pmesh.TrainMesh):
+        return None
+    tiling, hw = mesh.tiling, tuple(model.cfg.img_size)
+    return _Share(tiling.tile(hw, "the output grid"), hw, b * mesh.dp, mesh.rank == 0,
+                  mesh.group)
+
+
+def _counted(loss, loss_type, mesh):
+    """The part of a rank's loss that the global value sums: all of it but
+    on a TrainMesh under LpLoss, where the first rank of each spatial group
+    counts its dp rows' value and the others hold copies."""
+    if isinstance(mesh, pmesh.TrainMesh) and loss_type != "Possloss":
+        return loss * float(mesh.tiling.s == mesh.tiling.w == 0)
+    return loss
 
 
 def make_forecast_train_step(
@@ -107,13 +191,15 @@ def make_forecast_train_step(
     opt_state, inp, tars)` takes one AdamW step in place and returns
     (trainable, opt_state, loss). With a distributed `mesh` the step runs
     under DDP on this rank's local batch and the loss is the global batch's.
-    A spatial mesh (a TrainMesh) raises: ROADMAP A.13d."""
-    if isinstance(mesh, pmesh.TrainMesh):
-        raise NotImplementedError(
-            f"the forecast trainer on a dp {mesh.dp} x sh {mesh.sh} x sw {mesh.sw} mesh: "
-            "its (lat, lon) partition is ROADMAP A.13d")
+    With a TrainMesh the model is partitioned here (`LGUnet.partition`),
+    `inp` and `tars` are this rank's dp rows' (lat, lon) tiles, the
+    gradients are summed over the world before AdamW and the loss is the
+    global one (module docstring)."""
+    spatial = isinstance(mesh, pmesh.TrainMesh)
+    if spatial:
+        model.partition(mesh.tiling)
 
-    objective = None  # the loss module (under DDP with a distributed mesh)
+    objective = None  # the loss module (under DDP with a distributed data-parallel mesh)
 
     def init_fn():
         nonlocal objective
@@ -124,8 +210,8 @@ def make_forecast_train_step(
             dev = next(model.parameters()).device
             trainable["max_logvar"] = torch.nn.Parameter(torch.full((1, n), 0.5, device=dev))
             trainable["min_logvar"] = torch.nn.Parameter(torch.full((1, n), -10.0, device=dev))
-        objective = _Objective(trainable, loss_type, two_step)
-        if mesh is not None and mesh.distributed:
+        objective = _Objective(trainable, loss_type, two_step, mesh)
+        if mesh is not None and mesh.distributed and not spatial:
             from torch.nn.parallel import DistributedDataParallel
 
             dev = next(model.parameters()).device
@@ -141,9 +227,11 @@ def make_forecast_train_step(
         opt_state.optimizer.zero_grad(set_to_none=True)
         loss = objective(inp, tars)
         loss.backward()
+        if spatial:  # this rank's share of the global gradient, summed
+            pmesh.all_sum_grads(trainable_parameters(trainable))
         opt_state.optimizer.step()
         opt_state.scheduler.step()
-        return trainable, opt_state, _global_mean(loss.detach(), mesh)
+        return trainable, opt_state, _global_mean(_counted(loss.detach(), loss_type, mesh), mesh)
 
     return init_fn, train_step
 
@@ -152,17 +240,17 @@ class _Objective(torch.nn.Module):
     """The training loss as one module over the model and the logvar bounds,
     so that DDP all-reduces the bounds' gradients with the model's."""
 
-    def __init__(self, trainable, loss_type, two_step):
+    def __init__(self, trainable, loss_type, two_step, mesh=None):
         super().__init__()
         self.model = trainable["model"]
         for k in ("max_logvar", "min_logvar"):
             if k in trainable:
                 self.register_parameter(k, trainable[k])
-        self.loss_type, self.two_step = loss_type, two_step
+        self.loss_type, self.two_step, self.mesh = loss_type, two_step, mesh
 
     def forward(self, inp, tars):
         trainable = {"model": self.model, **dict(self.named_parameters(recurse=False))}
-        return _loss(trainable, inp, tars, self.loss_type, self.two_step)[0]
+        return _loss(trainable, inp, tars, self.loss_type, self.two_step, self.mesh)[0]
 
 
 def trainable_parameters(trainable):
@@ -179,22 +267,27 @@ def trainable_checksum(trainable) -> float:
 
 
 def _global_mean(x, mesh):
-    """The mean of a per-rank scalar over the ranks: the global batch's
-    value of a batch-mean loss (equal local batches)."""
+    """The global batch's value of a per-rank loss: the mean over the ranks
+    of a data-parallel run (equal local batches), the sum of the ranks'
+    counted parts on a TrainMesh (`_counted`); x itself in one process."""
     if mesh is None or not mesh.distributed:
         return x
+    if isinstance(mesh, pmesh.TrainMesh):
+        return pmesh.all_sum(x)
     return pmesh.all_sum(x) / pmesh.process_count()
 
 
-def make_eval_step(loss_type: str = "Possloss", two_step: bool = False):
+def make_eval_step(loss_type: str = "Possloss", two_step: bool = False, mesh=None):
     """Validation step (reference basemodel.test_one_step,
     model/model.py:235-257): the training loss plus the prediction's mean
-    half, without gradients."""
+    half, without gradients. On a TrainMesh (the model partitioned) the
+    inputs and the prediction are this rank's tiles, and the loss is the
+    part of the global one that `evaluate` sums (`_counted`)."""
 
     @torch.no_grad()
     def eval_step(trainable, inp, tars):
-        loss, pred = _loss(trainable, inp, tars, loss_type, two_step)
-        return loss, pred[:, :tars[0].shape[1]]
+        loss, pred = _loss(trainable, inp, tars, loss_type, two_step, mesh)
+        return _counted(loss, loss_type, mesh), pred[:, :tars[0].shape[1]]
 
     return eval_step
 
@@ -215,23 +308,47 @@ def evaluate(eval_step, trainable, val_iter: Iterable, recorder=None,
     data_std scaling to physical units. With a distributed `mesh` each batch
     is this rank's local batch: the loss is averaged over the ranks, and pred
     and target are all-gathered into the global batch before the recorder
-    sees them, so every rank computes the same numbers."""
+    sees them, so every rank computes the same numbers. On a TrainMesh each
+    batch is this rank's dp rows, whole, of which it takes its (lat, lon)
+    tile; the loss is the global one, and pred and target are gathered over
+    the spatial group, then over the dp group (the JAX trainer's
+    process_allgather)."""
     device = _device_of(trainable)
     dp = mesh is not None and mesh.distributed
     sums, n = {}, 0
     for inp, tars in val_iter:
+        inp, tars = _tiles(inp, tars, mesh)
         tars_t = [_put(t, device) for t in tars]
         loss, pred = eval_step(trainable, _put(inp, device), tars_t)
         scalars = {"loss": float(_global_mean(loss, mesh))}
         if recorder is not None:
             gt = tars_t[0]
-            if dp:
+            if isinstance(mesh, pmesh.TrainMesh):
+                pred, gt = (_gather_batch(mesh, mesh.tiling.gather(t)) for t in (pred, gt))
+            elif dp:
                 pred, gt = pmesh.global_batch(pred), pmesh.global_batch(gt)
             scalars.update(recorder.evaluate_batch({"pred": pred, "gt": gt, "std": data_std}))
         for k, v in scalars.items():
             sums[k] = sums.get(k, 0.0) + v
         n += 1
     return {k: v / max(n, 1) for k, v in sums.items()}
+
+
+def _tiles(inp, tars, mesh):
+    """This rank's (lat, lon) tiles of a batch of its dp rows on a
+    TrainMesh; the batch itself otherwise."""
+    if not isinstance(mesh, pmesh.TrainMesh):
+        return inp, tars
+    rows, cols = mesh.tiling.tile(np.shape(inp)[-2:], "the frames")
+    return (np.asarray(inp)[..., rows, cols], [np.asarray(t)[..., rows, cols] for t in tars])
+
+
+def _gather_batch(mesh, x):
+    """The global batch of a TrainMesh's whole fields: every dp index's
+    rows in order, all-gathered over this rank's dp group."""
+    if mesh.dp == 1:
+        return x
+    return torch.cat([p.to(x.device) for p in pmesh._all_gather(x, mesh.dp_group)])
 
 
 def train_forecast(
@@ -267,8 +384,9 @@ def train_forecast(
     true global step on rank 0, so a resumed run continues the scalar
     stream. With a distributed `mesh` (parallel/mesh.DPMesh) each batch is
     this rank's local batch and the step runs under DDP (see the module
-    docstring); rank 0 writes the checkpoints and every rank resumes from
-    them."""
+    docstring); with a TrainMesh each batch is this rank's dp rows, whole,
+    of which it takes its (lat, lon) tile, and the model runs partitioned.
+    Rank 0 writes the checkpoints and every rank resumes from them."""
     from vaevar_tpu_torch.train import checkpoint as ckpt
 
     total = (steps_per_epoch or 1000) * epochs
@@ -276,7 +394,7 @@ def train_forecast(
         model, loss_type=loss_type, lr=lr, total_steps=total,
         two_step=two_step, out_shape=out_shape, mesh=mesh)
     trainable, opt_state = init_fn()
-    eval_step = make_eval_step(loss_type, two_step)
+    eval_step = make_eval_step(loss_type, two_step, mesh)
     device = _device_of(trainable)
 
     start_epoch, start_step, metric_best = 0, 0, None
@@ -297,6 +415,7 @@ def train_forecast(
         for j, (inp, tars) in enumerate(train_factory(epoch)):
             if steps_per_epoch is not None and j >= steps_per_epoch:
                 break
+            inp, tars = _tiles(inp, tars, mesh)
             trainable, opt_state, loss = train_step(
                 trainable, opt_state, _put(inp, device), [_put(t, device) for t in tars])
             loss = float(loss)
