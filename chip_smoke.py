@@ -33,7 +33,7 @@ exits nonzero without its last line:
    Then tests/test_torch_prod_pinned.py's construction (JAX's
    tests/test_prod_geometry_pinned.py: that decoder in f32, latent
    (1, 32, 128, 256), free_0010 obs, one_step_da with nit 1 x 2 L-BFGS
-   iterations) runs on the card under utils/logger.py's device_trace; its
+   iterations) runs on the card under torch.profiler; its
    summary must match tests/goldens/prod_geometry_pinned.json within JAX's
    tolerances (relative 5e-3 on the six scalars, 1e-2 on the increment
    probe). Prints each relative error, the build, hash and solve seconds,
@@ -235,9 +235,11 @@ exits nonzero without its last line:
    by kind (halo rolls, retiles, the stage-0 gather and its backward's
    all-reduce: count, bytes, seconds) and the gradient all-reduce alone.
 The main phase also prints cycle 2's obs seconds (on the prefetch worker)
-and the seconds the loop waited for them. Every phase is timed by
-utils/logger.py's PhaseTimer; its report (seconds per phase, and the total
-by the smoke's own clock) comes before the kernels line.
+and the seconds the loop waited for them. The smoke runs with the port's
+tracing on (utils/trace.py), every phase a span of its name; the report
+(seconds per phase, and the total by the smoke's own clock) comes before
+the kernels line. The flash launches are the counters `flash.fwd`,
+`flash.dq` and `flash.dkv`.
 The second-to-last line is a JSON record of the kernels (launches summed
 over the DA, window, training, record, VAE-training, sc4dvar, real-obs,
 sd_zoo (a), dp, mesh (a), mesh (e) and spatial_forecast (b) paths (all
@@ -315,6 +317,15 @@ TOTAL_STEPS = 200  # run_train_forecast's --steps x --epochs defaults
 
 def phase(name, msg):
     print(f"[chip_smoke] {name}: {msg}", flush=True)
+
+
+def flash_launches(since=(0, 0, 0)):
+    """The flash kernels' launches in this process, (fwd, dq, dkv), from
+    their counters (utils/trace.py), less `since` (an earlier reading)."""
+    from vaevar_tpu_torch.utils import trace
+
+    c = trace.counters()
+    return tuple(c.get(f"flash.{k}", 0) - s for k, s in zip(("fwd", "dq", "dkv"), since))
 
 
 def median_ms(fn, reps=5):
@@ -608,13 +619,13 @@ def micro_model(seed=3, **kw):
     return fast_init(LGUnet(cfg), seed=seed)
 
 
-def check_model(fa):
+def check_model():
     """Phase 5: micro rope model with a flash stage, card against CPU: the
     forward, then one train step (f32, remat, Possloss)."""
-    model_card_vs_cpu(fa, micro_model, "model", "micro rope LGUnet")
+    model_card_vs_cpu(micro_model, "model", "micro rope LGUnet")
 
 
-def model_card_vs_cpu(fa, build, name, what):
+def model_card_vs_cpu(build, name, what):
     """A micro model from `build(**kw)`, card against CPU in f32: the
     forward (atol 1e-4), then one Possloss train step with remat (loss atol
     1e-4, gradients 1e-3 x max|grad|); the step must launch dq and dkv."""
@@ -643,9 +654,9 @@ def model_card_vs_cpu(fa, build, name, what):
         init_fn, step = ft.make_forecast_train_step(model, "Possloss", lr=1e-4, total_steps=10,
                                                     out_shape=(138, 32, 64))
         trainable, opt_state = init_fn()
-        before = (fa.flash_dq_launches, fa.flash_dkv_launches)
+        mark = flash_launches()
         _, _, loss = step(trainable, opt_state, x.to(dev), [tar.to(dev)])
-        launched = (fa.flash_dq_launches - before[0], fa.flash_dkv_launches - before[1])
+        launched = flash_launches(mark)[1:]
         losses[dev] = loss.item()
         grads[dev] = torch.cat([p.grad.flatten().cpu() for p in model.parameters()]
                                + [trainable[k].grad.flatten().cpu()
@@ -826,7 +837,7 @@ def zoo_at_width():
     return secs, torch.cuda.max_memory_allocated()
 
 
-def check_sd_zoo(fa):
+def check_sd_zoo():
     """Phase 15 (sd_zoo): SD_attn's general path and the layer zoo. (a)
     FORECAST_025-SD at 721x1440 (FORECAST_025 with lg_window_size (1, 6, 12)
     and dilated_size (1, 1, 3)), b1, bf16, remat, Possloss, random weights
@@ -872,14 +883,14 @@ def check_sd_zoo(fa):
 
     def launched():
         """The launches since the last call, added to the phase's counts."""
-        got = (fa.flash_fwd_launches, fa.flash_dq_launches, fa.flash_dkv_launches)
-        fa.flash_fwd_launches = fa.flash_dq_launches = fa.flash_dkv_launches = 0
+        nonlocal mark
+        got, mark = flash_launches(mark), flash_launches()
         for name, n in zip(counts, got):
             counts[name] += n
         return got
 
     torch.cuda.reset_peak_memory_stats()
-    fa.flash_fwd_launches = fa.flash_dq_launches = fa.flash_dkv_launches = 0
+    mark = flash_launches()
     t0 = time.perf_counter()
     with torch.no_grad():
         y = model(inp)
@@ -925,7 +936,7 @@ def check_sd_zoo(fa):
     gc.collect()
     torch.cuda.empty_cache()
 
-    model_card_vs_cpu(fa, micro_sd_model, "sd_zoo", "(b) micro SD LGUnet")
+    model_card_vs_cpu(micro_sd_model, "sd_zoo", "(b) micro SD LGUnet")
 
     t0 = time.perf_counter()
     n, worst, routed, flips = zoo_card_vs_cpu()
@@ -941,7 +952,7 @@ def check_sd_zoo(fa):
     return counts
 
 
-def check_window(fa, extra=()):
+def check_window(extra=()):
     """Phase 6b: the 4D-Var window cycle at full width (WINDOW_ARGS and
     `extra` flags of run_da); returns its forward launches and the
     run's CycledDA."""
@@ -952,12 +963,12 @@ def check_window(fa, extra=()):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as work:
-        fa.flash_fwd_launches = fa.flash_dq_launches = fa.flash_dkv_launches = 0
+        mark = flash_launches()
         t0 = time.perf_counter()
         da = run_da.main(WINDOW_ARGS + list(extra) + ["--work_dir", work])
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
-        counts = (fa.flash_fwd_launches, fa.flash_dq_launches, fa.flash_dkv_launches)
+        counts = flash_launches(mark)
         files = sorted(os.listdir(da.work_dir))
     peak = torch.cuda.max_memory_allocated()
     if len(da.cycle_log) != 1:
@@ -1054,7 +1065,7 @@ def check_micro_window():
         raise AssertionError("the micro solve ran no jvp probe")
 
 
-def check_forecast_training(fa):
+def check_forecast_training():
     """Phase 7: FORECAST_025 train steps at full width; returns the launch
     counts of the phase, the last step's seconds and what the
     spatial_forecast phase holds its ranks to: the first 2 steps' losses,
@@ -1101,13 +1112,13 @@ def check_forecast_training(fa):
     counts = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
     losses, secs = [], []
     for k in range(3):
-        fa.flash_fwd_launches = fa.flash_dq_launches = fa.flash_dkv_launches = 0
+        mark = flash_launches()
         t0 = time.perf_counter()
         trainable, opt_state, loss = step(trainable, opt_state, inp, [tar])
         losses.append(loss.item())
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
-        got = (fa.flash_fwd_launches, fa.flash_dq_launches, fa.flash_dkv_launches)
+        got = flash_launches(mark)
         if got != (8, 4, 4):
             raise AssertionError(f"train step launched (fwd, dq, dkv) {got}; want (8, 4, 4)")
         for name, n in zip(counts, got):
@@ -1129,12 +1140,12 @@ def check_forecast_training(fa):
     if not (all(np.isfinite(losses)) and losses[2] < losses[0] and qkv_ok):
         raise AssertionError(f"training went wrong: losses {losses}, qkv gradients ok {qkv_ok}")
 
-    fa.flash_fwd_launches = fa.flash_dq_launches = fa.flash_dkv_launches = 0
+    mark = flash_launches()
     t0 = time.perf_counter()
     loss, pred = ft.make_eval_step("Possloss")(trainable, inp, [tar])
     loss = loss.item()
     torch.cuda.synchronize()
-    got = (fa.flash_fwd_launches, fa.flash_dq_launches, fa.flash_dkv_launches)
+    got = flash_launches(mark)
     phase("train", f"eval step: loss {loss:.6g} in {time.perf_counter() - t0:.3f} s; "
           f"prediction {tuple(pred.shape)} finite {bool(torch.isfinite(pred).all())}; "
           f"launches (fwd, dq, dkv) {got}")
@@ -1201,7 +1212,7 @@ def vae_step_on(dev, frames, eps, mesh=None, **overrides):
     return m["loss"].item(), grads
 
 
-def check_vae_train(fa):
+def check_vae_train():
     """Phase 10: the NMC VAE trainer. A micro step card vs CPU with a fixed
     noise; 3 steps of train_vae at run_train_vae's defaults (b8, 128x256,
     bf16, remat, nmc_steps 4) on one batch, with the loss finite, lower at
@@ -1281,12 +1292,12 @@ def check_vae_train(fa):
     loss_before = fixed_noise_loss()
     params_before = [p.detach().cpu() for p in vae.parameters()]  # off the card's peak
     torch.cuda.reset_peak_memory_stats()
-    fa.flash_fwd_launches = fa.flash_dq_launches = fa.flash_dkv_launches = 0
+    mark = flash_launches()
     t0 = time.perf_counter()
     _, hist = vt.train_vae(vae, flow, [batch] * 3, epochs=1, logger=log, log_every=1,
                            latent_hw=hw)
     torch.cuda.synchronize()
-    counts = (fa.flash_fwd_launches, fa.flash_dq_launches, fa.flash_dkv_launches)
+    counts = flash_launches(mark)
     peak = torch.cuda.max_memory_allocated()
     loss_after = fixed_noise_loss()
     lr = 1e-4
@@ -1362,7 +1373,7 @@ def check_vae_train(fa):
     return counts[0], ref
 
 
-def check_sc4dvar(fa):
+def check_sc4dvar():
     """Phase 11: sc4dvar. The CVT increment card vs CPU in f32, then the
     README's cycle as sc4dvar at full width for 2 cycles; returns its
     forward launches."""
@@ -1394,7 +1405,7 @@ def check_sc4dvar(fa):
     torch.cuda.reset_peak_memory_stats()
     err = io.StringIO()
     with tempfile.TemporaryDirectory() as work:
-        fa.flash_fwd_launches = fa.flash_dq_launches = fa.flash_dkv_launches = 0
+        mark = flash_launches()
         t0 = time.perf_counter()
         try:
             with contextlib.redirect_stderr(err):
@@ -1403,7 +1414,7 @@ def check_sc4dvar(fa):
             sys.stderr.write(err.getvalue())
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
-        counts = (fa.flash_fwd_launches, fa.flash_dq_launches, fa.flash_dkv_launches)
+        counts = flash_launches(mark)
         files = sorted(os.listdir(da.work_dir))
     peak = torch.cuda.max_memory_allocated()
     warned = "WARNING: B-matrix coefficient dir" in err.getvalue()
@@ -1491,7 +1502,7 @@ def write_record_inputs(root):
     return paths, convert_s
 
 
-def check_record(fa):
+def check_record():
     """Phase 9: the configuration of record on its inputs; returns its
     forward launches."""
     from datetime import datetime
@@ -1525,12 +1536,12 @@ def check_record(fa):
                                 "--work_dir", os.path.join(root, "work")] + RECORD_CUT)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        fa.flash_fwd_launches = fa.flash_dq_launches = fa.flash_dkv_launches = 0
+        mark = flash_launches()
         t0 = time.perf_counter()
         da = run_da.main(argv)
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
-        counts = (fa.flash_fwd_launches, fa.flash_dq_launches, fa.flash_dkv_launches)
+        counts = flash_launches(mark)
         peak = torch.cuda.max_memory_allocated()
         files = sorted(os.listdir(da.work_dir))
         xb = np.load(os.path.join(da.work_dir, "xb.npy"))
@@ -1657,7 +1668,7 @@ def shared_builds():
         cache.clear()
 
 
-def run_da_phase(fa, argv):
+def run_da_phase(argv):
     """run_da.main(argv) in a temporary work dir with the launch counts set
     to 0 just before; returns (da, (fwd, dq, dkv) launches, seconds with the
     model set-up, peak device memory in GiB, {output file: array})."""
@@ -1669,12 +1680,12 @@ def run_da_phase(fa, argv):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as work:
-        fa.flash_fwd_launches = fa.flash_dq_launches = fa.flash_dkv_launches = 0
+        mark = flash_launches()
         t0 = time.perf_counter()
         da = run_da.main(list(argv) + ["--work_dir", work])
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
-        counts = (fa.flash_fwd_launches, fa.flash_dq_launches, fa.flash_dkv_launches)
+        counts = flash_launches(mark)
         outs = {f: np.load(os.path.join(da.work_dir, f), allow_pickle=True)
                 for f in sorted(os.listdir(da.work_dir)) if f.endswith(".npy")}
     return da, counts, total, torch.cuda.max_memory_allocated() / 2**30, outs
@@ -1744,7 +1755,7 @@ def prefetch_line(da, peak):
             + f"; peak memory {peak:.2f} GiB")
 
 
-def check_real_obs(fa):
+def check_real_obs():
     """Phase 12: real observations and the rest of the DA surface. Returns
     the forward launches of its full-width runs, and the mesh phase's
     reference: the prefetch run's cycle 1 (its log entry and metric rows)
@@ -1755,7 +1766,7 @@ def check_real_obs(fa):
     from vaevar_tpu_torch import config as cfgs
 
     per_step = cfgs.FORECAST_025.lg_depths[0]
-    serial, counts_s, total, peak_s, outs_s = run_da_phase(fa, REAL_OBS_ARGS + ["--no_prefetch"])
+    serial, counts_s, total, peak_s, outs_s = run_da_phase(REAL_OBS_ARGS + ["--no_prefetch"])
     want = (serial.cfg.init_lag + len(serial.cycle_log)) * per_step
     phase("real_obs", f"--no_prefetch: {total:.2f} s with the models; "
           + prefetch_line(serial, peak_s) + f"; flash launches (fwd, dq, dkv) {counts_s}")
@@ -1768,7 +1779,7 @@ def check_real_obs(fa):
     torch.cuda.empty_cache()
 
     with shared_builds():  # the prepbufr and free_run runs take the prefetch run's models
-        da, counts, total, peak, outs = run_da_phase(fa, REAL_OBS_ARGS)
+        da, counts, total, peak, outs = run_da_phase(REAL_OBS_ARGS)
         err = outs.get("error_obs.npy")
         phase("real_obs", f"real_simu --use_eval, 2000 synthetic stations: "
               f"{len(da.cycle_log)} cycles in {total:.2f} s (models "
@@ -1796,7 +1807,7 @@ def check_real_obs(fa):
             raise AssertionError("the prefetch and --no_prefetch runs disagree")
         del da, outs, second
 
-        da, counts, total, peak, _ = run_da_phase(fa, ONE_CYCLE + ["--obs_type", "prepbufr"] + CUT)
+        da, counts, total, peak, _ = run_da_phase(ONE_CYCLE + ["--obs_type", "prepbufr"] + CUT)
         phase("real_obs", f"prepbufr, 1 cycle from the truth: {total:.2f} s with the models; peak "
               f"memory {peak:.2f} GiB; flash launches (fwd, dq, dkv) {counts}")
         check_cycle_log("prepbufr", da, 1)
@@ -1807,7 +1818,7 @@ def check_real_obs(fa):
 
         argv = ["--da_mode", "free_run"] + ONE_CYCLE[2:] + ["--forecast_eval",
                                                              "--forecast_eval_steps", "2"]
-        da, counts, total, peak, outs = run_da_phase(fa, argv)
+        da, counts, total, peak, outs = run_da_phase(argv)
         fw = outs.get("forecast_wrmse.npy")
         phase("real_obs", f"free_run --forecast_eval_steps 2: {total:.2f} s with the models; peak "
               f"memory {peak:.2f} GiB; decoder built {da.decoder is not None}; forecast_wrmse "
@@ -1825,7 +1836,7 @@ def check_real_obs(fa):
         argv = ["--micro", "--fast_init", "--grid", "32x64", "--solver_grid", "32x64",
                 "--init_lag", "1", "--end_time", "2022-01-01 06:00:00", "--da_mode",
                 "interpolation", "--obs_type", "real_simu", "--use_eval"]
-        da, counts, total, _, outs = run_da_phase(fa, argv)
+        da, counts, total, _, outs = run_da_phase(argv)
         err = outs.get("error_obs.npy")
         phase("real_obs", f"interpolation, real_simu --use_eval at 32x64 (micro): {total:.2f} s; "
               f"griddata {da.cycle_log[0]['solve_s']:.2f} s on the host; error_obs "
@@ -1938,7 +1949,6 @@ def dp_worker(d):
     from vaevar_tpu_torch import config as cfgs
     from vaevar_tpu_torch.data.era5 import SyntheticEra5
     from vaevar_tpu_torch.models.lgunet import LGUnet
-    from vaevar_tpu_torch.ops import flash_attn as fa
     from vaevar_tpu_torch.parallel import mesh as pmesh
     from vaevar_tpu_torch.train import forecast_trainer as ft
 
@@ -1968,14 +1978,13 @@ def dp_worker(d):
     out.update(losses=[], secs=[], launches=[])
     for _ in range(2):
         dist.barrier()
-        fa.flash_fwd_launches = fa.flash_dq_launches = fa.flash_dkv_launches = 0
+        mark = flash_launches()
         t0 = time.perf_counter()
         trainable, opt_state, loss = step(trainable, opt_state, inp, [tar])
         out["losses"].append(loss.item())
         torch.cuda.synchronize()
         out["secs"].append(time.perf_counter() - t0)
-        out["launches"].append([fa.flash_fwd_launches, fa.flash_dq_launches,
-                                fa.flash_dkv_launches])
+        out["launches"].append(list(flash_launches(mark)))
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     out["checksum"] = ft.trainable_checksum(trainable)
     pmesh.check_replicas(out["checksum"])
@@ -2011,7 +2020,7 @@ def dp_worker(d):
     dist.destroy_process_group()
 
 
-def check_dp(fa, single_step_s):
+def check_dp(single_step_s):
     """Phase 14: data-parallel training (parallel/mesh.py, DDP). (a) and (b)
     in 2 worker processes on the one card over gloo (`dp_worker`), (b)'s
     dp=1 reference on the global batch here; (c) run_train_forecast --mesh 1
@@ -2121,7 +2130,6 @@ def spatial_worker(d, part):
     from vaevar_tpu_torch import config as cfgs
     from vaevar_tpu_torch.models.lgunet import LGUnet
     from vaevar_tpu_torch.models.vae import VAE
-    from vaevar_tpu_torch.ops import flash_attn as fa
     from vaevar_tpu_torch.parallel import mesh as pmesh
     from vaevar_tpu_torch.parallel import spatial
     from vaevar_tpu_torch.train import vae_trainer as vt
@@ -2132,7 +2140,7 @@ def spatial_worker(d, part):
     mesh = pmesh.mesh_from_arg("1x2x2" if part == "micro" else "1x1x2", "cuda")
     dev = mesh.device
     out = {"rank": rank, "device": str(dev), "coords": mesh.coords}
-    fa.flash_fwd_launches = fa.flash_dq_launches = fa.flash_dkv_launches = 0
+    mark = flash_launches()
     halo, halo_s = [], []  # this rank's strip in each exchange: bytes, seconds
     gather = spatial._all_gather
 
@@ -2203,7 +2211,7 @@ def spatial_worker(d, part):
                 moved = max(moved, float(diff.max()))
                 far += int((diff > 0.5e-4).sum())
             out.update(max_param_diff=moved, share_beyond_half_lr=far / out["n_vae"])
-    out["launches"] = [fa.flash_fwd_launches, fa.flash_dq_launches, fa.flash_dkv_launches]
+    out["launches"] = list(flash_launches(mark))
     with open(os.path.join(d, f"{part}{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.destroy_process_group()
@@ -2329,7 +2337,7 @@ FORECAST_MICRO = dict(img_size=(16, 48), lg_depths=(1, 2), lg_heads=(2, 2), enc_
                       outchans_list=(8, 26), remat=True)
 
 
-def forecast_micro_step(fa, dev, batch, mesh=None):
+def forecast_micro_step(dev, batch, mesh=None):
     """One micro f32 Possloss step (FORECAST_MICRO, b2) on `dev`, or with a
     TrainMesh on this rank's dp rows and tile of the batch (the model
     partitioned, the gradients summed over the ranks); returns (loss, the
@@ -2351,11 +2359,10 @@ def forecast_micro_step(fa, dev, batch, mesh=None):
         lo, hi = mesh.batch_spec(2 // mesh.dp)
         rows, cols = mesh.tiling.tile(cfg.img_size)
         x, y = x[lo:hi, :, rows, cols], y[lo:hi, :, rows, cols]
-    fa.flash_fwd_launches = fa.flash_dq_launches = fa.flash_dkv_launches = 0
+    mark = flash_launches()
     _, _, loss = step(trainable, opt_state, x.to(dev), [y.to(dev)])
     grads = torch.cat([p.grad.flatten() for p in ft.trainable_parameters(trainable)]).cpu()
-    return loss.item(), grads, [fa.flash_fwd_launches, fa.flash_dq_launches,
-                                fa.flash_dkv_launches]
+    return loss.item(), grads, list(flash_launches(mark))
 
 
 def spatial_forecast_worker(d, part):
@@ -2377,7 +2384,6 @@ def spatial_forecast_worker(d, part):
     from vaevar_tpu_torch import channels
     from vaevar_tpu_torch import config as cfgs
     from vaevar_tpu_torch.models.lgunet import LGUnet
-    from vaevar_tpu_torch.ops import flash_attn as fa
     from vaevar_tpu_torch.parallel import mesh as pmesh
     from vaevar_tpu_torch.parallel import spatial
     from vaevar_tpu_torch.train import forecast_trainer as ft
@@ -2441,14 +2447,13 @@ def spatial_forecast_worker(d, part):
             dist.barrier()
             for v in log.values():
                 v.clear()
-            fa.flash_fwd_launches = fa.flash_dq_launches = fa.flash_dkv_launches = 0
+            mark = flash_launches()
             t0 = time.perf_counter()
             trainable, opt_state, loss = step(trainable, opt_state, inp, [tar])
             out["losses"].append(loss.item())
             torch.cuda.synchronize()
             out["secs"].append(time.perf_counter() - t0)
-            out["launches"].append([fa.flash_fwd_launches, fa.flash_dq_launches,
-                                    fa.flash_dkv_launches])
+            out["launches"].append(list(flash_launches(mark)))
             out["exchanges"].append({name: [len(v), sum(b for b, _ in v),
                                             min((b for b, _ in v), default=0),
                                             max((b for b, _ in v), default=0),
@@ -2481,7 +2486,7 @@ def spatial_forecast_worker(d, part):
         del model, trainable, opt_state, step, init_fn, params
         gc.collect()
         torch.cuda.empty_cache()
-    loss, grads, launched = forecast_micro_step(fa, dev, batch, mesh)
+    loss, grads, launched = forecast_micro_step(dev, batch, mesh)
     out["micro"] = {"mesh": arg, "loss": loss, "launches": launched}
     torch.save(grads, os.path.join(d, f"micro_{arg}_{rank}.pt"))
     with open(os.path.join(d, f"{part}{rank}.json"), "w") as f:
@@ -2510,7 +2515,7 @@ def start_spatial_forecast(ref):
                start_workers("--spatial-forecast-worker", 4, [d, "micro"]))
 
 
-def check_spatial_forecast(fa, started, ref):
+def check_spatial_forecast(started, ref):
     """Phase 18: the forecast trainer's spatial mesh (run_train_forecast
     --mesh DPxSHxSW: window-aligned tiles at the 90x180 level, the
     full-grid LG stage whole on every rank, each rank's share of the loss,
@@ -2542,7 +2547,7 @@ def check_spatial_forecast(fa, started, ref):
             for p in w.procs:
                 p.kill()
     batch = torch.load(os.path.join(d, "micro_batch.pt"))
-    l1, g1, launched = forecast_micro_step(fa, "cuda", batch)
+    l1, g1, launched = forecast_micro_step("cuda", batch)
     scale = g1.abs().max().item()
     for arg, part, n in (("1x1x2", "prod", 2), ("2x1x2", "micro", 4)):
         got = [(r["micro"], torch.load(os.path.join(d, f"micro_{arg}_{r['rank']}.pt")))
@@ -2621,7 +2626,6 @@ def mesh_worker(d, argv):
     import torch
 
     from vaevar_tpu_torch import run_da
-    from vaevar_tpu_torch.ops import flash_attn as fa
     from vaevar_tpu_torch.parallel import mesh as pmesh
 
     rank = pmesh.init_distributed(backend="gloo", device="cuda")
@@ -2633,12 +2637,12 @@ def mesh_worker(d, argv):
     for name, flags in runs.items():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        fa.flash_fwd_launches = fa.flash_dq_launches = fa.flash_dkv_launches = 0
+        mark = flash_launches()
         t0 = time.perf_counter()
         da = run_da.main(flags + ["--work_dir", os.path.join(d, name)])
         torch.cuda.synchronize()
         out = {"rank": rank, "seconds": time.perf_counter() - t0,
-               "launches": [fa.flash_fwd_launches, fa.flash_dq_launches, fa.flash_dkv_launches],
+               "launches": list(flash_launches(mark)),
                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
                "cycle_log": da.cycle_log, "timings": da.timings, "work_dir": da.work_dir,
                "digests": da.lockstep_digests, "backend": torch.distributed.get_backend(),
@@ -2834,7 +2838,6 @@ def tp_worker(d):
     from vaevar_tpu_torch import config as cfgs
     from vaevar_tpu_torch.models import zoo
     from vaevar_tpu_torch.models.lgunet import LGUnet
-    from vaevar_tpu_torch.ops import flash_attn as fa
     from vaevar_tpu_torch.parallel import mesh as pmesh
     from vaevar_tpu_torch.train import forecast_trainer as ft
 
@@ -2891,10 +2894,10 @@ def tp_worker(d):
         return y, loss.item(), torch.cat([grads[k].flatten() for k in sorted(grads)])
 
     y_ref, loss_ref, g_ref = run(False)
-    fa.flash_fwd_launches = fa.flash_dq_launches = fa.flash_dkv_launches = 0
+    mark = flash_launches()
     y, loss, g = run(True)
     torch.cuda.synchronize()
-    out["launches"] = [fa.flash_fwd_launches, fa.flash_dq_launches, fa.flash_dkv_launches]
+    out["launches"] = list(flash_launches(mark))
     out["micro"] = {"y_err": (y - y_ref).abs().max().item(), "loss": loss, "loss_ref": loss_ref,
                     "g_err": (g - g_ref).abs().max().item(), "g_scale": g_ref.abs().max().item(),
                     "finite": bool(torch.isfinite(y).all() and torch.isfinite(g).all())}
@@ -2982,7 +2985,7 @@ def check_tp(ranks, wall):
 
 def top_device_ops(trace, n=5):
     """The n device operations (kernels, copies, fills) with the most time
-    in a Chrome trace that device_trace wrote: [(name, ms, launches)], and
+    in a torch.profiler Chrome trace: [(name, ms, launches)], and
     the device time of all of them in ms. Read from the file: asking
     torch.profiler for its events builds a Python object per event, which
     took longer than the traced solve itself at this size."""
@@ -3005,16 +3008,13 @@ def check_pinned():
     carry the weights of tests/goldens/torch_fast_init_sha256.json (JAX's
     draw, digest by digest); then tests/test_torch_prod_pinned.py's
     construction runs on the card with that decoder in f32, under
-    device_trace, and its summary must match
+    torch.profiler, and its summary must match
     tests/goldens/prod_geometry_pinned.json within JAX's tolerances."""
-    import glob
-
     import torch
 
     from vaevar_tpu_torch import config as cfgs
     from vaevar_tpu_torch import run_da
     from vaevar_tpu_torch.utils.fast_init import param_digests
-    from vaevar_tpu_torch.utils.logger import device_trace
 
     tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
     sys.path.insert(0, tests)
@@ -3053,21 +3053,23 @@ def check_pinned():
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as tdir:
         t0 = time.perf_counter()
-        with device_trace(tdir):
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
             got = pinned.compute_summary("cuda", decoder)
             torch.cuda.synchronize()
             solve_s = time.perf_counter() - t0
+        trace = os.path.join(tdir, "trace.json")
+        prof.export_chrome_trace(trace)
         total_s = time.perf_counter() - t0
-        (trace,) = glob.glob(os.path.join(tdir, "trace_*.json"))
         size = os.path.getsize(trace)
         t0 = time.perf_counter()
         top, device_ms = top_device_ops(trace)
         top_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     phase("pinned", f"one_step_da, VAE_DECODER f32 at 128x256, free_0010, nit 1 x 2 L-BFGS "
-          f"iterations, under device_trace: {solve_s:.2f} s with the summary, "
+          f"iterations, under torch.profiler: {solve_s:.2f} s with the summary, "
           f"{total_s - solve_s:.2f} s to write the trace; peak {peak / 2**30:.2f} GiB")
-    phase("pinned", f"device_trace: Chrome trace {size / 1e6:.1f} MB; device time "
+    phase("pinned", f"torch.profiler: Chrome trace {size / 1e6:.1f} MB; device time "
           f"{device_ms:.1f} ms ({top_s:.2f} s to sum it); top device operations: "
           + ("; ".join(f"{k[:70]} {ms:.1f} ms x{c}" for k, ms, c in top)
              or "none recorded (the profiler saw no device activity)"))
@@ -3090,23 +3092,40 @@ def check_pinned():
 def main():
     import torch
 
-    from vaevar_tpu_torch.utils.logger import PhaseTimer
+    from vaevar_tpu_torch.utils import trace
 
-    timer = PhaseTimer()
-    with timer.phase("total"):
-        out = run_phases(timer)
-    phase("timer", "seconds per phase by the smoke's own clock (PhaseTimer):")
-    print(timer.report(), flush=True)
-    phase("total", f"the smoke took {timer.totals['total']:.1f} s")
+    trace.enable()
+    t0 = time.perf_counter()
+    out = run_phases()
+    total_s = time.perf_counter() - t0
+    seconds = phase_seconds(trace.records())
+    phase("timer", "seconds per phase by the smoke's own clock (utils/trace.py spans):")
+    for name in sorted(seconds):
+        total, n = seconds[name]
+        print(f"{name}: total {total:.2f}s x{n} (avg {total / n:.3f}s)", flush=True)
+    phase("total", f"the smoke took {total_s:.1f} s")
     print(json.dumps({"kernels": out["kernels"]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": out["kind"], "count": torch.cuda.device_count()}}),
         flush=True)
 
 
-def run_phases(timer):
-    """Every phase in order, each timed under its name; returns the kernels
+def phase_seconds(records) -> dict:
+    """{name: (seconds, count)} of the main thread's outermost spans: the
+    smoke's phases."""
+    out = {}
+    for r in records:
+        if r["parent"] is None and r["thread"] == "MainThread":
+            secs, n = out.get(r["name"], (0.0, 0))
+            out[r["name"]] = (secs + (r["end_ns"] - r["start_ns"]) * 1e-9, n + 1)
+    return out
+
+
+def run_phases():
+    """Every phase in order, each a span of its name; returns the kernels
     record and the card's name."""
+    from vaevar_tpu_torch.utils import trace
+
     import torch
 
     if not torch.cuda.is_available():
@@ -3124,34 +3143,34 @@ def run_phases(timer):
     from vaevar_tpu_torch.ops import flash_attn as fa
 
     t0 = time.perf_counter()
-    with timer.phase("build"):
+    with trace.span("build"):
         built = _build.build_all(["flash_fwd", "flash_bwd"])
     phase("build", ", ".join(f"{p.name} in {s:.2f} s" + (" (reused)" if s == 0 else "")
                              for p, s in built.values())
           + f"; {time.perf_counter() - t0:.2f} s in all")
 
-    with timer.phase("kernel"):
+    with trace.span("kernel"):
         fwd = check_kernel(fa)
-    with timer.phase("bwd"):
+    with trace.span("bwd"):
         bwd = check_bwd(fa)
-    with timer.phase("model"):
-        check_model(fa)
-    with timer.phase("pinned"):
+    with trace.span("model"):
+        check_model()
+    with trace.span("pinned"):
         check_pinned()
 
-    with timer.phase("main"):
-        launches = check_main(fa)
-    with timer.phase("window"):
-        window_launches = check_window(fa)[0]
+    with trace.span("main"):
+        launches = check_main()
+    with trace.span("window"):
+        window_launches = check_window()[0]
         check_micro_window()
     gc.collect()
     torch.cuda.empty_cache()
 
-    with timer.phase("train"):
-        train_counts, step_s, train_ref = check_forecast_training(fa)
+    with trace.span("train"):
+        train_counts, step_s, train_ref = check_forecast_training()
     gc.collect()
     torch.cuda.empty_cache()
-    with timer.phase("cli"):
+    with trace.span("cli"):
         check_cli()
     gc.collect()
     torch.cuda.empty_cache()
@@ -3160,30 +3179,30 @@ def run_phases(timer):
     osse_worker = start_workers("--osse-worker", 1, [])
     # the spatial_forecast phase's ranks beside record, vae_train and sc4dvar
     forecast_mesh = start_spatial_forecast(train_ref)
-    with timer.phase("record"):
-        record_launches = check_record(fa)
+    with trace.span("record"):
+        record_launches = check_record()
     gc.collect()
     torch.cuda.empty_cache()
-    with timer.phase("vae_train"):
-        vae_launches, vae_ref = check_vae_train(fa)
+    with trace.span("vae_train"):
+        vae_launches, vae_ref = check_vae_train()
     gc.collect()
     torch.cuda.empty_cache()
-    with timer.phase("sc4dvar"):
-        sc4dvar_launches = check_sc4dvar(fa)
+    with trace.span("sc4dvar"):
+        sc4dvar_launches = check_sc4dvar()
     gc.collect()
     torch.cuda.empty_cache()
-    with timer.phase("spatial_forecast"):
-        sf_counts = check_spatial_forecast(fa, forecast_mesh, train_ref)
+    with trace.span("spatial_forecast"):
+        sf_counts = check_spatial_forecast(forecast_mesh, train_ref)
     gc.collect()
     torch.cuda.empty_cache()
     # the spatial_train phase's ranks run beside real_obs, whose time is
     # mostly the host's
     spatial = start_spatial_train(vae_ref)
-    with timer.phase("real_obs"):
-        real_obs_launches, real_obs_ref = check_real_obs(fa)
+    with trace.span("real_obs"):
+        real_obs_launches, real_obs_ref = check_real_obs()
     gc.collect()
     torch.cuda.empty_cache()
-    with timer.phase("osse"):
+    with trace.span("osse"):
         try:
             osse_s = wait_workers(osse_worker, 900)
         finally:
@@ -3192,19 +3211,19 @@ def run_phases(timer):
         print(osse_worker.texts[0], end="", flush=True)
         phase("osse", f"its process joined here {osse_s:.1f} s after it started with the record "
               "phase")
-    with timer.phase("spatial_train"):
+    with trace.span("spatial_train"):
         check_spatial_train(spatial, vae_ref)
     gc.collect()
     torch.cuda.empty_cache()
-    with timer.phase("sd_zoo"):
-        sd_counts = check_sd_zoo(fa)
+    with trace.span("sd_zoo"):
+        sd_counts = check_sd_zoo()
     gc.collect()
     torch.cuda.empty_cache()
-    with timer.phase("dp"):
-        dp_counts = check_dp(fa, step_s)
+    with trace.span("dp"):
+        dp_counts = check_dp(step_s)
     gc.collect()
     torch.cuda.empty_cache()
-    with timer.phase("mesh"):
+    with trace.span("mesh"):
         mesh_counts = check_mesh(real_obs_ref)
 
     stats = {"flash_fwd": fwd, "flash_dq": bwd["flash_dq"], "flash_dkv": bwd["flash_dkv"]}
@@ -3232,7 +3251,7 @@ def run_phases(timer):
     return {"kernels": kernels, "kind": kind}
 
 
-def check_main(fa):
+def check_main():
     """The main phase: the README cycle through run_da; returns its forward
     launches."""
     import torch
@@ -3243,12 +3262,12 @@ def check_main(fa):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as work:
-        fa.flash_fwd_launches = fa.flash_dq_launches = fa.flash_dkv_launches = 0
+        mark = flash_launches()
         t0 = time.perf_counter()
         da = run_da.main(MAIN_ARGS + ["--work_dir", work])
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
-        da_counts = (fa.flash_fwd_launches, fa.flash_dq_launches, fa.flash_dkv_launches)
+        da_counts = flash_launches(mark)
         launches = da_counts[0]
         files = sorted(os.listdir(da.work_dir))
     peak = torch.cuda.max_memory_allocated()

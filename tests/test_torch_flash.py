@@ -15,6 +15,7 @@ from torch_port_util import rand
 from vaevar_tpu.ops import flash as jflash
 from vaevar_tpu.ops import pallas_attn
 from vaevar_tpu_torch.ops import flash_attn as fa
+from vaevar_tpu_torch.utils import trace
 
 torch.set_num_threads(1)
 
@@ -73,7 +74,7 @@ def test_cpu_dispatch_is_plain_and_differentiable():
     gradient matches dense attention's."""
     q, k, v = (torch.from_numpy(a).requires_grad_(True) for a in _qkv((1, 2, 70, 16), 70))
     g = torch.from_numpy(rand((1, 2, 70, 16), 99))
-    before = fa.flash_fwd_launches
+    before = trace.counters().get("flash.fwd", 0)
     (fa.flash_attention(q, k, v) * g).sum().backward()
     grads = [t.grad.clone() for t in (q, k, v)]
     for t in (q, k, v):
@@ -81,7 +82,7 @@ def test_cpu_dispatch_is_plain_and_differentiable():
     (torch.softmax(q @ k.transpose(-1, -2), -1) @ v * g).sum().backward()
     for a, t in zip(grads, (q, k, v)):
         np.testing.assert_allclose(a.numpy(), t.grad.numpy(), atol=1e-5)
-    assert fa.flash_fwd_launches == before
+    assert trace.counters().get("flash.fwd", 0) == before
 
 
 def test_kernel_wrapper_refuses_cpu_tensors_and_backward():

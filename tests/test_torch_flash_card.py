@@ -25,6 +25,13 @@ import pytest
 import torch
 
 from vaevar_tpu_torch.ops import flash_attn as fa
+from vaevar_tpu_torch.utils import trace
+
+
+def _launches():
+    """The flash kernels' launch counters (fwd, dq, dkv) of this process."""
+    c = trace.counters()
+    return tuple(c.get(f"flash.{k}", 0) for k in ("fwd", "dq", "dkv"))
 
 
 @pytest.fixture
@@ -57,10 +64,10 @@ CASES = [((*bhn, d), dtypes) for d in fa.HEAD_DIMS for bhn in SMALL_SHAPES
 def test_kernel_matches_plain(cuda, shape, dtypes):
     qk_dt, v_dt = (getattr(torch, n) for n in dtypes)
     q, k, v = _qkv(shape, 80, cuda, qk_dt, v_dt)
-    before = fa.flash_fwd_launches
+    before = _launches()
     o, lse = fa.flash_fwd_cuda(q, k, v)
     torch.cuda.synchronize()
-    assert fa.flash_fwd_launches == before + 1
+    assert _launches()[0] == before[0] + 1
     assert o.dtype == qk_dt and lse.dtype == torch.float32
     o_ref, lse_ref = fa.flash_attention_plain(q, k, v, 128, 128)
     atol = 1e-4 if v_dt == torch.float32 else 4e-3
@@ -74,10 +81,10 @@ def test_cuda_dispatch_launches_the_kernel(cuda):
     (never the plain version), and its backward the dq and dkv kernels once
     each, with the gradients of flash_bwd_cuda."""
     q, k, v = _qkv((1, 2, 200, 64), 81, cuda)
-    before = (fa.flash_fwd_launches, fa.flash_dq_launches, fa.flash_dkv_launches)
+    before = _launches()
     out = fa.flash_attention(q, k, v)
     torch.cuda.synchronize()
-    assert fa.flash_fwd_launches == before[0] + 1
+    assert _launches()[0] == before[0] + 1
     np.testing.assert_allclose(out.cpu().numpy(),
                                fa.flash_fwd_cuda(q, k, v)[0].cpu().numpy(), atol=0)
     for t in (q, k, v):
@@ -85,7 +92,7 @@ def test_cuda_dispatch_launches_the_kernel(cuda):
     g = torch.randn_like(q)
     (fa.flash_attention(q, k, v) * g).sum().backward()
     torch.cuda.synchronize()
-    assert (fa.flash_dq_launches, fa.flash_dkv_launches) == (before[1] + 1, before[2] + 1)
+    assert _launches()[1:] == (before[1] + 1, before[2] + 1)
     o, lse = fa.flash_fwd_cuda(q.detach(), k.detach(), v.detach())
     want = fa.flash_bwd_cuda(q.detach(), k.detach(), v.detach(), o, lse, g)
     for t, w in zip((q, k, v), want):
@@ -105,10 +112,10 @@ def test_backward_kernels_match_plain(cuda, shape, dtypes):
     do = torch.from_numpy(np.random.default_rng(84).standard_normal(
         shape, dtype=np.float32)).to(cuda, qk_dt)
     o, lse = fa.flash_fwd_cuda(q, k, v)
-    before = (fa.flash_dq_launches, fa.flash_dkv_launches)
+    before = _launches()
     got = fa.flash_bwd_cuda(q, k, v, o, lse, do)
     torch.cuda.synchronize()
-    assert (fa.flash_dq_launches, fa.flash_dkv_launches) == (before[0] + 1, before[1] + 1)
+    assert _launches()[1:] == (before[1] + 1, before[2] + 1)
     assert [t.dtype for t in got] == [qk_dt, qk_dt, v_dt]
     want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
     for name, a, b in zip("qkv", got, want):

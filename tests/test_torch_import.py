@@ -10,8 +10,7 @@ binding, `reference_state_dict`, `lgunet_block_from_yaml`, the
 relative-position index, the synthetic obs masks, R and the model error Q,
 the batch prefetcher, the SHT's quadrature weights and Legendre table, the
 observation-level ladder and matrices, the station and real-obs gridding
-and the report sources, the OSSE's SharedModeEra5, the training meters and
-the phase timer,
+and the report sources, the OSSE's SharedModeEra5,
 the positional encodings, rope3's tables and the SD_attn mask) are held
 equal to the reference here."""
 
@@ -221,14 +220,8 @@ def test_shared_mode_source_copy_equals_reference():
 def test_parallel_and_meters_copies_equal_reference():
     """The port's parallel package imports no JAX (the subprocess check
     above covers it) and has the counterparts of the JAX package's dp
-    surface. The meters module's MetricLogger and SmoothedValue, and the
-    logger's PhaseTimer, are copies of the JAX package's, but for
-    SmoothedValue.synchronize_between_processes, which reduces over
-    torch.distributed (tests/test_torch_meters.py holds it to JAX's)."""
-    from vaevar_tpu.utils import logger as jlogger
-    from vaevar_tpu.utils import meters as jmeters
+    surface; the meters module keeps the JAX package's ScalarWriter."""
     from vaevar_tpu_torch.parallel import mesh as tmesh
-    from vaevar_tpu_torch.utils import logger as tlogger
     from vaevar_tpu_torch.utils import meters as tmeters
 
     assert "vaevar_tpu_torch.parallel.mesh" in _modules()
@@ -236,14 +229,6 @@ def test_parallel_and_meters_copies_equal_reference():
                  "global_batch", "check_replicas"):
         assert callable(getattr(tmesh, name)), name
     assert callable(tmeters.ScalarWriter)
-    assert inspect.getsource(tmeters.MetricLogger) == inspect.getsource(jmeters.MetricLogger)
-    assert inspect.getsource(tlogger.PhaseTimer) == inspect.getsource(jlogger.PhaseTimer)
-    for name, ref in vars(jmeters.SmoothedValue).items():
-        if name == "synchronize_between_processes" or not callable(getattr(ref, "fget", ref)):
-            continue
-        port = vars(tmeters.SmoothedValue)[name]
-        assert inspect.getsource(getattr(port, "fget", port)) == \
-            inspect.getsource(getattr(ref, "fget", ref)), name
 
 
 def test_store_and_native_binding_copies_equal_reference():

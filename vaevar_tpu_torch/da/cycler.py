@@ -35,6 +35,15 @@ their sums there keep the ranks equal too. Rank 0 alone writes the work
 dir; each cycle every rank of the world compares digests of the control
 and the analysis, and of the state it starts from, and raises on a
 mismatch.
+
+Spans (utils/trace.py), each with the cycle's index (its place in
+`cycle_log`) as request id: `cycle` around one cycle of the loop; inside it
+`obs.take` (the wait for the prefetched obs, or their preparation in the
+serial loop), `reduce`, `score` (bg, and ana with the obs-space error),
+`save` (the eval log, the dumps and the checkpoint), `lockstep` (under a
+mesh) and `advance` (a device span); the solver's spans (da/solver.py,
+da/lbfgs.py) nest under it. `obs.prepare` runs on the prefetch worker's
+thread with the index of the cycle it prepares for.
 """
 
 from __future__ import annotations
@@ -60,6 +69,7 @@ from vaevar_tpu_torch.da.solver import SolveDiagnostics, VariationalSolver
 from vaevar_tpu_torch.ops.interp import augment_levels, obs_level_interp_matrix
 from vaevar_tpu_torch.parallel import mesh as pmesh
 from vaevar_tpu_torch.utils import metrics as M
+from vaevar_tpu_torch.utils import trace
 
 CYCLE = timedelta(hours=6)
 STEP = timedelta(hours=1)
@@ -277,7 +287,8 @@ class CycledDA:
         """Under a mesh, every rank's digest of xs must be rank 0's, or this
         raises: the ranks compute the same cycle bit for bit."""
         if self.mesh is not None:
-            self.lockstep_digests.append(pmesh.check_replicas(pmesh.digest(*xs)))
+            with trace.span("lockstep"):
+                self.lockstep_digests.append(pmesh.check_replicas(pmesh.digest(*xs)))
 
     def _sync(self):
         """Wait for the work queued on this thread's current stream: the
@@ -374,7 +385,8 @@ class CycledDA:
 
     @torch.no_grad()
     def advance(self, xa):
-        return self.forecast_integrate(xa, 1, True)
+        with trace.span("advance", device=True):
+            return self.forecast_integrate(xa, 1, True)
 
     # --- per-cycle pieces -------------------------------------------------
 
@@ -470,7 +482,8 @@ class CycledDA:
         H_old = H
         if cfg.use_eval:
             H = H * (1.0 - self._mask_eval_dev())[None]
-        w_bg = self._score("bg", xb, gt[0])
+        with trace.span("score"):
+            w_bg = self._score("bg", xb, gt[0])
         if self.verbose:
             print(f"  bg: z500 {w_bg[11]:.4g} t850 {w_bg[66]:.4g} t2m {w_bg[2]:.4g}",
                   flush=True)
@@ -486,10 +499,11 @@ class CycledDA:
                 real_obs=self.is_real_obs, dim_out=cfg.interp_dim))
             diag = SolveDiagnostics(seconds=time.perf_counter() - t0)
         else:
-            bundle = cost_mod.ObsBundle(xb=xb, yo=yo, H=H, R=R)
-            if self._reduce_obs is not None:
-                bundle = self._reduce_obs(bundle, cfg.solver_hw)
-            self._sync()
+            with trace.span("reduce"):
+                bundle = cost_mod.ObsBundle(xb=xb, yo=yo, H=H, R=R)
+                if self._reduce_obs is not None:
+                    bundle = self._reduce_obs(bundle, cfg.solver_hw)
+                self._sync()
             self.last_reduce_s = time.perf_counter() - t0
             shape = ((channels.N_CHANNELS, *cfg.solver_hw) if cfg.da_mode == "sc4dvar"
                      else cfg.latent_shape)
@@ -499,9 +513,11 @@ class CycledDA:
             del bundle
         self.last_diag = diag
         self._check_lockstep(*[t for t in (z, xa) if t is not None])
-        if cfg.use_eval:
-            self.metrics_list["error_obs"].append(self._obs_holdout_error(xa, yo[0], H_old[0]))
-        w_ana = self._score("ana", xa, gt[0])
+        with trace.span("score"):
+            if cfg.use_eval:
+                self.metrics_list["error_obs"].append(
+                    self._obs_holdout_error(xa, yo[0], H_old[0]))
+            w_ana = self._score("ana", xa, gt[0])
         if self.verbose:
             print(f"  ana: z500 {w_ana[11]:.4g} t850 {w_ana[66]:.4g} "
                   f"t2m {w_ana[2]:.4g}", flush=True)
@@ -542,21 +558,24 @@ class CycledDA:
 
     # --- main loop --------------------------------------------------------
 
-    def _prefetch(self, current_time):
-        """get_obs_info on the prefetch worker: ((yo, H, R, gt), info,
-        seconds, done). On a CUDA device its device work goes on the obs
-        stream and `done` is an event recorded there after it; the seconds
-        end when that event is reached, not when the device is idle."""
-        info, t0 = {}, time.perf_counter()
-        if self._obs_stream is None:
-            obs = self.get_obs_info(current_time, info)
-            return obs, info, time.perf_counter() - t0, None
-        with torch.cuda.device(self._obs_stream.device), torch.cuda.stream(self._obs_stream):
-            obs = self.get_obs_info(current_time, info)
-            done = torch.cuda.Event()
-            done.record(self._obs_stream)
-        done.synchronize()
-        return obs, info, time.perf_counter() - t0, done
+    def _prefetch(self, current_time, request):
+        """get_obs_info on the prefetch worker, for the cycle of index
+        `request`: ((yo, H, R, gt), info, seconds, done). On a CUDA device
+        its device work goes on the obs stream and `done` is an event
+        recorded there after it; the seconds end when that event is
+        reached, not when the device is idle."""
+        with trace.span("obs.prepare", request=request):
+            info, t0 = {}, time.perf_counter()
+            if self._obs_stream is None:
+                obs = self.get_obs_info(current_time, info)
+                return obs, info, time.perf_counter() - t0, None
+            with (torch.cuda.device(self._obs_stream.device),
+                  torch.cuda.stream(self._obs_stream)):
+                obs = self.get_obs_info(current_time, info)
+                done = torch.cuda.Event()
+                done.record(self._obs_stream)
+            done.synchronize()
+            return obs, info, time.perf_counter() - t0, done
 
     def _take(self, fut):
         """The prefetched obs on the loop's thread, a worker's exception
@@ -599,71 +618,78 @@ class CycledDA:
         epoch = 0
         pool = (ThreadPoolExecutor(max_workers=1, thread_name_prefix="obs-prefetch")
                 if self.prefetch_obs else None)
-        fut = (pool.submit(self._prefetch, current_time)
+        fut = (pool.submit(self._prefetch, current_time, len(self.cycle_log))
                if pool is not None and current_time + CYCLE <= end_time else None)
         try:
             while current_time + CYCLE <= end_time:
-                if self.verbose:
-                    print(f"cycle @ {current_time}", flush=True)
-                t0 = time.perf_counter()
-                if pool is None:
-                    info = {}
-                    obs = self.get_obs_info(current_time, info)
+                index = len(self.cycle_log)
+                with trace.span("cycle", request=index):
+                    if self.verbose:
+                        print(f"cycle @ {current_time}", flush=True)
+                    t0 = time.perf_counter()
+                    with trace.span("obs.take"):
+                        if pool is None:
+                            info = {}
+                            with trace.span("obs.prepare"):
+                                obs = self.get_obs_info(current_time, info)
+                                self._sync()
+                            obs_s = time.perf_counter() - t0
+                        else:
+                            obs, info, obs_s = self._take(fut)
+                    obs_wait_s = time.perf_counter() - t0
+                    yo, H, R, gt = obs
+                    del obs
+                    keys = [k for k in ("n_gridded", "n_kept") if k in info]
+                    if self.mesh is not None and keys:  # the obs counts of every rank's tile
+                        counts = torch.tensor([info[k] for k in keys], dtype=torch.float64)
+                        (counts,) = pmesh.sum_over_tiles(self._tile, counts)
+                        info.update(zip(keys, counts.tolist()))
+                    self.last_obs_info = info
+                    checksum = self._checksum(yo, H, gt)
+                    obs_bytes = sum(t.numel() * t.element_size() for t in (yo, H))
+                    nxt = current_time + CYCLE
+                    submit_next = pool is not None and nxt + CYCLE <= end_time
+                    fut = None
+                    if submit_next and not self.forecast_eval:
+                        fut = pool.submit(self._prefetch, nxt, index + 1)
+                    xa = self.one_step_da(gt, xb, yo, H, R)
+                    with trace.span("save"):
+                        self._save_intermediate(current_time, xb, xa, gt, yo)
+                    del yo, H, R, gt
+                    if self.forecast_eval:
+                        # before the on-disk snapshot, so a preemption never leaves
+                        # forecast_wrmse a row behind ana_wrmse; before the next
+                        # prefetch, whose truth reads must not run beside these
+                        self._forecast_eval(xa, current_time)
+                        if submit_next:
+                            fut = pool.submit(self._prefetch, nxt, index + 1)
+                    with trace.span("save"):
+                        self.save_eval_result()
+                    xb = self.advance(xa)
+                    if epoch % self.cfg.save_interval == 0:
+                        with trace.span("save"):
+                            self.save_ckpt(nxt, xb)
+                            self.save_eval_result(consolidate=True)
                     self._sync()
-                    obs_s = time.perf_counter() - t0
-                else:
-                    obs, info, obs_s = self._take(fut)
-                obs_wait_s = time.perf_counter() - t0
-                yo, H, R, gt = obs
-                del obs
-                keys = [k for k in ("n_gridded", "n_kept") if k in info]
-                if self.mesh is not None and keys:  # the obs counts of every rank's tile
-                    counts = torch.tensor([info[k] for k in keys], dtype=torch.float64)
-                    (counts,) = pmesh.sum_over_tiles(self._tile, counts)
-                    info.update(zip(keys, counts.tolist()))
-                self.last_obs_info = info
-                checksum = self._checksum(yo, H, gt)
-                obs_bytes = sum(t.numel() * t.element_size() for t in (yo, H))
-                nxt = current_time + CYCLE
-                submit_next = pool is not None and nxt + CYCLE <= end_time
-                fut = None
-                if submit_next and not self.forecast_eval:
-                    fut = pool.submit(self._prefetch, nxt)
-                xa = self.one_step_da(gt, xb, yo, H, R)
-                self._save_intermediate(current_time, xb, xa, gt, yo)
-                del yo, H, R, gt
-                if self.forecast_eval:
-                    # before the on-disk snapshot, so a preemption never leaves
-                    # forecast_wrmse a row behind ana_wrmse; before the next
-                    # prefetch, whose truth reads must not run beside these
-                    self._forecast_eval(xa, current_time)
-                    if submit_next:
-                        fut = pool.submit(self._prefetch, nxt)
-                self.save_eval_result()
-                xb = self.advance(xa)
-                if epoch % self.cfg.save_interval == 0:
-                    self.save_ckpt(nxt, xb)
-                    self.save_eval_result(consolidate=True)
-                self._sync()
-                secs = time.perf_counter() - t0
-                self.timings["cycle_s"].append(secs)
-                d = self.last_diag
-                self.cycle_log.append({
-                    "time": str(current_time), "seconds": secs, "obs_s": obs_s,
-                    "obs_wait_s": obs_wait_s, **info, "obs_checksum": checksum,
-                    "obs_bytes": obs_bytes, "param_bytes": self.param_bytes,
-                    "reduce_s": self.last_reduce_s, "solve_s": d.seconds,
-                    "jb": list(d.loss_reg), "jo": list(d.loss_obs),
-                    "linesearch": d.linesearch, "n_iters": list(d.n_iters),
-                    "n_evals": list(d.n_evals), "n_jvp": list(d.n_jvp),
-                    "n_restore": list(d.n_restore),
-                    "xa_finite": bool(torch.isfinite(xa).all()),
-                    "xb_next_finite": bool(torch.isfinite(xb).all()),
-                })
-                current_time = nxt
-                epoch += 1
-                if self.verbose:
-                    print(f"  cycle took {secs:.2f}s", flush=True)
+                    secs = time.perf_counter() - t0
+                    self.timings["cycle_s"].append(secs)
+                    d = self.last_diag
+                    self.cycle_log.append({
+                        "time": str(current_time), "seconds": secs, "obs_s": obs_s,
+                        "obs_wait_s": obs_wait_s, **info, "obs_checksum": checksum,
+                        "obs_bytes": obs_bytes, "param_bytes": self.param_bytes,
+                        "reduce_s": self.last_reduce_s, "solve_s": d.seconds,
+                        "jb": list(d.loss_reg), "jo": list(d.loss_obs),
+                        "linesearch": d.linesearch, "n_iters": list(d.n_iters),
+                        "n_evals": list(d.n_evals), "n_jvp": list(d.n_jvp),
+                        "n_restore": list(d.n_restore),
+                        "xa_finite": bool(torch.isfinite(xa).all()),
+                        "xb_next_finite": bool(torch.isfinite(xb).all()),
+                    })
+                    current_time = nxt
+                    epoch += 1
+                    if self.verbose:
+                        print(f"  cycle took {secs:.2f}s", flush=True)
         finally:
             if pool is not None:
                 pool.shutdown(wait=False, cancel_futures=True)

@@ -23,6 +23,14 @@ rounds as the JAX program's f32 arithmetic does. `init_state` continues a
 minimisation across segments (curvature pairs, cached value and gradient),
 as the reference's one torch optimizer persists across its Nit .step()
 calls.
+
+Spans (utils/trace.py): `lbfgs.probe` around each value and gradient, jvp
+or restore the minimisation runs, up to its host read of the value and
+slope (attr `kind`: "entry", "grad", "jvp" or "restore"); inside it
+`lbfgs.forward` and `lbfgs.backward` (value_and_grad) or `lbfgs.jvp`;
+`lbfgs.direction` around the two-loop product; `host_sync` around every
+device-to-host read. Counters: `lbfgs.probes` (the probe spans),
+`lbfgs.jvp`, `lbfgs.restores`, `host_syncs`.
 """
 
 from __future__ import annotations
@@ -32,6 +40,8 @@ from typing import Callable
 
 import numpy as np
 import torch
+
+from vaevar_tpu_torch.utils import trace
 
 f32 = np.float32
 _INF = f32(np.inf)
@@ -51,7 +61,21 @@ def _dot(a, b) -> torch.Tensor:
 
 
 def _host(t) -> np.float32:
-    return f32(t.item() if isinstance(t, torch.Tensor) else t)
+    if not isinstance(t, torch.Tensor):
+        return f32(t)
+    trace.count("host_syncs")
+    with trace.span("host_sync"):
+        return f32(t.item())
+
+
+def _probe(kind: str):
+    """The span of one value and gradient, jvp or restore, counted."""
+    trace.count("lbfgs.probes")
+    if kind == "jvp":
+        trace.count("lbfgs.jvp")
+    elif kind == "restore":
+        trace.count("lbfgs.restores")
+    return trace.span("lbfgs.probe", kind=kind)
 
 
 @dataclass
@@ -100,15 +124,17 @@ def value_and_grad(fun: Callable, x):
     """(value as np.float32, gradient) of a scalar torch function."""
     with torch.enable_grad():
         xg = x.detach().requires_grad_(True)
-        v = fun(xg)
-        (g,) = torch.autograd.grad(v, xg)
+        with trace.span("lbfgs.forward"):
+            v = fun(xg)
+        with trace.span("lbfgs.backward"):
+            (g,) = torch.autograd.grad(v, xg)
     return _host(v), g
 
 
 def value_and_slope(fun: Callable, x, u):
     """(value, slope along u) of a scalar torch function as device scalars,
     by one forward-mode torch.func.jvp; no backward graph is recorded."""
-    with torch.no_grad():
+    with torch.no_grad(), trace.span("lbfgs.jvp"):
         return torch.func.jvp(fun, (x.detach(),), (u,))
 
 
@@ -214,16 +240,18 @@ def zoom_linesearch(fun, params, updates, value, grad, max_steps: int = 25,
 
     def probe(eta):
         nonlocal n_jvp
-        w = params + float(eta) * updates
-        if jvp_probes and count > 0:
-            v, sl = value_and_slope(fun, w, updates)
-            coef = torch.where(u_sq > 0.0, sl.float() / torch.clamp(u_sq, min=1e-38),
-                               torch.zeros_like(u_sq))
-            v, g = _host(v), coef * updates
-            n_jvp += 1
-        else:
-            v, g = value_and_grad(fun, w)
-        return v, g, _host(_dot(g, updates))
+        jvp = jvp_probes and count > 0
+        with _probe("jvp" if jvp else "grad"):
+            w = params + float(eta) * updates
+            if jvp:
+                v, sl = value_and_slope(fun, w, updates)
+                coef = torch.where(u_sq > 0.0, sl.float() / torch.clamp(u_sq, min=1e-38),
+                                   torch.zeros_like(u_sq))
+                v, g = _host(v), coef * updates
+                n_jvp += 1
+            else:
+                v, g = value_and_grad(fun, w)
+            return v, g, _host(_dot(g, updates))
 
     with np.errstate(all="ignore"):
         while not (done or failed):
@@ -298,7 +326,8 @@ def zoom_linesearch(fun, params, updates, value, grad, max_steps: int = 25,
         elif eta == first[0]:
             res.value, res.grad = first[1], first[2]
         else:
-            res.value, res.grad = value_and_grad(fun, params + float(eta) * updates)
+            with _probe("restore"):
+                res.value, res.grad = value_and_grad(fun, params + float(eta) * updates)
             res.n_restore = 1
     return res
 
@@ -342,8 +371,10 @@ def lbfgs_minimize(
         if np.isfinite(st.value):  # optax.value_and_grad_from_state
             value, grad = st.value, st.grad
         else:
-            value, grad = value_and_grad(fun, x)
-        direction = -_lbfgs_direction(st, x, grad)
+            with _probe("entry"):
+                value, grad = value_and_grad(fun, x)
+        with trace.span("lbfgs.direction"):
+            direction = -_lbfgs_direction(st, x, grad)
         ls = zoom_linesearch(fun, x, direction, value, grad, max_linesearch_steps,
                              jvp_probes=linesearch == "jvp-zoom")
         step = float(ls.stepsize) * direction

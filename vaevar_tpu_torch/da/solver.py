@@ -11,6 +11,11 @@ them), and the cost, built on the mesh, sums over the spatial group every
 value L-BFGS and the diagnostics read (and a tensor-parallel model sums its
 slices over the tp group), so the ranks take the same steps with no solver
 change.
+
+Spans (utils/trace.py): `solve` around a solve, `solve.segment` around each
+L-BFGS segment (attr `segment`), `solve.diagnostics` around each
+diagnostics decode and its record, and one `host_sync` around its four
+device-to-host reads (counted in `host_syncs`).
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from vaevar_tpu_torch.da.lbfgs import (
 )
 from vaevar_tpu_torch.ops.flash_attn import NoForwardADError
 from vaevar_tpu_torch.utils import metrics as M
+from vaevar_tpu_torch.utils import trace
 
 
 @dataclass
@@ -105,11 +111,17 @@ class VariationalSolver:
         wrmse = M.weighted_rmse(xhat_n[None], gt_n[None]) * std
         bias = M.weighted_bias((xhat_n - gt_n)[None]) * std
         jb, jo = self.cost_parts(x, bundle)
-        return wrmse.cpu().numpy(), bias.cpu().numpy(), float(jb), float(jo)
+        trace.count("host_syncs", 4)
+        with trace.span("host_sync"):
+            return wrmse.cpu().numpy(), bias.cpu().numpy(), float(jb), float(jo)
 
     def solve(self, x0, bundle, nit: int = 4, gt=None, verbose: bool = True,
               name: str = "da"):
         """-> (x, analysis state, SolveDiagnostics)."""
+        with trace.span("solve"):
+            return self._solve(x0, bundle, nit, gt, verbose, name)
+
+    def _solve(self, x0, bundle, nit, gt, verbose, name):
         self.ensure_linesearch(x0, bundle)
         diag = SolveDiagnostics(linesearch=self.linesearch)
         t0 = time.perf_counter()
@@ -120,13 +132,15 @@ class VariationalSolver:
 
         for kk in range(nit + 1):
             if gt is not None:
-                self._record_iter(diag, *self.diagnostics(x, bundle, gt[0]), kk,
-                                  verbose, name)
+                with trace.span("solve.diagnostics"):
+                    self._record_iter(diag, *self.diagnostics(x, bundle, gt[0]), kk,
+                                      verbose, name)
             if kk < nit:
-                res = lbfgs_minimize(fun, x, max_iters=self.lbfgs_iters,
-                                     history=self.history, init_state=state,
-                                     max_evals=self.max_segment_evals,
-                                     linesearch=self.linesearch)
+                with trace.span("solve.segment", segment=kk):
+                    res = lbfgs_minimize(fun, x, max_iters=self.lbfgs_iters,
+                                         history=self.history, init_state=state,
+                                         max_evals=self.max_segment_evals,
+                                         linesearch=self.linesearch)
                 x, state = res.x, res.state
                 diag.n_iters.append(res.n_iters)
                 diag.n_evals.append(res.n_evals)

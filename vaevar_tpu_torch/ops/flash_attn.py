@@ -7,10 +7,11 @@ full-grid LG stage of the 0.25 deg forecast model (N = 90*180 = 16200,
 head dim 192), where dense logits would need N^2 floats per head.
 
 - `flash_fwd_cuda`: launches csrc/flash_fwd.cu (built by ops/_build.py) on
-  CUDA tensors; counts its launches in `flash_fwd_launches`.
+  CUDA tensors; counts its launches in the counter `flash.fwd`
+  (utils/trace.py).
 - `flash_dq_cuda` / `flash_dkv_cuda`: launch the dq and dkv kernels of
-  csrc/flash_bwd.cu; count them in `flash_dq_launches` and
-  `flash_dkv_launches`. `flash_bwd_cuda` computes D and runs both.
+  csrc/flash_bwd.cu; count them in `flash.dq` and `flash.dkv`.
+  `flash_bwd_cuda` computes D and runs both.
 - `flash_attention_plain`, `flash_dq_plain`, `flash_dkv_plain` and
   `flash_attention_bwd_plain`: the same functions blockwise in torch ops
   (vaevar_tpu/ops/flash.py:38-78 and pallas_attn.py:127-263); the CPU path
@@ -28,10 +29,7 @@ import functools
 
 import torch
 
-#: Launches of each CUDA kernel in this process (incremented per launch).
-flash_fwd_launches = 0
-flash_dq_launches = 0
-flash_dkv_launches = 0
+from vaevar_tpu_torch.utils import trace
 
 HEAD_DIMS = (32, 64, 128, 192)
 _TYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -175,7 +173,6 @@ def _check(name, q, k, v, *same):
 
 def flash_fwd_cuda(q, k, v):
     """Launch the forward kernel on (B, h, N, d) CUDA tensors -> (O, lse)."""
-    global flash_fwd_launches
     B, h, N, d = _check("flash_fwd_cuda", q, k, v)
     fn = _fwd_fn()
     o = torch.empty_like(q)
@@ -186,7 +183,7 @@ def flash_fwd_cuda(q, k, v):
              _TYPE_CODE[v.dtype], stream)
     if err != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed (code {err})")
-    flash_fwd_launches += 1
+    trace.count("flash.fwd")
     return o, lse
 
 
@@ -201,7 +198,6 @@ def _check_rows(name, q, *rows):
 def flash_dq_cuda(q, k, v, do, lse, delta):
     """Launch the dq kernel on (B, h, N, d) CUDA tensors, with lse and
     D = rowsum(dO * O) (B, h, N) f32 -> dq."""
-    global flash_dq_launches
     B, h, N, d = _check("flash_dq_cuda", q, k, v, do)
     _check_rows("flash_dq_cuda", q, lse, delta)
     fn = _bwd_fns()[0]
@@ -211,14 +207,13 @@ def flash_dq_cuda(q, k, v, do, lse, delta):
              _TYPE_CODE[v.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_bwd dq kernel launch failed (code {err})")
-    flash_dq_launches += 1
+    trace.count("flash.dq")
     return dq
 
 
 def flash_dkv_cuda(q, k, v, do, lse, delta):
     """Launch the dkv kernel on (B, h, N, d) CUDA tensors, with lse and D
     (B, h, N) f32 -> (dk, dv)."""
-    global flash_dkv_launches
     B, h, N, d = _check("flash_dkv_cuda", q, k, v, do)
     _check_rows("flash_dkv_cuda", q, lse, delta)
     fn = _bwd_fns()[1]
@@ -229,7 +224,7 @@ def flash_dkv_cuda(q, k, v, do, lse, delta):
              torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_bwd dkv kernel launch failed (code {err})")
-    flash_dkv_launches += 1
+    trace.count("flash.dkv")
     return dk, dv
 
 

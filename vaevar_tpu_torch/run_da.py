@@ -185,6 +185,9 @@ def arg_parser(argv=None):
     p.add_argument("--obs_from_numpy", type=str, default=None,
                    help="directory of pre-gridded obs ({year}/{YYYY-MM-DDTHH}-obs.npy "
                         "and -mask.npy) used instead of station gridding for real obs")
+    p.add_argument("--spans", type=str, default=None,
+                   help="record the run's spans and counters (utils/trace.py) and "
+                        "write them to this JSONL file at exit")
     return p.parse_args(argv)
 
 
@@ -278,6 +281,13 @@ def main(argv=None):
     """Run the cycle; returns the CycledDA (its timings, with the seconds of
     the model set-up under "models_s", and its cycle_log)."""
     args = arg_parser(argv)
+    from vaevar_tpu_torch.utils import trace
+
+    with trace.exported(args.spans):
+        return _run(args)
+
+
+def _run(args):
     import numpy as np
     import torch
 

@@ -94,6 +94,9 @@ def arg_parser(argv=None):
     p.add_argument("--log_every", type=int, default=10)
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device of the run (default cuda; cpu for CPU runs)")
+    p.add_argument("--spans", type=str, default=None,
+                   help="record the run's spans and counters (utils/trace.py) and "
+                        "write them to this JSONL file at exit")
     return p.parse_args(argv)
 
 
@@ -123,6 +126,13 @@ def rank_strided(it, rank: int, world: int):
 def main(argv=None):
     """Run the task; returns (trainable, per-step losses) for `train`."""
     args = arg_parser(argv)
+    from vaevar_tpu_torch.utils import trace
+
+    with trace.exported(args.spans):
+        return _run(args)
+
+
+def _run(args):
     import numpy as np
     import torch
 

@@ -41,6 +41,12 @@ summed over the world before AdamW (`pmesh.all_sum_grads`, not DDP), so
 the step is the global one and every rank receives the same sum.
 Validation gathers pred and target over the spatial group and the dp group
 before the recorder.
+
+Spans (utils/trace.py), with the step's index (the updates taken before
+it) as request id: `train.step` around a step; inside it the device spans
+`train.forward_loss`, `train.backward`, `train.grad_sum` (spatial mesh
+only) and `train.optimizer` (AdamW and the schedule); `train.loss_read`
+around train_forecast's read of the loss.
 """
 
 from __future__ import annotations
@@ -53,6 +59,7 @@ import torch
 
 from vaevar_tpu_torch import channels
 from vaevar_tpu_torch.parallel import mesh as pmesh
+from vaevar_tpu_torch.utils import trace
 
 
 class _Share(NamedTuple):
@@ -224,14 +231,20 @@ def make_forecast_train_step(
         return trainable, OptState(opt, sched)
 
     def train_step(trainable, opt_state, inp, tars):
-        opt_state.optimizer.zero_grad(set_to_none=True)
-        loss = objective(inp, tars)
-        loss.backward()
-        if spatial:  # this rank's share of the global gradient, summed
-            pmesh.all_sum_grads(trainable_parameters(trainable))
-        opt_state.optimizer.step()
-        opt_state.scheduler.step()
-        return trainable, opt_state, _global_mean(_counted(loss.detach(), loss_type, mesh), mesh)
+        with trace.span("train.step", request=opt_state.scheduler.last_epoch):
+            opt_state.optimizer.zero_grad(set_to_none=True)
+            with trace.span("train.forward_loss", device=True):
+                loss = objective(inp, tars)
+            with trace.span("train.backward", device=True):
+                loss.backward()
+            if spatial:  # this rank's share of the global gradient, summed
+                with trace.span("train.grad_sum", device=True):
+                    pmesh.all_sum_grads(trainable_parameters(trainable))
+            with trace.span("train.optimizer", device=True):
+                opt_state.optimizer.step()
+                opt_state.scheduler.step()
+            return (trainable, opt_state,
+                    _global_mean(_counted(loss.detach(), loss_type, mesh), mesh))
 
     return init_fn, train_step
 
@@ -418,7 +431,8 @@ def train_forecast(
             inp, tars = _tiles(inp, tars, mesh)
             trainable, opt_state, loss = train_step(
                 trainable, opt_state, _put(inp, device), [_put(t, device) for t in tars])
-            loss = float(loss)
+            with trace.span("train.loss_read", request=gstep):
+                loss = float(loss)
             if (j + 1) % log_every == 0:
                 logger(f"epoch {epoch} iter {j} loss {loss:.4f}")
             history.append(loss)
