@@ -43,7 +43,9 @@ exits nonzero without its last line:
    at full width (0.25 deg FORECAST_025 advance at 721x1440, VAE decoder at
    128x256, Nit 4), 2 cycles after the 8-step spin-up, random weights from
    the seed. Checks the forward kernel's launch count, finite analyses, the
-   cost decrease and the on-disk state;
+   cost decrease, the on-disk state, and that the solve captured its CUDA
+   graphs once and replayed every value+grad probe (da/graphs.py; the
+   jvp probes stay eager);
 6b. the window path: the same cycle as 4D-Var with --da_win 6 (FLOW_140
    inside J at 128x256, block and step remat, the linesearch `auto`
    resolves to jvp-zoom), one cycle from the truth (--init_tp 1, no
@@ -317,6 +319,17 @@ TOTAL_STEPS = 200  # run_train_forecast's --steps x --epochs defaults
 
 def phase(name, msg):
     print(f"[chip_smoke] {name}: {msg}", flush=True)
+
+
+def solve_graph_counts(since=(0, 0, 0, 0)):
+    """The 3D-Var solve graphs' captures and replays, the L-BFGS probes and
+    the jvp probes among them in this process (utils/trace.py's counters),
+    less `since`."""
+    from vaevar_tpu_torch.utils import trace
+
+    c = trace.counters()
+    return tuple(c.get(k, 0) - s for k, s in zip(
+        ("solve.graph_captures", "lbfgs.graph_replays", "lbfgs.probes", "lbfgs.jvp"), since))
 
 
 def flash_launches(since=(0, 0, 0)):
@@ -3263,11 +3276,13 @@ def check_main():
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as work:
         mark = flash_launches()
+        graph_mark = solve_graph_counts()
         t0 = time.perf_counter()
         da = run_da.main(MAIN_ARGS + ["--work_dir", work])
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
         da_counts = flash_launches(mark)
+        graphs = solve_graph_counts(graph_mark)
         launches = da_counts[0]
         files = sorted(os.listdir(da.work_dir))
     peak = torch.cuda.max_memory_allocated()
@@ -3285,6 +3300,13 @@ def check_main():
     if n_cycles != 2 or da_counts != (want, 0, 0) or not da.prefetch_obs:
         raise AssertionError(f"{n_cycles} cycles, flash launches {da_counts}; "
                              f"want 2, ({want}, 0, 0)")
+    captures, replays, probes, jvp = graphs
+    phase("main", f"solve graphs: {captures} capture, {replays} replays of {probes} probes "
+          f"({jvp} jvp probes, eager)")
+    if captures != 1 or replays != probes - jvp or not replays:
+        raise AssertionError(f"the README solve ran {replays} of {probes - jvp} value+grad "
+                             f"probes as graph replays after {captures} captures; want all "
+                             "after 1")
     decreased = False
     for c in da.cycle_log:
         if not (c["xa_finite"] and c["xb_next_finite"]):

@@ -1,0 +1,439 @@
+"""The 3D-Var solve's CUDA graphs (vaevar_tpu_torch/da/graphs.py) and the
+rule that engages them (da/cycler.py::CycledDA._graphed).
+
+On the CPU:
+- the rule: on a CUDA device it holds for the reduced vae4dvar 3D-Var cost
+  alone; a mesh, a tensor-parallel decoder, sc4dvar, a window and the
+  full-grid (real obs) cost keep the eager solve. Micro cycles of each on the CPU build no graphs, count
+  no capture and no replay, and hand L-BFGS the eager value_and_grad;
+- the tables the captured region needs on the device, made once: the
+  increment's scales (cost._increment_fn) and the nearest resize's indices
+  (ops/interp.py), bitwise the per-call tables they replace;
+- the graphed solve's control flow with a stand-in for the capture whose
+  replay recomputes the captured body eagerly into the graphs' buffers:
+  three solves on three bundles give the eager solver's numbers bit for
+  bit, with one capture, one replay per probe and an `lbfgs.replay` span in
+  each probe; a new shape captures again.
+
+On the card (`-m gpu`; `python -m pytest --noconftest -m gpu
+tests/test_torch_solve_graph.py`), the production VAE_DECODER in bf16 at
+its 128x256 latent with random weights: the replayed value and gradient
+against the eager ones, three solves against the eager solver, the decode
+graph's state against to_state, and a capture while a worker thread runs
+CUDA work on its own stream.
+"""
+
+import threading
+from collections import Counter
+
+import numpy as np
+import pytest
+import torch
+
+from vaevar_tpu_torch import channels
+from vaevar_tpu_torch import config as cfgs
+from vaevar_tpu_torch.da import cost as cost_mod
+from vaevar_tpu_torch.da import lbfgs
+from vaevar_tpu_torch.da import solver as solver_mod
+from vaevar_tpu_torch.da.graphs import SolveGraphs
+from vaevar_tpu_torch.da.solver import VariationalSolver
+from vaevar_tpu_torch.models.lgunet import LGUnet
+from vaevar_tpu_torch.ops import interp
+from vaevar_tpu_torch.parallel.mesh import Tile
+from vaevar_tpu_torch.utils import trace
+
+torch.set_num_threads(1)
+ONE_CYCLE = ["--device", "cpu", "--micro", "--fast_init", "--Nit", "2", "--end_time",
+             "2022-01-01 06:00:00"]
+MICRO = ONE_CYCLE + ["--grid", "32x64", "--solver_grid", "32x64"]
+# (name, run_da flags): every solving path the cycler builds on the CPU
+PATHS = {
+    "vae4dvar_3dvar": MICRO,
+    "sc4dvar": ONE_CYCLE + ["--da_mode", "sc4dvar", "--grid", "64x128", "--solver_grid",
+                            "32x64"],
+    "window": MICRO + ["--da_win", "2", "--no-bf16"],
+    "real_obs": MICRO + ["--obs_type", "real_simu", "--use_eval"],
+}
+GRAPH_COUNTERS = ("solve.graph_captures", "lbfgs.graph_replays")
+
+
+def _counts():
+    c = trace.counters()
+    return {k: c.get(k, 0) for k in GRAPH_COUNTERS}
+
+
+@pytest.fixture(autouse=True)
+def tracing_off():
+    trace.enable()
+    trace.disable()
+    yield
+    trace.enable()
+    trace.disable()
+
+
+# --- the rule, on micro cycles ---------------------------------------------
+
+
+@pytest.fixture(scope="module", params=sorted(PATHS))
+def micro_cycle(request, tmp_path_factory):
+    """One micro cycle of a path on the CPU: (name, CycledDA, the graph
+    counters it added, the value_and_grad each segment got)."""
+    from vaevar_tpu_torch import run_da
+
+    name = request.param
+    got = []
+    minimize = solver_mod.lbfgs_minimize
+
+    def spy(*a, **kw):
+        got.append(kw["value_and_grad"])
+        return minimize(*a, **kw)
+
+    solver_mod.lbfgs_minimize = spy
+    before = _counts()
+    try:
+        da = run_da.main(PATHS[name] + ["--work_dir", str(tmp_path_factory.mktemp(name))])
+    finally:
+        solver_mod.lbfgs_minimize = minimize
+    after = _counts()
+    return name, da, {k: after[k] - before[k] for k in GRAPH_COUNTERS}, got
+
+
+def test_cpu_cycle_builds_no_graph_and_solves_eagerly(micro_cycle):
+    name, da, added, got = micro_cycle
+    assert da._solver.graphs is None and not da._graphed
+    assert added == {k: 0 for k in GRAPH_COUNTERS}
+    assert len(da.cycle_log) == 1 and len(got) == da.cfg.nit
+    assert all(f is lbfgs.value_and_grad for f in got), name
+
+
+def test_rule_on_a_cuda_device(micro_cycle):
+    """Read on a CPU-built cycler with its device name changed: the rule
+    reads only the configuration, the mesh, the decoder's placement and
+    the device type."""
+    from vaevar_tpu_torch.parallel.tensor_parallel import _RowParallel
+
+    name, da, _, _ = micro_cycle
+    device, decoder = da.device, da.decoder
+    try:
+        da.device = "cuda"
+        assert da._graphed == (name == "vae4dvar_3dvar")
+        da.mesh = object()
+        assert not da._graphed
+        da.mesh = None
+        if decoder is not None:  # a tensor-parallel decoder sums over its tp group
+            blk = decoder.net.layers[0].blocks[0]
+            da.decoder = torch.nn.Sequential(decoder, _RowParallel(
+                blk.mlp, "hidden", "fc2", None, blk.mlp.fc1.out_features, 1))
+            assert not da._graphed
+    finally:
+        da.device, da.mesh, da.decoder = device, None, decoder
+
+
+# --- the tables made once ---------------------------------------------------
+
+
+class _NoCopy:
+    def __init__(self, real):
+        self.real = real
+
+    def __call__(self, data, *a, **kw):
+        if isinstance(data, np.ndarray):
+            raise AssertionError("a table crossed from the host")
+        return self.real(data, *a, **kw)
+
+
+def _increment_per_call(decoder, z):
+    """cost._increment_fn's arithmetic with its tables made at every call."""
+    err = torch.as_tensor(channels.ERR_STD, dtype=torch.float32, device=z.device)
+    mstd = torch.as_tensor(channels.STD, dtype=torch.float32, device=z.device)
+    return decoder(z)[0].float() * err.reshape(-1, 1, 1) * mstd.reshape(-1, 1, 1)
+
+
+def _micro_decoder(hw=(16, 32), dtype=None):
+    torch.manual_seed(0)
+    cfg = cfgs.micro_vae_configs(img_size=hw)[1].replace(dtype=dtype)
+    return LGUnet(cfg).eval().requires_grad_(False), sum(cfg.inchans_list)
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+def test_increment_tables_bitwise_and_made_once(monkeypatch, dtype):
+    decoder, c = _micro_decoder(dtype=dtype)
+    increment = cost_mod._increment_fn(decoder)
+    for seed in (1, 2):
+        z = torch.randn((1, c, 16, 32), generator=torch.Generator().manual_seed(seed))
+        want = _increment_per_call(decoder, z)
+        with monkeypatch.context() as m:
+            if seed == 2:  # the tables were made at the first call
+                m.setattr(torch, "as_tensor", _NoCopy(torch.as_tensor))
+            got = increment(z)
+        assert torch.equal(got, want)
+
+
+def _resize_per_call(x, out_hw, tile=None):
+    """ops/interp.py::resize_nearest with its index tables made at every call."""
+    H, W = x.shape[-2], x.shape[-1]
+    hi, wi = interp._nearest_idx(out_hw[0], H), interp._nearest_idx(out_hw[1], W)
+    if tile is not None:
+        hi, wi = hi[tile.rows], wi[tile.cols]
+    return (x.index_select(-2, torch.as_tensor(hi, device=x.device))
+            .index_select(-1, torch.as_tensor(wi, device=x.device)))
+
+
+@pytest.mark.parametrize("in_hw, out_hw, tile", [
+    ((16, 32), (73, 144), None),  # up, a non-integer ratio (721x1440 over 128x256)
+    ((32, 64), (16, 32), None),  # down
+    ((16, 32), (72, 144), Tile(slice(36, 72), slice(0, 72), True)),  # a mesh tile
+])
+def test_resize_nearest_indices_bitwise_and_made_once(monkeypatch, in_hw, out_hw, tile):
+    g = torch.Generator().manual_seed(3)
+    for k in range(2):
+        x = torch.randn((3, *in_hw), generator=g)
+        want = _resize_per_call(x, out_hw, tile)
+        with monkeypatch.context() as m:
+            if k:
+                m.setattr(torch, "as_tensor", _NoCopy(torch.as_tensor))
+            got = interp.resize_nearest(x, out_hw, tile)
+        assert torch.equal(got, want)
+
+
+# --- the graphed solve with a stand-in replay on the CPU --------------------
+
+
+class _Replay:
+    """A captured graph's stand-in: replay runs the body eagerly and writes
+    its outputs into the buffers the capture handed out."""
+
+    def __init__(self, body, outs):
+        self.body, self.outs = body, outs
+
+    def replay(self):
+        with torch.no_grad():
+            for out, new in zip(self.outs, self.body()):
+                out.copy_(new)
+
+
+def _stand_in_capture(self):
+    self._v, self._g = self._value_grad()
+    self.state, self._jb, self._jo = self._decode()
+    self._vg_graph = _Replay(self._value_grad, (self._v, self._g))
+    self._decode_graph = _Replay(self._decode, (self.state, self._jb, self._jo))
+
+
+def _bundles(full_hw, low_hw, seeds, device="cpu"):
+    """(ReducedObs, truth) of seeded synthetic obs: 10 % of the columns
+    observed with the README's obs errors, the truth the background plus
+    a smooth perturbation."""
+    from vaevar_tpu_torch.da import obs as obs_mod
+
+    var = torch.as_tensor(obs_mod.obs_error_variance(0.005, 2), dtype=torch.float32,
+                          device=device).reshape(1, -1, 1, 1)
+    mean = torch.as_tensor(channels.MEAN, dtype=torch.float32, device=device)[:, None, None]
+    std = torch.as_tensor(channels.STD, dtype=torch.float32, device=device)[:, None, None]
+    out = []
+    for seed in seeds:
+        g = torch.Generator(device=device).manual_seed(seed)
+        xb = mean + std * torch.randn((69, *full_hw), generator=g, device=device)
+        bump = torch.randn((69, *low_hw), generator=g, device=device)
+        gt = xb + 0.02 * std * interp.resize_nearest(bump, full_hw)
+        H = (torch.rand(full_hw, generator=g, device=device) < 0.1).float().expand(69, -1, -1)
+        bundle = cost_mod.reduce_obs(
+            cost_mod.ObsBundle(xb=xb, yo=(H * gt)[None], H=H[None], R=var), low_hw)
+        out.append((bundle, gt[None]))
+    return out
+
+
+def _solve_all(solver, x0, bundles, nit):
+    return [solver.solve(x0, b, nit=nit, gt=gt, verbose=False) for b, gt in bundles]
+
+
+def _same_diag(a, b):
+    for k in ("loss_reg", "loss_obs", "n_iters", "n_evals", "n_jvp", "n_restore"):
+        assert getattr(a, k) == getattr(b, k), k
+    for k in ("wrmse", "bias"):
+        for u, v in zip(getattr(a, k), getattr(b, k)):
+            np.testing.assert_array_equal(u, v)
+
+
+@pytest.mark.parametrize("linesearch", ["zoom", "jvp-zoom"])
+def test_stand_in_replay_solves_bitwise_as_eager(monkeypatch, linesearch):
+    monkeypatch.setattr(SolveGraphs, "_capture", _stand_in_capture)
+    decoder, c = _micro_decoder()
+    cost, to_state, parts = cost_mod.make_vae4dvar_cost_reduced(decoder)
+    bundles = _bundles((32, 64), (16, 32), (11, 12, 13))
+    x0 = torch.zeros((1, c, 16, 32))
+    kw = dict(lbfgs_iters=4, history=4, linesearch=linesearch)
+    eager = _solve_all(VariationalSolver(cost, to_state, parts, **kw), x0, bundles, 2)
+    before = trace.counters()
+    trace.enable()
+    graphed = _solve_all(VariationalSolver(cost, to_state, parts, graphs=SolveGraphs(
+        cost, to_state, parts), **kw), x0, bundles, 2)
+    recs = trace.records()
+    trace.disable()
+    added = {k: v - before.get(k, 0) for k, v in trace.counters().items()}
+    for (ze, xe, de), (zg, xg, dg) in zip(eager, graphed):
+        assert torch.equal(ze, zg) and torch.equal(xe, xg)
+        _same_diag(de, dg)
+    assert added["solve.graph_captures"] == 1
+    # every value and gradient is a replay; a jvp probe stays eager
+    assert added["lbfgs.graph_replays"] == added["lbfgs.probes"] - added.get("lbfgs.jvp", 0)
+    names = Counter(r["name"] for r in recs)
+    assert names["lbfgs.replay"] == added["lbfgs.graph_replays"]
+    assert names["lbfgs.forward"] == names["lbfgs.backward"] == 0
+    by_id = {r["id"]: r for r in recs}
+    assert all(by_id[r["parent"]]["name"] == "lbfgs.probe"
+               for r in recs if r["name"] == "lbfgs.replay")
+    if linesearch == "jvp-zoom":  # (and one more jvp span: the solver's check of the cost)
+        assert added["lbfgs.jvp"] > 0
+
+
+def test_stand_in_replay_without_truth_and_a_new_shape(monkeypatch):
+    """Without diagnostics the analysis is one decode replay; a bundle of
+    another grid captures again."""
+    monkeypatch.setattr(SolveGraphs, "_capture", _stand_in_capture)
+    decoder, c = _micro_decoder()
+    cost, to_state, parts = cost_mod.make_vae4dvar_cost_reduced(decoder)
+    graphs = SolveGraphs(cost, to_state, parts)
+    eager = VariationalSolver(cost, to_state, parts, lbfgs_iters=3, history=3)
+    graphed = VariationalSolver(cost, to_state, parts, lbfgs_iters=3, history=3, graphs=graphs)
+    x0 = torch.zeros((1, c, 16, 32))
+    before = trace.counters().get("solve.graph_captures", 0)
+    for full_hw in ((32, 64), (32, 64), (48, 96)):
+        (bundle, _), = _bundles(full_hw, (16, 32), (5,))
+        ze, xe, de = eager.solve(x0, bundle, nit=1, verbose=False)
+        zg, xg, dg = graphed.solve(x0, bundle, nit=1, verbose=False)
+        assert torch.equal(ze, zg) and torch.equal(xe, xg) and xg.shape[-2:] == full_hw
+        assert xg.data_ptr() != graphs.state.data_ptr()
+        _same_diag(de, dg)
+    assert trace.counters()["solve.graph_captures"] - before == 2
+
+
+# --- on the card --------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def card():
+    """The production decoder (VAE_DECODER, bf16 compute, f32 weights drawn
+    from torch's default initialisation) and its reduced cost on the card,
+    with seeded obs at 721x1440 reduced onto the 128x256 latent grid."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False  # as run_da
+    torch.backends.cudnn.allow_tf32 = False
+    torch.manual_seed(0)
+    cfg = cfgs.VAE_DECODER.replace(dtype=torch.bfloat16)
+    decoder = LGUnet(cfg).to("cuda").eval().requires_grad_(False)
+    cost, to_state, parts = cost_mod.make_vae4dvar_cost_reduced(decoder)
+    bundles = _bundles((721, 1440), (128, 256), (21, 22, 23), device="cuda")
+    x0 = torch.zeros((1, sum(cfg.inchans_list), 128, 256), device="cuda")
+    return cost, to_state, parts, bundles, x0
+
+
+def _agree(got, want, what):
+    """Bitwise, or within bf16's rounding (2^-8 of the largest entry) where
+    cuBLAS picked another algorithm under capture; prints which."""
+    if torch.equal(got, want):
+        print(f"{what}: bitwise equal")
+        return
+    err = float((got - want).abs().max() / want.abs().max())
+    print(f"{what}: max error {err:.3g} of the largest entry")
+    assert err <= 2 ** -8, (what, err)
+
+
+@pytest.mark.gpu
+def test_card_replayed_value_and_gradient(card):
+    cost, to_state, parts, bundles, x0 = card
+    bundle, _ = bundles[0]
+    graphs = SolveGraphs(cost, to_state, parts)
+    graphs.load(x0, bundle)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    for _ in range(2):
+        z = 0.3 * torch.randn(x0.shape, generator=g, device="cuda")
+        v, grad = lbfgs.value_and_grad(lambda q: cost(q, bundle), z)
+        vg, gradg = graphs.value_and_grad(None, z)
+        print(f"value eager {v!r}, replayed {vg!r}")
+        assert abs(vg - v) <= 1e-6 * abs(v)
+        _agree(gradg, grad, "gradient")
+
+
+@pytest.mark.gpu
+def test_card_decode_graph_is_to_state(card):
+    cost, to_state, parts, bundles, x0 = card
+    bundle, _ = bundles[1]
+    graphs = SolveGraphs(cost, to_state, parts)
+    graphs.load(x0, bundle)
+    z = 0.3 * torch.randn(x0.shape, generator=torch.Generator(device="cuda").manual_seed(5),
+                          device="cuda")
+    with torch.no_grad():
+        want, (jb, jo) = to_state(z, bundle), parts(z, bundle)
+    state, jbg, jog = graphs.decode(z)
+    _agree(state, want, "decoded state")
+    assert float(jbg) == float(jb)
+    assert abs(float(jog) - float(jo)) <= 1e-5 * abs(float(jo))
+
+
+@pytest.mark.gpu
+def test_card_three_solves_one_capture(card):
+    cost, to_state, parts, bundles, x0 = card
+    kw = dict(lbfgs_iters=10, history=10, linesearch="zoom")
+    eager = _solve_all(VariationalSolver(cost, to_state, parts, **kw), x0, bundles, 2)
+    before = trace.counters()
+    graphed = _solve_all(VariationalSolver(cost, to_state, parts, graphs=SolveGraphs(
+        cost, to_state, parts), **kw), x0, bundles, 2)
+    added = {k: v - before.get(k, 0) for k, v in trace.counters().items()}
+    assert added["solve.graph_captures"] == 1
+    assert added["lbfgs.graph_replays"] == added["lbfgs.probes"]
+    for (_, _, de), (_, _, dg) in zip(eager, graphed):
+        print(f"evals {de.n_evals} / {dg.n_evals}; Jb {de.loss_reg[-1]!r} / "
+              f"{dg.loss_reg[-1]!r}; Jo {de.loss_obs[-1]!r} / {dg.loss_obs[-1]!r}")
+        assert de.n_evals == dg.n_evals
+        for a, b in zip(de.loss_reg + de.loss_obs, dg.loss_reg + dg.loss_obs):
+            assert abs(a - b) <= 1e-5 * abs(a), (a, b)
+        assert dg.loss_obs[-1] < dg.loss_obs[0]
+
+
+@pytest.mark.gpu
+def test_card_capture_beside_a_worker_stream(card):
+    """The obs prefetch's pattern on another thread during the capture:
+    pageable host-to-device copies, kernels and event waits on a stream of
+    its own."""
+    cost, to_state, parts, bundles, x0 = card
+    bundle, _ = bundles[2]
+    stream = torch.cuda.Stream()
+    started, stop, done, errors = threading.Event(), threading.Event(), [], []
+
+    def worker():
+        try:
+            host = np.random.default_rng(0).random((69, 721, 1440), dtype=np.float32)
+            with torch.cuda.stream(stream):
+                while not stop.is_set():
+                    t = torch.as_tensor(host, device="cuda")
+                    s = (t * 2.0).sum()
+                    ev = torch.cuda.Event()
+                    ev.record(stream)
+                    ev.synchronize()
+                    done.append(float(s))
+                    started.set()
+        except Exception as e:  # the test reads it
+            errors.append(e)
+            started.set()
+
+    th = threading.Thread(target=worker, daemon=True)
+    th.start()
+    try:
+        assert started.wait(60)
+        graphs = SolveGraphs(cost, to_state, parts)
+        n_before = len(done)
+        graphs.load(x0, bundle)
+        n_during = len(done) - n_before
+    finally:
+        stop.set()
+        th.join(60)
+    assert not th.is_alive() and not errors, errors
+    print(f"worker iterations during the warm-up and capture: {n_during}")
+    assert n_during >= 1
+    z = 0.3 * torch.randn(x0.shape, generator=torch.Generator(device="cuda").manual_seed(6),
+                          device="cuda")
+    v, grad = lbfgs.value_and_grad(lambda q: cost(q, bundle), z)
+    vg, gradg = graphs.value_and_grad(None, z)
+    assert abs(vg - v) <= 1e-6 * abs(v)
+    _agree(gradg, grad, "gradient after a capture beside a worker")

@@ -222,13 +222,20 @@ def _make_window_obs_reduced(increment: Callable, flow, da_win: int,
 def _increment_fn(decoder, err_std=None):
     """z -> the decoder's physical low-res increment (69, h, w) in f32, the
     decoder's output scaled by err_std (default channels.ERR_STD, the
-    reference's stdTr table) and the model std."""
+    reference's stdTr table) and the model std. The two tables cross to a
+    device once, at its first call there: a call copies nothing from the
+    host (so a CUDA graph can capture it, da/graphs.py)."""
     err_std = channels.ERR_STD if err_std is None else np.asarray(err_std)
+    tables = {}
 
     def increment(z):
-        err = torch.as_tensor(err_std, dtype=torch.float32, device=z.device)
-        mstd = torch.as_tensor(channels.STD, dtype=torch.float32, device=z.device)
-        return decoder(z)[0].float() * err.reshape(-1, 1, 1) * mstd.reshape(-1, 1, 1)
+        scales = tables.get(z.device)
+        if scales is None:
+            scales = tables[z.device] = tuple(
+                torch.as_tensor(t, dtype=torch.float32, device=z.device).reshape(-1, 1, 1)
+                for t in (err_std, channels.STD))
+        err, mstd = scales
+        return decoder(z)[0].float() * err * mstd
 
     return increment
 

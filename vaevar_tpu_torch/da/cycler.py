@@ -22,7 +22,10 @@ field dumps and a multi-step forecast score, and a restartable on-disk state
 (`xb.npy` + `current_time.txt`). With `prefetch_obs` (the default) the next
 cycle's obs are prepared on one worker thread under the current solve, on a
 CUDA stream of its own; it changes no number. The forecast model runs under
-torch.no_grad(): no cost differentiates through the advance.
+torch.no_grad(): no cost differentiates through the advance. On a CUDA
+device without a mesh or a tensor-parallel decoder, the reduced vae4dvar
+3D-Var solve replays CUDA graphs of the decoder's evaluations
+(da/graphs.py, `_graphed`).
 
 With a `mesh` (parallel/mesh.py::SpatialMesh, run_da --mesh SHxSW) each rank
 prepares and holds only its tile of the full-resolution obs fields (yo, H,
@@ -65,9 +68,11 @@ from vaevar_tpu_torch.config import DAConfig
 from vaevar_tpu_torch.da import baselines
 from vaevar_tpu_torch.da import cost as cost_mod
 from vaevar_tpu_torch.da import obs as obs_mod
+from vaevar_tpu_torch.da.graphs import SolveGraphs
 from vaevar_tpu_torch.da.solver import SolveDiagnostics, VariationalSolver
 from vaevar_tpu_torch.ops.interp import augment_levels, obs_level_interp_matrix
 from vaevar_tpu_torch.parallel import mesh as pmesh
+from vaevar_tpu_torch.parallel.tensor_parallel import is_tensor_parallel
 from vaevar_tpu_torch.utils import metrics as M
 from vaevar_tpu_torch.utils import trace
 
@@ -226,12 +231,26 @@ class CycledDA:
     def _use_reduced_obs(self):
         return self._reducible and self.cfg.da_win == 1
 
+    @property
+    def _graphed(self):
+        """Whether the solve runs its decoder evaluations as CUDA graphs
+        (da/graphs.py): the reduced vae4dvar 3D-Var cost, no mesh and no
+        tensor-parallel decoder, a CUDA device. The rest stays eager: the
+        collectives (gloo, nccl) of a mesh or of a placed decoder are not
+        captured, the CPU has no graphs, and the window costs (checkpointed
+        flow steps), sc4dvar (the CVT's FFTs) and the full-grid costs
+        (augment_levels' per-call copy) are not shown to capture."""
+        return (self.cfg.da_mode == "vae4dvar" and self._use_reduced_obs
+                and self.mesh is None and not is_tensor_parallel(self.decoder)
+                and torch.device(self.device).type == "cuda")
+
     def _build_solver(self):
         """The cost of the configuration (vaevar_tpu/da/cycler.py:182-257):
         the reduced 3D-Var cost, the reduced window cost or the full windowed
         cost of the mode, with the obs reduction it takes
         (`self._reduce_obs`). sc4dvar runs at most 5 L-BFGS iterations per
         segment (da_4dvar.py:1119), with the eval budget derived from them.
+        Where `_graphed` holds, the solver runs the cost's CUDA graphs.
         free_run and interpolation solve nothing (None)."""
         cfg = self.cfg
         self._reduce_obs = None
@@ -261,7 +280,8 @@ class CycledDA:
         return VariationalSolver(
             c, to_state, parts, lbfgs_iters=min(cfg.lbfgs_iters, 5) if sc else cfg.lbfgs_iters,
             history=cfg.lbfgs_history, max_segment_evals=cfg.lbfgs_max_evals,
-            linesearch=cfg.lbfgs_linesearch)
+            linesearch=cfg.lbfgs_linesearch,
+            graphs=SolveGraphs(c, to_state, parts) if self._graphed else None)
 
     @property
     def _tile(self):

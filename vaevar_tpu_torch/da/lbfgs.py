@@ -27,10 +27,15 @@ calls.
 Spans (utils/trace.py): `lbfgs.probe` around each value and gradient, jvp
 or restore the minimisation runs, up to its host read of the value and
 slope (attr `kind`: "entry", "grad", "jvp" or "restore"); inside it
-`lbfgs.forward` and `lbfgs.backward` (value_and_grad) or `lbfgs.jvp`;
-`lbfgs.direction` around the two-loop product; `host_sync` around every
-device-to-host read. Counters: `lbfgs.probes` (the probe spans),
-`lbfgs.jvp`, `lbfgs.restores`, `host_syncs`.
+`lbfgs.forward` and `lbfgs.backward` (value_and_grad), `lbfgs.replay` (a
+graphed value and gradient, da/graphs.py) or `lbfgs.jvp`; `lbfgs.direction`
+around the two-loop product; `host_sync` around every device-to-host read.
+Counters: `lbfgs.probes` (the probe spans), `lbfgs.jvp`, `lbfgs.restores`,
+`host_syncs`.
+
+`lbfgs_minimize` and `zoom_linesearch` take the value and gradient as a
+callable, `value_and_grad(fun, x)` (default: this module's, eager); the
+3D-Var solve passes a CUDA graph's replay (da/graphs.py).
 """
 
 from __future__ import annotations
@@ -215,7 +220,8 @@ class LinesearchResult:
 
 
 def zoom_linesearch(fun, params, updates, value, grad, max_steps: int = 25,
-                    jvp_probes: bool = False) -> LinesearchResult:
+                    jvp_probes: bool = False,
+                    value_and_grad: Callable = value_and_grad) -> LinesearchResult:
     """optax's zoom linesearch (linesearch.py:815-1282) from stepsize 1, at
     the accepted point.
 
@@ -224,7 +230,8 @@ def zoom_linesearch(fun, params, updates, value, grad, max_steps: int = 25,
     store the pseudo-gradient (slope / |u|^2) u, whose dot with u gives the
     slope the decisions read; the true (value, grad) at the accepted point is
     the first probe's or the entry's when the stepsize is theirs, else one
-    uncharged value_and_grad."""
+    uncharged value_and_grad. Every value and gradient goes through
+    `value_and_grad(fun, x)`."""
     slope = _host(_dot(updates, grad))
     s = dict(stepsize=f32(0.0), value=value, grad=grad, slope=slope,
              low=f32(0.0), value_low=value, slope_low=slope,
@@ -343,13 +350,15 @@ def lbfgs_minimize(
     max_evals: int | None = None,
     init_state: LBFGSState | None = None,
     linesearch: str = "zoom",
+    value_and_grad: Callable = value_and_grad,
 ) -> LBFGSResult:
     """Minimise `fun` (a scalar torch function of one tensor) from `x0` for
     up to `max_iters` more iterations; pass `init_state` (a previous
     result's `.state`, which this call updates) to continue a minimisation.
     `linesearch` is "zoom" or "jvp-zoom" (the cost must then be forward-mode
-    differentiable). See vaevar_tpu.da.lbfgs.lbfgs_minimize for the
-    stopping rules."""
+    differentiable). `value_and_grad(fun, x)` gives every value and
+    gradient (entry, linesearch probes, restores). See
+    vaevar_tpu.da.lbfgs.lbfgs_minimize for the stopping rules."""
     _check_linesearch(linesearch)
     if max_evals is None:
         max_evals = max_iters * 5 // 4  # torch.optim.LBFGS default
@@ -376,7 +385,8 @@ def lbfgs_minimize(
         with trace.span("lbfgs.direction"):
             direction = -_lbfgs_direction(st, x, grad)
         ls = zoom_linesearch(fun, x, direction, value, grad, max_linesearch_steps,
-                             jvp_probes=linesearch == "jvp-zoom")
+                             jvp_probes=linesearch == "jvp-zoom",
+                             value_and_grad=value_and_grad)
         step = float(ls.stepsize) * direction
         x = x + step
         st.value, st.grad = ls.value, ls.grad

@@ -12,6 +12,13 @@ value L-BFGS and the diagnostics read (and a tensor-parallel model sums its
 slices over the tp group), so the ranks take the same steps with no solver
 change.
 
+With `graphs` (da/graphs.py::SolveGraphs, which the cycler hands the
+reduced vae4dvar 3D-Var solve on a CUDA device) each solve loads its
+bundle into the graphs' buffers, every value and gradient of the L-BFGS
+segments is a replay (a jvp probe stays eager), each diagnostics is one
+decode replay with the score arithmetic after it, and the analysis is a
+copy of the last decode's state. Without, everything runs eagerly.
+
 Spans (utils/trace.py): `solve` around a solve, `solve.segment` around each
 L-BFGS segment (attr `segment`), `solve.diagnostics` around each
 diagnostics decode and its record, and one `host_sync` around its four
@@ -28,10 +35,12 @@ import numpy as np
 import torch
 
 from vaevar_tpu_torch import channels
+from vaevar_tpu_torch.da.graphs import SolveGraphs
 from vaevar_tpu_torch.da.lbfgs import (
     LINESEARCHES,
     lbfgs_init_state,
     lbfgs_minimize,
+    value_and_grad,
     value_and_slope,
 )
 from vaevar_tpu_torch.ops.flash_attn import NoForwardADError
@@ -58,7 +67,8 @@ class VariationalSolver:
 
     def __init__(self, cost: Callable, to_state: Callable, cost_parts: Callable,
                  lbfgs_iters: int = 10, history: int = 10,
-                 max_segment_evals: int | None = None, linesearch: str = "zoom"):
+                 max_segment_evals: int | None = None, linesearch: str = "zoom",
+                 graphs: SolveGraphs | None = None):
         if linesearch != "auto" and linesearch not in LINESEARCHES:
             raise ValueError(f"lbfgs_linesearch {linesearch!r}: expected 'auto', "
                              "'zoom' or 'jvp-zoom'")
@@ -72,6 +82,7 @@ class VariationalSolver:
                                   else lbfgs_iters * 5 // 4)
         self.linesearch = linesearch  # "auto" until the first solve
         self._jvp_checked = linesearch != "jvp-zoom"
+        self.graphs = graphs  # the same cost's CUDA graphs, or None: eager
 
     def _jvp_compatible(self, x0, bundle) -> bool:
         """Whether the cost runs under forward-mode AD: one jvp of the real
@@ -103,17 +114,15 @@ class VariationalSolver:
     @torch.no_grad()
     def diagnostics(self, x, bundle, gt0):
         """(wrmse (69,), bias (69,), Jb, Jo) of the state decoded from x."""
-        mean = torch.as_tensor(channels.MEAN, dtype=torch.float32,
-                               device=x.device).reshape(-1, 1, 1)
-        std = torch.as_tensor(channels.STD, dtype=torch.float32, device=x.device)
-        xhat_n = (self.to_state(x, bundle) - mean) / std.reshape(-1, 1, 1)
-        gt_n = (gt0 - mean) / std.reshape(-1, 1, 1)
-        wrmse = M.weighted_rmse(xhat_n[None], gt_n[None]) * std
-        bias = M.weighted_bias((xhat_n - gt_n)[None]) * std
+        wrmse, bias = _errors(self.to_state(x, bundle), gt0)
         jb, jo = self.cost_parts(x, bundle)
-        trace.count("host_syncs", 4)
-        with trace.span("host_sync"):
-            return wrmse.cpu().numpy(), bias.cpu().numpy(), float(jb), float(jo)
+        return _read(wrmse, bias, jb, jo)
+
+    @torch.no_grad()
+    def _graph_diagnostics(self, x, gt0):
+        """`diagnostics` on the bundle the graphs hold, by one decode replay."""
+        state, jb, jo = self.graphs.decode(x)
+        return _read(*_errors(state, gt0), jb, jo)
 
     def solve(self, x0, bundle, nit: int = 4, gt=None, verbose: bool = True,
               name: str = "da"):
@@ -126,6 +135,9 @@ class VariationalSolver:
         diag = SolveDiagnostics(linesearch=self.linesearch)
         t0 = time.perf_counter()
         x, state = x0, lbfgs_init_state(x0, self.history, self.linesearch)
+        graphs = self.graphs
+        if graphs is not None:
+            graphs.load(x0, bundle)
 
         def fun(q):
             return self.cost(q, bundle)
@@ -133,21 +145,29 @@ class VariationalSolver:
         for kk in range(nit + 1):
             if gt is not None:
                 with trace.span("solve.diagnostics"):
-                    self._record_iter(diag, *self.diagnostics(x, bundle, gt[0]), kk,
-                                      verbose, name)
+                    scores = (self.diagnostics(x, bundle, gt[0]) if graphs is None
+                              else self._graph_diagnostics(x, gt[0]))
+                    self._record_iter(diag, *scores, kk, verbose, name)
             if kk < nit:
                 with trace.span("solve.segment", segment=kk):
                     res = lbfgs_minimize(fun, x, max_iters=self.lbfgs_iters,
                                          history=self.history, init_state=state,
                                          max_evals=self.max_segment_evals,
-                                         linesearch=self.linesearch)
+                                         linesearch=self.linesearch,
+                                         value_and_grad=(value_and_grad if graphs is None
+                                                         else graphs.value_and_grad))
                 x, state = res.x, res.state
                 diag.n_iters.append(res.n_iters)
                 diag.n_evals.append(res.n_evals)
                 diag.n_jvp.append(res.n_jvp)
                 diag.n_restore.append(res.n_restore)
-        with torch.no_grad():
-            xa = self.to_state(x, bundle)
+        if graphs is None:
+            with torch.no_grad():
+                xa = self.to_state(x, bundle)
+        else:
+            if gt is None:  # else the last diagnostics decoded this x
+                graphs.decode(x)
+            xa = graphs.state.clone()
         diag.seconds = time.perf_counter() - t0
         return x, xa, diag
 
@@ -162,3 +182,22 @@ class VariationalSolver:
             print(f"[{name}] iter {kk}: z500 {w[11]:.4g} q500 {w[24]:.4g} "
                   f"t2m {w[2]:.4g} t850 {w[66]:.4g} u500 {w[37]:.4g} "
                   f"v500 {w[50]:.4g} Jb {jb:.4g} Jo {jo:.4g}", flush=True)
+
+
+def _errors(state, gt0):
+    """(wrmse (69,), bias (69,)) of a state against the truth, on the device."""
+    mean = torch.as_tensor(channels.MEAN, dtype=torch.float32,
+                           device=state.device).reshape(-1, 1, 1)
+    std = torch.as_tensor(channels.STD, dtype=torch.float32, device=state.device)
+    xhat_n = (state - mean) / std.reshape(-1, 1, 1)
+    gt_n = (gt0 - mean) / std.reshape(-1, 1, 1)
+    wrmse = M.weighted_rmse(xhat_n[None], gt_n[None]) * std
+    bias = M.weighted_bias((xhat_n - gt_n)[None]) * std
+    return wrmse, bias
+
+
+def _read(wrmse, bias, jb, jo):
+    """The diagnostics on the host: four device-to-host reads."""
+    trace.count("host_syncs", 4)
+    with trace.span("host_sync"):
+        return wrmse.cpu().numpy(), bias.cpu().numpy(), float(jb), float(jo)

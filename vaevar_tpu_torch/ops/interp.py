@@ -18,6 +18,8 @@ reference's (tests/test_torch_import.py holds them equal).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -28,19 +30,34 @@ def _nearest_idx(n_out: int, n_in: int) -> np.ndarray:
     return np.minimum((np.arange(n_out) * n_in) // n_out, n_in - 1).astype(np.int64)
 
 
+@functools.lru_cache(maxsize=64)
+def _nearest_index_tensors(in_hw, out_hw, rows, cols, device):
+    """The row and column index tensors of `resize_nearest` on `device`,
+    made once per (grid sizes, tile, device): `rows` and `cols` are the
+    tile's (start, stop, step), or None for the whole output."""
+    hi, wi = _nearest_idx(out_hw[0], in_hw[0]), _nearest_idx(out_hw[1], in_hw[1])
+    if rows is not None:
+        hi, wi = hi[slice(*rows)], wi[slice(*cols)]
+    return torch.as_tensor(hi, device=device), torch.as_tensor(wi, device=device)
+
+
+def _bounds(s: slice) -> tuple:
+    return s.start, s.stop, s.step
+
+
 def resize_nearest(x, out_hw, tile=None):
     """Nearest resize on the last two axes of x (..., H, W). With a `tile`
     of the output grid (parallel/mesh.py::tile_for), only the tile's rows
-    and columns of the output: the slice of the whole output, bit for bit."""
+    and columns of the output: the slice of the whole output, bit for bit.
+    The index tables cross to a device once (`_nearest_index_tensors`), so
+    a call copies nothing from the host."""
     H, W = x.shape[-2], x.shape[-1]
     oh, ow = out_hw
     if (oh, ow) == (H, W):
         return x if tile is None else x[..., tile.rows, tile.cols]
-    hi, wi = _nearest_idx(oh, H), _nearest_idx(ow, W)
-    if tile is not None:
-        hi, wi = hi[tile.rows], wi[tile.cols]
-    return (x.index_select(-2, torch.as_tensor(hi, device=x.device))
-            .index_select(-1, torch.as_tensor(wi, device=x.device)))
+    rows, cols = (None, None) if tile is None else (_bounds(tile.rows), _bounds(tile.cols))
+    hi, wi = _nearest_index_tensors((H, W), (oh, ow), rows, cols, x.device)
+    return x.index_select(-2, hi).index_select(-1, wi)
 
 
 def _bilinear_weights(n_in: int, n_out: int) -> np.ndarray:

@@ -156,6 +156,12 @@ def shard_tensor_parallel(model: nn.Module, mesh, scope: str = "net") -> nn.Modu
     return model
 
 
+def is_tensor_parallel(model: nn.Module) -> bool:
+    """Whether `model` holds a branch `shard_tensor_parallel` placed: its
+    forward then runs collectives over the tp group."""
+    return any(isinstance(m, _RowParallel) for m in model.modules())
+
+
 def tensor_parallel_report(model: nn.Module, scope: str = "net") -> list:
     """One line per stage under `scope` of a placed model: its blocks'
     attention (split heads per rank, or whole) and MLP (hidden units per
