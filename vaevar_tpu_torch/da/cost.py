@@ -34,6 +34,12 @@ backward then runs once, on the summed gradient, and rounds as it does in
 one process (two partial gradients through a bf16 decoder would round
 otherwise); the gradient crossing the ranks is (69, 128, 256) f32, 9 MB, at
 the production solver grid. `mesh=None` is the single-device code.
+
+The window costs' rollout (both forms) counts each step it asks for in
+`window.rollout_steps` and runs each flow step through
+dynamics.traced_step (`window.flow_forwards`, device span `window.step`),
+inside the span `window.rollout` (utils/trace.py). A 3D-Var cost reaches
+none of it.
 """
 
 from __future__ import annotations
@@ -44,7 +50,12 @@ import numpy as np
 import torch
 
 from vaevar_tpu_torch import channels
-from vaevar_tpu_torch.da.dynamics import checkpointed, make_integrate, rollout_window
+from vaevar_tpu_torch.da.dynamics import (
+    checkpointed,
+    make_integrate,
+    rollout_window,
+    traced_step,
+)
 from vaevar_tpu_torch.ops.interp import _nearest_idx, augment_levels, resize_nearest
 from vaevar_tpu_torch.parallel.mesh import (
     copy_to_ranks,
@@ -53,6 +64,7 @@ from vaevar_tpu_torch.parallel.mesh import (
     sum_over_tiles,
     tile_for,
 )
+from vaevar_tpu_torch.utils import trace
 
 
 class ObsBundle(NamedTuple):
@@ -185,10 +197,7 @@ def _make_window_obs_reduced(increment: Callable, flow, da_win: int,
 
     if da_win > 1:
         integrate = make_integrate(flow)
-
-        def step(s):
-            return integrate(s, 1)
-
+        step = traced_step(lambda s: integrate(s, 1))
         if step_checkpoint:
             step = checkpointed(step)
 
@@ -210,10 +219,12 @@ def _make_window_obs_reduced(increment: Callable, flow, da_win: int,
                 return v.index_select(-2, gh_t).index_select(-1, gw_t)
 
         nxt = bundle.xb_low + S(e)  # down(xb + up(e)), exactly
-        for t in range(1, da_win):
-            m = step(nxt)
-            jo = jo + quad(bundle.a[t], bundle.ybar[t], bundle.c[t], m)
-            nxt = S(m)
+        with trace.span("window.rollout"):
+            for t in range(1, da_win):
+                trace.count("window.rollout_steps")
+                m = step(nxt)
+                jo = jo + quad(bundle.a[t], bundle.ybar[t], bundle.c[t], m)
+                nxt = S(m)
         return jo
 
     return window_obs
@@ -324,10 +335,11 @@ def _make_window_obs(flow, flow_hw, da_win: int, interp_matrix=None, mesh=None):
 
     if rollout:
         integrate = make_integrate(flow, flow_hw)
+        flow_step = traced_step(lambda x: integrate(x, 1, interpolation=True))
 
         @checkpointed
         def step(x, yo_t, h_t, r_t):
-            x = integrate(x, 1, interpolation=True)
+            x = flow_step(x)
             return x, jo_slot(x, yo_t, h_t, r_t)
 
     def window_obs(x0, bundle: ObsBundle):
@@ -336,10 +348,13 @@ def _make_window_obs(flow, flow_hw, da_win: int, interp_matrix=None, mesh=None):
             return obs_term(x0[None], bundle, interp_matrix, mesh)
         R = bundle.R.expand(bundle.yo.shape[0], *bundle.R.shape[1:])
         jo = jo_slot(x0, bundle.yo[0], bundle.H[0], R[0])
-        x = x0
-        for t in range(1, da_win):
-            x, jo_t = step(x, bundle.yo[t], bundle.H[t], R[t])
-            jo = jo + jo_t
+        if rollout:
+            x = x0
+            with trace.span("window.rollout"):
+                for t in range(1, da_win):
+                    trace.count("window.rollout_steps")
+                    x, jo_t = step(x, bundle.yo[t], bundle.H[t], R[t])
+                    jo = jo + jo_t
         return jo if mesh is None else sum_over_tile_ranks(jo, tile_for(mesh, bundle.xb.shape))
 
     return window_obs

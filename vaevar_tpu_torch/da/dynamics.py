@@ -6,6 +6,10 @@ with an optional nearest resize to and from the model's grid. Under
 autograd each step of a multi-step integration and of the window rollout
 runs under torch.utils.checkpoint, as the reference's steps run under
 jax.checkpoint, so a backward recomputes a step instead of storing it.
+
+A 4D-Var window cost runs its flow steps through `traced_step`: counter
+`window.flow_forwards` (every execution of the step, a checkpoint's
+recompute included) and device span `window.step` (utils/trace.py).
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from torch.utils.checkpoint import checkpoint
 
 from vaevar_tpu_torch import channels
 from vaevar_tpu_torch.ops.interp import resize_nearest
+from vaevar_tpu_torch.utils import trace
 
 
 def checkpointed(fn: Callable) -> Callable:
@@ -28,6 +33,19 @@ def checkpointed(fn: Callable) -> Callable:
         if torch.is_grad_enabled():
             return checkpoint(fn, *args, use_reentrant=False)
         return fn(*args)
+
+    return run
+
+
+def traced_step(fn: Callable) -> Callable:
+    """fn, one flow step of a window cost, counted in `window.flow_forwards`
+    and spanned by the device span `window.step` at every execution: wrapped
+    inside a checkpoint, a backward's recompute counts and spans again."""
+
+    def run(*args):
+        trace.count("window.flow_forwards")
+        with trace.span("window.step", device=True):
+            return fn(*args)
 
     return run
 

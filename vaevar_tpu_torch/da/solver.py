@@ -19,10 +19,10 @@ segments is a replay (a jvp probe stays eager), each diagnostics is one
 decode replay with the score arithmetic after it, and the analysis is a
 copy of the last decode's state. Without, everything runs eagerly.
 
-Spans (utils/trace.py): `solve` around a solve, `solve.segment` around each
-L-BFGS segment (attr `segment`), `solve.diagnostics` around each
-diagnostics decode and its record, and one `host_sync` around its four
-device-to-host reads (counted in `host_syncs`).
+Spans (utils/trace.py): `solve` around a solve (a device span),
+`solve.segment` around each L-BFGS segment (attr `segment`),
+`solve.diagnostics` around each diagnostics decode and its record, and one
+`host_sync` around its four device-to-host reads (counted in `host_syncs`).
 """
 
 from __future__ import annotations
@@ -127,7 +127,7 @@ class VariationalSolver:
     def solve(self, x0, bundle, nit: int = 4, gt=None, verbose: bool = True,
               name: str = "da"):
         """-> (x, analysis state, SolveDiagnostics)."""
-        with trace.span("solve"):
+        with trace.span("solve", device=True):
             return self._solve(x0, bundle, nit, gt, verbose, name)
 
     def _solve(self, x0, bundle, nit, gt, verbose, name):
