@@ -1,14 +1,18 @@
-"""The 3D-Var solve's CUDA graphs (vaevar_tpu_torch/da/graphs.py) and the
-rule that engages them (da/cycler.py::CycledDA._graphed).
+"""The solve's CUDA graphs (vaevar_tpu_torch/da/graphs.py) on the 3D-Var
+cost, and the rule that engages them (da/cycler.py::CycledDA._graphed);
+tests/test_torch_window_graph.py holds the 4D-Var window's.
 
 On the CPU:
-- the rule: on a CUDA device it holds for the reduced vae4dvar 3D-Var cost
-  alone; a mesh, a tensor-parallel decoder, sc4dvar, a window and the
-  full-grid (real obs) cost keep the eager solve. Micro cycles of each on the CPU build no graphs, count
-  no capture and no replay, and hand L-BFGS the eager value_and_grad;
+- the rule: on a CUDA device it holds for the reduced vae4dvar costs alone,
+  3D-Var and the window with its flow model; a mesh, a tensor-parallel
+  decoder or flow model, sc4dvar (3D-Var and window), the full-grid (real
+  obs) cost and a window without a flow model keep the eager solve. Micro
+  cycles of each on the CPU build no graphs, count no capture and no
+  replay, and hand L-BFGS the eager value_and_grad;
 - the tables the captured region needs on the device, made once: the
-  increment's scales (cost._increment_fn) and the nearest resize's indices
-  (ops/interp.py), bitwise the per-call tables they replace;
+  increment's scales (cost._increment_fn), the nearest resize's indices
+  (ops/interp.py), the normalisation of dynamics.make_integrate and the
+  window's gathers, bitwise the per-call tables they replace;
 - the graphed solve's control flow with a stand-in for the capture whose
   replay recomputes the captured body eagerly into the graphs' buffers:
   three solves on three bundles give the eager solver's numbers bit for
@@ -23,6 +27,7 @@ graph's state against to_state, and a capture while a worker thread runs
 CUDA work on its own stream.
 """
 
+import contextlib
 import threading
 from collections import Counter
 
@@ -40,7 +45,7 @@ from vaevar_tpu_torch.da.solver import VariationalSolver
 from vaevar_tpu_torch.models.lgunet import LGUnet
 from vaevar_tpu_torch.ops import interp
 from vaevar_tpu_torch.parallel.mesh import Tile
-from vaevar_tpu_torch.utils import trace
+from vaevar_tpu_torch.utils import capture, trace
 
 torch.set_num_threads(1)
 ONE_CYCLE = ["--device", "cpu", "--micro", "--fast_init", "--Nit", "2", "--end_time",
@@ -52,8 +57,11 @@ PATHS = {
     "sc4dvar": ONE_CYCLE + ["--da_mode", "sc4dvar", "--grid", "64x128", "--solver_grid",
                             "32x64"],
     "window": MICRO + ["--da_win", "2", "--no-bf16"],
+    "sc4dvar_window": ONE_CYCLE + ["--da_mode", "sc4dvar", "--grid", "32x64",
+                                   "--solver_grid", "32x64", "--da_win", "2"],
     "real_obs": MICRO + ["--obs_type", "real_simu", "--use_eval"],
 }
+GRAPHED = ("vae4dvar_3dvar", "window")  # the paths the rule takes on a CUDA device
 GRAPH_COUNTERS = ("solve.graph_captures", "lbfgs.graph_replays")
 
 
@@ -106,27 +114,41 @@ def test_cpu_cycle_builds_no_graph_and_solves_eagerly(micro_cycle):
     assert all(f is lbfgs.value_and_grad for f in got), name
 
 
-def test_rule_on_a_cuda_device(micro_cycle):
-    """Read on a CPU-built cycler with its device name changed: the rule
-    reads only the configuration, the mesh, the decoder's placement and
-    the device type."""
+def _placed(model):
+    """`model` with a tensor-parallel branch: it sums over its tp group."""
     from vaevar_tpu_torch.parallel.tensor_parallel import _RowParallel
 
+    blk = model.net.layers[0].blocks[0]
+    return torch.nn.Sequential(model, _RowParallel(blk.mlp, "hidden", "fc2", None,
+                                                   blk.mlp.fc1.out_features, 1))
+
+
+def test_rule_on_a_cuda_device(micro_cycle):
+    """Read on a CPU-built cycler with its device name changed: the rule
+    reads only the configuration, the obs form, the mesh, the models'
+    placement and the device type."""
     name, da, _, _ = micro_cycle
-    device, decoder = da.device, da.decoder
+    device, decoder, flow, interp_matrix = da.device, da.decoder, da.flow, da._interp
     try:
         da.device = "cuda"
-        assert da._graphed == (name == "vae4dvar_3dvar")
+        assert da._graphed == (name in GRAPHED)
         da.mesh = object()
         assert not da._graphed
         da.mesh = None
-        if decoder is not None:  # a tensor-parallel decoder sums over its tp group
-            blk = decoder.net.layers[0].blocks[0]
-            da.decoder = torch.nn.Sequential(decoder, _RowParallel(
-                blk.mlp, "hidden", "fc2", None, blk.mlp.fc1.out_features, 1))
+        for role in ("decoder", "flow"):
+            model = getattr(da, role)
+            if model is not None:
+                setattr(da, role, _placed(model))
+                assert not da._graphed, role
+                setattr(da, role, model)
+        if name == "window":  # the full-grid window: real obs, or no flow model
+            da._interp = np.eye(13, dtype=np.float32)
+            assert not da._graphed
+            da._interp, da.flow = interp_matrix, None
             assert not da._graphed
     finally:
-        da.device, da.mesh, da.decoder = device, None, decoder
+        da.device, da.mesh, da.decoder, da.flow, da._interp = (device, None, decoder, flow,
+                                                               interp_matrix)
 
 
 # --- the tables made once ---------------------------------------------------
@@ -196,25 +218,134 @@ def test_resize_nearest_indices_bitwise_and_made_once(monkeypatch, in_hw, out_hw
         assert torch.equal(got, want)
 
 
+def _micro_flow(hw=(16, 32)):
+    torch.manual_seed(1)
+    return LGUnet(cfgs.micro_config(img_size=hw, attn_type="relbias")).eval().requires_grad_(
+        False)
+
+
+def _integrate_per_call(model, model_hw, x, steps, interpolation):
+    """dynamics.make_integrate's arithmetic with its tables made at every
+    call (no grad: the steps need no checkpoint)."""
+    mean = torch.as_tensor(channels.MEAN, dtype=torch.float32, device=x.device).reshape(-1, 1, 1)
+    std = torch.as_tensor(channels.STD, dtype=torch.float32, device=x.device).reshape(-1, 1, 1)
+    hw = tuple(x.shape[-2:])
+    z = ((x - mean) / std)[None]
+    resize = interpolation and model_hw is not None and hw != tuple(model_hw)
+    if resize:
+        z = interp.resize_nearest(z, model_hw)
+    for _ in range(steps):
+        z = model(z)[:, :channels.N_CHANNELS]
+    if resize:
+        z = interp.resize_nearest(z, hw)
+    return z[0] * std + mean
+
+
+@pytest.mark.parametrize("x_hw, model_hw, steps, interpolation", [
+    ((16, 32), None, 1, False),  # the window's flow step
+    ((16, 32), None, 2, False),  # a spin-up
+    ((32, 64), (16, 32), 1, True),  # the advance through a resize
+])
+def test_integrate_tables_bitwise_and_made_once(monkeypatch, x_hw, model_hw, steps,
+                                                interpolation):
+    from vaevar_tpu_torch.da.dynamics import make_integrate
+
+    flow = _micro_flow()
+    integrate = make_integrate(flow, model_hw)
+    mean = torch.as_tensor(channels.MEAN)[:, None, None]
+    std = torch.as_tensor(channels.STD)[:, None, None]
+    g = torch.Generator().manual_seed(7)
+    for k in range(2):
+        x = mean + std * torch.randn((69, *x_hw), generator=g)
+        with torch.no_grad():
+            want = _integrate_per_call(flow, model_hw, x, steps, interpolation)
+            with monkeypatch.context() as m:
+                if k:  # the tables were made at the first call
+                    m.setattr(torch, "as_tensor", _NoCopy(torch.as_tensor))
+                got = integrate(x, steps, interpolation)
+        assert torch.equal(got, want)
+
+
+def window_bundle(full_hw, low_hw, da_win, seed):
+    """(ReducedWindowObs, truth (da_win, 69, *full_hw)) of seeded synthetic
+    obs: 30 % of the cells observed in each slot, the obs the truth, the
+    truth the background plus a smooth perturbation in every slot."""
+    rr = np.random.default_rng(seed)
+    m, s = channels.MEAN.reshape(-1, 1, 1), channels.STD.reshape(-1, 1, 1)
+    xb = (m + s * rr.normal(size=(69, *full_hw))).astype(np.float32)
+    bump = interp.resize_nearest(torch.from_numpy(rr.normal(size=(da_win, 69, *low_hw))
+                                                  .astype(np.float32)), full_hw)
+    gt = torch.from_numpy(xb)[None] + 0.02 * torch.from_numpy(s.astype(np.float32)) * bump
+    H = torch.from_numpy((rr.random((da_win, 69, *full_hw)) < 0.3).astype(np.float32))
+    R = torch.from_numpy((s[None] ** 2 * (0.5 + rr.random((da_win, 69, 1, 1))))
+                         .astype(np.float32))
+    full = cost_mod.ObsBundle(xb=torch.from_numpy(xb), yo=H * gt, H=H, R=R)
+    return cost_mod.reduce_obs_window(full, low_hw), gt
+
+
+@pytest.mark.parametrize("full_hw", [(16, 32), (32, 64), (47, 93)])
+def test_window_gathers_bitwise_and_made_once(monkeypatch, full_hw):
+    """The window cost's value and gradient with every table made at an
+    earlier call against a fresh cost's, which makes them at this call as
+    every call made them before: S the identity (the solver grid), an
+    integer ratio, and 47x93 over 16x32."""
+    decoder, c = _micro_decoder()
+    flow = _micro_flow()
+
+    def fresh():
+        return cost_mod.make_vae4dvar_cost_window_reduced(decoder, flow, da_win=3)[0]
+
+    cost = fresh()
+    bundle, _ = window_bundle(full_hw, (16, 32), 3, seed=4)
+    g = torch.Generator().manual_seed(8)
+    for k in range(2):
+        z = 0.3 * torch.randn((1, c, 16, 32), generator=g)
+        want = lbfgs.value_and_grad(lambda q: fresh()(q, bundle), z)
+        with monkeypatch.context() as m:
+            if k:
+                m.setattr(torch, "as_tensor", _NoCopy(torch.as_tensor))
+            got = lbfgs.value_and_grad(lambda q: cost(q, bundle), z)
+        assert got[0] == want[0] and torch.equal(got[1], want[1])
+
+
 # --- the graphed solve with a stand-in replay on the CPU --------------------
 
 
+@contextlib.contextmanager
+def as_captured():
+    """Python run as a capture runs it: utils/capture.py::capturing holds,
+    for the counters and spans (utils/trace.py) and the checkpoints."""
+    real = capture.capturing
+    capture.capturing = lambda: True
+    try:
+        yield
+    finally:
+        capture.capturing = real
+
+
 class _Replay:
-    """A captured graph's stand-in: replay runs the body eagerly and writes
-    its outputs into the buffers the capture handed out."""
+    """A captured graph's stand-in: replay runs the body eagerly, counting
+    and spanning nothing as a replay runs no Python, and writes its outputs
+    into the buffers the capture handed out."""
 
     def __init__(self, body, outs):
         self.body, self.outs = body, outs
 
     def replay(self):
+        with trace.tallied(), as_captured():
+            new = self.body()
         with torch.no_grad():
-            for out, new in zip(self.outs, self.body()):
-                out.copy_(new)
+            for out, t in zip(self.outs, new):
+                out.copy_(t)
 
 
-def _stand_in_capture(self):
-    self._v, self._g = self._value_grad()
-    self.state, self._jb, self._jo = self._decode()
+def stand_in_capture(self):
+    """SolveGraphs._capture's stand-in: each body run once as captured, its
+    tally kept; no warm-up."""
+    with trace.tallied() as self._vg_tally, as_captured():
+        self._v, self._g = self._value_grad()
+    with trace.tallied() as self._decode_tally, as_captured():
+        self.state, self._jb, self._jo = self._decode()
     self._vg_graph = _Replay(self._value_grad, (self._v, self._g))
     self._decode_graph = _Replay(self._decode, (self.state, self._jb, self._jo))
 
@@ -256,7 +387,7 @@ def _same_diag(a, b):
 
 @pytest.mark.parametrize("linesearch", ["zoom", "jvp-zoom"])
 def test_stand_in_replay_solves_bitwise_as_eager(monkeypatch, linesearch):
-    monkeypatch.setattr(SolveGraphs, "_capture", _stand_in_capture)
+    monkeypatch.setattr(SolveGraphs, "_capture", stand_in_capture)
     decoder, c = _micro_decoder()
     cost, to_state, parts = cost_mod.make_vae4dvar_cost_reduced(decoder)
     bundles = _bundles((32, 64), (16, 32), (11, 12, 13))
@@ -289,7 +420,7 @@ def test_stand_in_replay_solves_bitwise_as_eager(monkeypatch, linesearch):
 def test_stand_in_replay_without_truth_and_a_new_shape(monkeypatch):
     """Without diagnostics the analysis is one decode replay; a bundle of
     another grid captures again."""
-    monkeypatch.setattr(SolveGraphs, "_capture", _stand_in_capture)
+    monkeypatch.setattr(SolveGraphs, "_capture", stand_in_capture)
     decoder, c = _micro_decoder()
     cost, to_state, parts = cost_mod.make_vae4dvar_cost_reduced(decoder)
     graphs = SolveGraphs(cost, to_state, parts)

@@ -8,6 +8,12 @@ places that record them.
   `records()`; `enable` drops older spans, `disable` stops new ones.
 - Counters: always on, exact under many threads; `write_jsonl` and
   `exported` (the CLIs' `--spans`) round trip.
+- A CUDA graph capture (`tallied`, with a stand-in for the capturing
+  stream): what counts on the capturing thread goes to the tally and not to
+  the counters, its host spans record nothing and its device spans make
+  external timing events, while another thread counts and spans as ever;
+  each `Tally.replayed()` adds the tally to the counters and, while tracing
+  is on, records each device span with its events' time.
 - The clock: a torch profiler CPU op's `ts` + `baseTimeNanoseconds` lies
   inside the span that ran it.
 - L-BFGS: one `lbfgs.probe` per value and gradient, jvp or restore the
@@ -34,7 +40,7 @@ import pytest
 import torch
 
 from vaevar_tpu_torch.da.lbfgs import lbfgs_minimize
-from vaevar_tpu_torch.utils import trace
+from vaevar_tpu_torch.utils import capture, trace
 
 torch.set_num_threads(1)
 MICRO_DA = ["--device", "cpu", "--micro", "--fast_init", "--grid", "32x64", "--solver_grid",
@@ -212,6 +218,63 @@ def test_counters_exact_under_many_threads():
     finally:
         sys.setswitchinterval(old)
     assert _diff(before) == {"test.stress": 16 * 500}
+
+
+@pytest.mark.parametrize("on_at_capture", [False, True])
+def test_capture_tallies_and_each_replay_adds_the_tally(monkeypatch, on_at_capture):
+    class Event:  # an external timing event: a graph records it at each replay
+        def __init__(self, enable_timing=False, external=False):
+            assert enable_timing and external
+            made.append(self)
+
+        def record(self):
+            pass
+
+        def synchronize(self):
+            pass
+
+        def elapsed_time(self, end):
+            return end.at - self.at
+
+    made, stream = [], threading.local()  # stream.capturing: this thread's stream captures
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    monkeypatch.setattr(capture, "capturing", lambda: getattr(stream, "capturing", False))
+
+    def worker():  # the obs prefetch: its own stream, not captured
+        trace.count("test.worker")
+        with trace.span("worker"):
+            pass
+
+    before = trace.counters()
+    if on_at_capture:
+        trace.enable()
+    with trace.tallied() as tally:
+        stream.capturing = True
+        trace.count("test.body")
+        with trace.span("host"), trace.span("test.step", device=True, k=1):
+            trace.count("test.body", 2)
+        th = threading.Thread(target=worker)
+        th.start()
+        th.join(30)
+        assert not th.is_alive()
+        stream.capturing = False
+    trace.count("test.after")
+    assert _diff(before) == {"test.worker": 1, "test.after": 1}
+    assert tally.counts == {"test.body": 3} and len(made) == 2
+    assert [r["name"] for r in trace.records()] == (["worker"] if on_at_capture else [])
+    made[0].at, made[1].at = 1.0, 3.5  # one replay's events
+    trace.enable()
+    with trace.span("lbfgs.probe"):
+        tally.replayed()
+    trace.disable()
+    tally.replayed()  # tracing off: the counts alone
+    assert _diff(before) == {"test.worker": 1, "test.after": 1, "test.body": 6}
+    recs = trace.records()
+    (step,) = [r for r in recs if r["name"] == "test.step"]
+    (probe,) = [r for r in recs if r["name"] == "lbfgs.probe"]
+    assert step["device_ms"] == 2.5 and step["attrs"] == {"k": 1}
+    assert step["parent"] == probe["id"] and probe["start_ns"] <= step["start_ns"]
+    assert len(recs) == 2
 
 
 def test_write_jsonl_round_trip(tmp_path):

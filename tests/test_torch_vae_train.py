@@ -21,6 +21,7 @@ Tolerances, with the reason:
   a round-off gradient into a +-lr step.
 """
 
+import logging
 from datetime import datetime
 
 import jax
@@ -241,9 +242,12 @@ CLI = ["--device", "cpu", "--micro", "--fast_init", "--grid", "32x64", "--batch_
        "--end_time", "2022-01-03 00:00:00", "--no-bf16"]
 
 
-def test_cli_trains_resumes_and_run_da_reads_vae_latest(tmp_path):
+def test_cli_trains_resumes_and_run_da_reads_vae_latest(tmp_path, monkeypatch):
     from vaevar_tpu_torch import run_da, run_train_vae
 
+    # get_logger keeps a logger as its first call configured it: one an
+    # earlier run_train_vae in this process set up writes to that run's dir
+    monkeypatch.setattr(logging.getLogger("train_vae"), "handlers", [])
     out = str(tmp_path / "vae")
     _, first = run_train_vae.main(CLI + ["--epochs", "1", "--out_dir", out])
     _, second = run_train_vae.main(CLI + ["--epochs", "2", "--out_dir", out])

@@ -200,20 +200,32 @@ def _make_window_obs_reduced(increment: Callable, flow, da_win: int,
         step = traced_step(lambda s: integrate(s, 1))
         if step_checkpoint:
             step = checkpointed(step)
+    # (device, full grid, solver grid) -> S's index tables on the device, or
+    # None where S is the identity: made at the first call there, so a call
+    # copies nothing from the host (a CUDA graph captures it, da/graphs.py)
+    gathers = {}
+
+    def gather(device, full_hw, low_hw):
+        key = (device, full_hw, low_hw)
+        if key not in gathers:
+            (Hf, Wf), (hl, wl) = full_hw, low_hw
+            gh, gw = _resample_gather(Hf, hl), _resample_gather(Wf, wl)
+            gathers[key] = (
+                None if np.array_equal(gh, np.arange(hl)) and np.array_equal(gw, np.arange(wl))
+                else (torch.as_tensor(gh, device=device), torch.as_tensor(gw, device=device)))
+        return gathers[key]
 
     def window_obs(z, bundle: ReducedWindowObs):
         e = increment(z)  # (69, h, w) physical increment
         jo = quad(bundle.a[0], bundle.ybar[0], bundle.c[0], e)
         if da_win == 1:
             return jo
-        (Hf, Wf), (hl, wl) = bundle.xb.shape[-2:], e.shape[-2:]
-        gh, gw = _resample_gather(Hf, hl), _resample_gather(Wf, wl)
-        if np.array_equal(gh, np.arange(hl)) and np.array_equal(gw, np.arange(wl)):
+        tables = gather(e.device, tuple(bundle.xb.shape[-2:]), tuple(e.shape[-2:]))
+        if tables is None:
             def S(v):
                 return v
         else:
-            gh_t = torch.as_tensor(gh, device=e.device)
-            gw_t = torch.as_tensor(gw, device=e.device)
+            gh_t, gw_t = tables
 
             def S(v):
                 return v.index_select(-2, gh_t).index_select(-1, gw_t)

@@ -23,9 +23,9 @@ field dumps and a multi-step forecast score, and a restartable on-disk state
 cycle's obs are prepared on one worker thread under the current solve, on a
 CUDA stream of its own; it changes no number. The forecast model runs under
 torch.no_grad(): no cost differentiates through the advance. On a CUDA
-device without a mesh or a tensor-parallel decoder, the reduced vae4dvar
-3D-Var solve replays CUDA graphs of the decoder's evaluations
-(da/graphs.py, `_graphed`).
+device without a mesh or a tensor-parallel model, the reduced vae4dvar
+solve (3D-Var, or a window with its flow model) replays CUDA graphs of its
+cost's evaluations (da/graphs.py, `_graphed`).
 
 With a `mesh` (parallel/mesh.py::SpatialMesh, run_da --mesh SHxSW) each rank
 prepares and holds only its tile of the full-resolution obs fields (yo, H,
@@ -233,15 +233,18 @@ class CycledDA:
 
     @property
     def _graphed(self):
-        """Whether the solve runs its decoder evaluations as CUDA graphs
-        (da/graphs.py): the reduced vae4dvar 3D-Var cost, no mesh and no
-        tensor-parallel decoder, a CUDA device. The rest stays eager: the
-        collectives (gloo, nccl) of a mesh or of a placed decoder are not
-        captured, the CPU has no graphs, and the window costs (checkpointed
-        flow steps), sc4dvar (the CVT's FFTs) and the full-grid costs
-        (augment_levels' per-call copy) are not shown to capture."""
-        return (self.cfg.da_mode == "vae4dvar" and self._use_reduced_obs
-                and self.mesh is None and not is_tensor_parallel(self.decoder)
+        """Whether the solve runs its evaluations as CUDA graphs
+        (da/graphs.py): a reduced vae4dvar cost, 3D-Var or a window with
+        its flow model, no mesh and no tensor-parallel decoder or flow
+        model, a CUDA device. The rest stays eager: the collectives (gloo,
+        nccl) of a mesh or of a placed model are not captured, the CPU has
+        no graphs, and sc4dvar (the CVT's FFTs) and the full-grid costs
+        (augment_levels' per-call copy) are not shown to capture; a jvp
+        probe is eager on every path."""
+        return (self.cfg.da_mode == "vae4dvar" and self._reducible
+                and self.mesh is None
+                and not any(m is not None and is_tensor_parallel(m)
+                            for m in (self.decoder, self.flow))
                 and torch.device(self.device).type == "cuda")
 
     def _build_solver(self):

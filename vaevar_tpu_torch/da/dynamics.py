@@ -10,6 +10,10 @@ jax.checkpoint, so a backward recomputes a step instead of storing it.
 A 4D-Var window cost runs its flow steps through `traced_step`: counter
 `window.flow_forwards` (every execution of the step, a checkpoint's
 recompute included) and device span `window.step` (utils/trace.py).
+
+The checkpoints are utils/capture.py's, and `integrate` copies nothing
+from the host at a call (its tables cross to a device once), so a CUDA
+graph can capture a window cost's rollout (da/graphs.py).
 """
 
 from __future__ import annotations
@@ -17,11 +21,11 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from vaevar_tpu_torch import channels
 from vaevar_tpu_torch.ops.interp import resize_nearest
 from vaevar_tpu_torch.utils import trace
+from vaevar_tpu_torch.utils.capture import checkpoint
 
 
 def checkpointed(fn: Callable) -> Callable:
@@ -31,7 +35,7 @@ def checkpointed(fn: Callable) -> Callable:
 
     def run(*args):
         if torch.is_grad_enabled():
-            return checkpoint(fn, *args, use_reentrant=False)
+            return checkpoint(fn, *args)
         return fn(*args)
 
     return run
@@ -57,12 +61,15 @@ def make_integrate(model: torch.nn.Module, model_hw=None):
         return model(z)[:, : channels.N_CHANNELS]
 
     remat_step = checkpointed(step)
+    tables = {}  # device -> (mean, std), made at the first call there
 
     def integrate(x, steps: int, interpolation: bool = False):
-        mean = torch.as_tensor(channels.MEAN, dtype=torch.float32,
-                               device=x.device).reshape(-1, 1, 1)
-        std = torch.as_tensor(channels.STD, dtype=torch.float32,
-                              device=x.device).reshape(-1, 1, 1)
+        norm = tables.get(x.device)
+        if norm is None:
+            norm = tables[x.device] = tuple(
+                torch.as_tensor(t, dtype=torch.float32, device=x.device).reshape(-1, 1, 1)
+                for t in (channels.MEAN, channels.STD))
+        mean, std = norm
         hw = tuple(x.shape[-2:])
         z = ((x - mean) / std)[None]
         resize = interpolation and model_hw is not None and hw != tuple(model_hw)

@@ -13,11 +13,11 @@ slices over the tp group), so the ranks take the same steps with no solver
 change.
 
 With `graphs` (da/graphs.py::SolveGraphs, which the cycler hands the
-reduced vae4dvar 3D-Var solve on a CUDA device) each solve loads its
-bundle into the graphs' buffers, every value and gradient of the L-BFGS
-segments is a replay (a jvp probe stays eager), each diagnostics is one
-decode replay with the score arithmetic after it, and the analysis is a
-copy of the last decode's state. Without, everything runs eagerly.
+reduced vae4dvar solve, 3D-Var or window, on a CUDA device) each solve
+loads its bundle into the graphs' buffers, every value and gradient of
+the L-BFGS segments is a replay (a jvp probe stays eager), each
+diagnostics is one decode replay with the score arithmetic after it, and
+the analysis is a copy of the last decode's state. Without, everything runs eagerly.
 
 Spans (utils/trace.py): `solve` around a solve (a device span),
 `solve.segment` around each L-BFGS segment (attr `segment`),

@@ -14,7 +14,8 @@ vaevar_tpu/utils/port_torch.py reads (`enc.enc_list.{g}...`,
 `net.layers.{i}.blocks.{j}...`, `dec.dec_list.{g}...`,
 `dec.final_proj_list.{g}`), so the JAX package's weights cross over through
 utils/port_jax.py. The flax `nn.vmap` over groups becomes one module per
-group, `nn.scan` a ModuleList, `nn.remat` torch.utils.checkpoint.
+group, `nn.scan` a ModuleList, `nn.remat` torch.utils.checkpoint
+(utils/capture.py::checkpoint).
 
 Mixed precision mirrors flax, not torch.autocast: params stay f32; layers
 with a compute dtype cast input and weights to it; `x + pos_embed` promotes
@@ -41,12 +42,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from vaevar_tpu_torch.ops import rope as rope_ops
 from vaevar_tpu_torch.ops import windows as win_ops
 from vaevar_tpu_torch.ops.attention import window_attention_core
 from vaevar_tpu_torch.ops.posenc import relative_position_index
+from vaevar_tpu_torch.utils.capture import checkpoint
 
 
 def torch_dtype(dt):
@@ -338,7 +339,7 @@ class BasicLayer(nn.Module):
             x = self.tiling.retile(x, *self.moves[0])
         for blk in self.blocks:
             if self.remat and torch.is_grad_enabled():
-                x = checkpoint(blk, x, use_reentrant=False)
+                x = checkpoint(blk, x)
             else:
                 x = blk(x)
         if self.moves[1] is not None:

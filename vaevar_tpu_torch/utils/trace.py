@@ -14,6 +14,17 @@ torch profiler trace.
   device time between them, so nothing waits while the span runs.
 - `count(name, n=1)`: adds to a counter. Counters are always on; they count
   at eval, probe, sync or step granularity, never per kernel.
+- `tallied()`: the work a CUDA graph captures (da/graphs.py) runs its
+  Python once, at the capture, and never at a replay. Inside the block,
+  what counts on a capturing stream (utils/capture.py::capturing, on any
+  thread: a captured backward runs on the autograd engine's) goes to the
+  yielded `Tally` and not to the counters, a host span there records
+  nothing, and a device span records a pair of external timing events into
+  the graph and the tally, whether tracing is on or off. After each replay,
+  `Tally.replayed()` adds the tally to the counters, so a replay counts
+  what one eager run of its body counts, and while tracing is on records
+  each of those device spans, closed, with the `device_ms` its events read
+  on that replay.
 - `enable()` (which also drops the spans kept so far), `disable()`,
   `enabled()`, `records()` (the closed spans, oldest first), `counters()`
   and `write_jsonl(path)`: one JSON object a line, each span's record, then
@@ -38,6 +49,8 @@ import time
 
 import torch
 
+from vaevar_tpu_torch.utils import capture
+
 _NOOP = contextlib.nullcontext()
 _on = False
 _spans: list = []
@@ -46,6 +59,7 @@ _local = threading.local()
 _anchor = (0, 0)  # (perf_counter_ns, time_ns) at enable()
 _counters: dict = {}
 _counters_lock = threading.Lock()
+_tally = None  # the Tally of the capture open now (tallied), or None
 
 
 def _clocks():
@@ -75,8 +89,10 @@ def enabled() -> bool:
 
 
 def count(name: str, n: int = 1):
+    tally = _tally
+    into = tally.counts if tally is not None and capture.capturing() else _counters
     with _counters_lock:
-        _counters[name] = _counters.get(name, 0) + n
+        into[name] = into.get(name, 0) + n
 
 
 def counters() -> dict:
@@ -86,9 +102,72 @@ def counters() -> dict:
 
 
 def span(name: str, request=None, device: bool = False, **attrs):
+    tally = _tally
+    if tally is not None and capture.capturing():
+        return _Captured(tally, name, attrs) if device else _NOOP
     if not _on:
         return _NOOP
     return _Span(name, request, device, attrs)
+
+
+class Tally:
+    """What one run of a body captured into a CUDA graph counts (`counts`)
+    and its device spans (`spans`: name, attrs and the pair of external
+    timing events the graph records at each replay)."""
+
+    def __init__(self):
+        self.counts: dict = {}
+        self.spans: list = []
+
+    def replayed(self):
+        """After a replay: the counts added to the counters and, while
+        tracing is on, each device span recorded, closed, as a child of
+        this thread's innermost open span, its `device_ms` read from this
+        replay's events (waiting for them) and its host stamps now."""
+        for name, n in self.counts.items():
+            count(name, n)
+        if not _on:
+            return
+        for name, attrs, start, end in self.spans:
+            end.synchronize()
+            s = _Span(name, None, False, attrs)
+            with s:
+                pass
+            s.ms = start.elapsed_time(end)
+
+
+@contextlib.contextmanager
+def tallied():
+    """The Tally of the work captured inside the block (see the module
+    docstring); one capture at a time."""
+    global _tally
+    _tally = Tally()
+    try:
+        yield _tally
+    finally:
+        _tally = None
+
+
+class _Captured:
+    """A device span inside a capture: external timing events recorded into
+    the graph at entry and exit, kept in the tally."""
+
+    __slots__ = ("tally", "name", "attrs", "events")
+
+    def __init__(self, tally, name, attrs):
+        self.tally, self.name, self.attrs = tally, name, attrs
+
+    def __enter__(self):
+        self.events = tuple(torch.cuda.Event(enable_timing=True, external=True)
+                            for _ in range(2))
+        self.events[0].record()
+        return self
+
+    def __exit__(self, *exc):
+        self.events[1].record()
+        with _counters_lock:
+            self.tally.spans.append((self.name, self.attrs, *self.events))
+        return False
 
 
 def _stack() -> list:
@@ -100,11 +179,11 @@ def _stack() -> list:
 
 class _Span:
     __slots__ = ("name", "request", "device", "attrs", "id", "parent", "thread", "start",
-                 "end", "events")
+                 "end", "events", "ms")
 
     def __init__(self, name, request, device, attrs):
         self.name, self.request, self.device, self.attrs = name, request, device, attrs
-        self.end = self.events = None
+        self.end = self.events = self.ms = None
 
     def __enter__(self):
         stack = _stack()
@@ -138,8 +217,8 @@ class _Span:
 def records() -> list:
     """The closed spans, oldest first, each {"name", "id", "parent",
     "thread", "request", "start_ns", "end_ns" (on the time_ns clock),
-    "device_ms" (None but for a device span on CUDA), "attrs"}. Waits for
-    the device spans' end events."""
+    "device_ms" (None but for a device span on CUDA, a replayed one's
+    included), "attrs"}. Waits for the device spans' end events."""
     p0, t0 = _anchor
     p1, t1 = _clocks()
     rate = (t1 - t0) / (p1 - p0) if p1 > p0 else 1.0
@@ -151,7 +230,7 @@ def records() -> list:
     for s in list(_spans):
         if s.end is None:
             continue
-        device_ms = None
+        device_ms = s.ms
         if s.events is not None:
             s.events[1].synchronize()
             device_ms = s.events[0].elapsed_time(s.events[1])
