@@ -1,18 +1,22 @@
 """The solve's CUDA graphs (vaevar_tpu_torch/da/graphs.py) on the 3D-Var
-cost, and the rule that engages them (da/cycler.py::CycledDA._graphed);
-tests/test_torch_window_graph.py holds the 4D-Var window's.
+cost, and the rule that picks them (da/graphs.py::solve_evaluations, as the
+cycler's solver construction calls it); tests/test_torch_window_graph.py
+holds the 4D-Var window's.
 
 On the CPU:
-- the rule: on a CUDA device it holds for the reduced vae4dvar costs alone,
-  3D-Var and the window with its flow model; a mesh, a tensor-parallel
-  decoder or flow model, sc4dvar (3D-Var and window), the full-grid (real
-  obs) cost and a window without a flow model keep the eager solve. Micro
-  cycles of each on the CPU build no graphs, count no capture and no
-  replay, and hand L-BFGS the eager value_and_grad;
-- the tables the captured region needs on the device, made once: the
-  increment's scales (cost._increment_fn), the nearest resize's indices
-  (ops/interp.py), the normalisation of dynamics.make_integrate and the
-  window's gathers, bitwise the per-call tables they replace;
+- the rule: on a CUDA device it picks SolveGraphs for the reduced vae4dvar
+  costs alone, 3D-Var and the window with its flow model; a mesh, a
+  tensor-parallel decoder or flow model, sc4dvar (3D-Var and window), the
+  full-grid (real obs) cost and a window without a flow model keep the
+  eager Evaluations. Micro cycles of each on the CPU build no graphs, count
+  no capture and no replay, and hand L-BFGS the solver's eager
+  Evaluations;
+- the tables the captured region needs on the device, made once
+  (utils/capture.py::device_tables): the increment's scales
+  (cost._increment_fn), the nearest resize's indices (ops/interp.py), the
+  normalisation of dynamics.make_integrate and the window's gathers,
+  bitwise the per-call tables they replace; one first made inside a
+  capture raises;
 - the graphed solve's control flow with a stand-in for the capture whose
   replay recomputes the captured body eagerly into the graphs' buffers:
   three solves on three bundles give the eager solver's numbers bit for
@@ -40,7 +44,7 @@ from vaevar_tpu_torch import config as cfgs
 from vaevar_tpu_torch.da import cost as cost_mod
 from vaevar_tpu_torch.da import lbfgs
 from vaevar_tpu_torch.da import solver as solver_mod
-from vaevar_tpu_torch.da.graphs import SolveGraphs
+from vaevar_tpu_torch.da.graphs import Evaluations, SolveGraphs
 from vaevar_tpu_torch.da.solver import VariationalSolver
 from vaevar_tpu_torch.models.lgunet import LGUnet
 from vaevar_tpu_torch.ops import interp
@@ -85,7 +89,7 @@ def tracing_off():
 @pytest.fixture(scope="module", params=sorted(PATHS))
 def micro_cycle(request, tmp_path_factory):
     """One micro cycle of a path on the CPU: (name, CycledDA, the graph
-    counters it added, the value_and_grad each segment got)."""
+    counters it added, the evaluations each segment got)."""
     from vaevar_tpu_torch import run_da
 
     name = request.param
@@ -93,7 +97,7 @@ def micro_cycle(request, tmp_path_factory):
     minimize = solver_mod.lbfgs_minimize
 
     def spy(*a, **kw):
-        got.append(kw["value_and_grad"])
+        got.append(kw["evaluations"])
         return minimize(*a, **kw)
 
     solver_mod.lbfgs_minimize = spy
@@ -108,10 +112,11 @@ def micro_cycle(request, tmp_path_factory):
 
 def test_cpu_cycle_builds_no_graph_and_solves_eagerly(micro_cycle):
     name, da, added, got = micro_cycle
-    assert da._solver.graphs is None and not da._graphed
+    assert type(da._solver.evaluations) is Evaluations
+    assert not hasattr(da._solver.evaluations, "bundle")  # let go after the solve
     assert added == {k: 0 for k in GRAPH_COUNTERS}
     assert len(da.cycle_log) == 1 and len(got) == da.cfg.nit
-    assert all(f is lbfgs.value_and_grad for f in got), name
+    assert all(e is da._solver.evaluations for e in got), name
 
 
 def _placed(model):
@@ -123,35 +128,45 @@ def _placed(model):
                                                    blk.mlp.fc1.out_features, 1))
 
 
+def _graphed(da):
+    """Whether the solver the cycler builds for `da` as it stands holds the
+    CUDA graphs (da/graphs.py::solve_evaluations picks them)."""
+    evals = da._build_solver().evaluations
+    assert type(evals) in (Evaluations, SolveGraphs)
+    return type(evals) is SolveGraphs
+
+
 def test_rule_on_a_cuda_device(micro_cycle):
     """Read on a CPU-built cycler with its device name changed: the rule
     reads only the configuration, the obs form, the mesh, the models'
     placement and the device type."""
     name, da, _, _ = micro_cycle
     device, decoder, flow, interp_matrix = da.device, da.decoder, da.flow, da._interp
+    reduce_obs = da._reduce_obs
     try:
         da.device = "cuda"
-        assert da._graphed == (name in GRAPHED)
+        assert _graphed(da) == (name in GRAPHED)
         da.mesh = object()
-        assert not da._graphed
+        assert not _graphed(da)
         da.mesh = None
         for role in ("decoder", "flow"):
             model = getattr(da, role)
             if model is not None:
                 setattr(da, role, _placed(model))
-                assert not da._graphed, role
+                assert not _graphed(da), role
                 setattr(da, role, model)
         if name == "window":  # the full-grid window: real obs, or no flow model
             da._interp = np.eye(13, dtype=np.float32)
-            assert not da._graphed
+            assert not _graphed(da)
             da._interp, da.flow = interp_matrix, None
-            assert not da._graphed
+            assert not _graphed(da)
     finally:
         da.device, da.mesh, da.decoder, da.flow, da._interp = (device, None, decoder, flow,
                                                                interp_matrix)
+        da._reduce_obs = reduce_obs
 
 
-# --- the tables made once ---------------------------------------------------
+# --- the device tables, made once --------------------------------------------
 
 
 class _NoCopy:
@@ -177,20 +192,6 @@ def _micro_decoder(hw=(16, 32), dtype=None):
     return LGUnet(cfg).eval().requires_grad_(False), sum(cfg.inchans_list)
 
 
-@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
-def test_increment_tables_bitwise_and_made_once(monkeypatch, dtype):
-    decoder, c = _micro_decoder(dtype=dtype)
-    increment = cost_mod._increment_fn(decoder)
-    for seed in (1, 2):
-        z = torch.randn((1, c, 16, 32), generator=torch.Generator().manual_seed(seed))
-        want = _increment_per_call(decoder, z)
-        with monkeypatch.context() as m:
-            if seed == 2:  # the tables were made at the first call
-                m.setattr(torch, "as_tensor", _NoCopy(torch.as_tensor))
-            got = increment(z)
-        assert torch.equal(got, want)
-
-
 def _resize_per_call(x, out_hw, tile=None):
     """ops/interp.py::resize_nearest with its index tables made at every call."""
     H, W = x.shape[-2], x.shape[-1]
@@ -199,23 +200,6 @@ def _resize_per_call(x, out_hw, tile=None):
         hi, wi = hi[tile.rows], wi[tile.cols]
     return (x.index_select(-2, torch.as_tensor(hi, device=x.device))
             .index_select(-1, torch.as_tensor(wi, device=x.device)))
-
-
-@pytest.mark.parametrize("in_hw, out_hw, tile", [
-    ((16, 32), (73, 144), None),  # up, a non-integer ratio (721x1440 over 128x256)
-    ((32, 64), (16, 32), None),  # down
-    ((16, 32), (72, 144), Tile(slice(36, 72), slice(0, 72), True)),  # a mesh tile
-])
-def test_resize_nearest_indices_bitwise_and_made_once(monkeypatch, in_hw, out_hw, tile):
-    g = torch.Generator().manual_seed(3)
-    for k in range(2):
-        x = torch.randn((3, *in_hw), generator=g)
-        want = _resize_per_call(x, out_hw, tile)
-        with monkeypatch.context() as m:
-            if k:
-                m.setattr(torch, "as_tensor", _NoCopy(torch.as_tensor))
-            got = interp.resize_nearest(x, out_hw, tile)
-        assert torch.equal(got, want)
 
 
 def _micro_flow(hw=(16, 32)):
@@ -241,13 +225,24 @@ def _integrate_per_call(model, model_hw, x, steps, interpolation):
     return z[0] * std + mean
 
 
-@pytest.mark.parametrize("x_hw, model_hw, steps, interpolation", [
-    ((16, 32), None, 1, False),  # the window's flow step
-    ((16, 32), None, 2, False),  # a spin-up
-    ((32, 64), (16, 32), 1, True),  # the advance through a resize
-])
-def test_integrate_tables_bitwise_and_made_once(monkeypatch, x_hw, model_hw, steps,
-                                                interpolation):
+def _increment_user(dtype):
+    """cost._increment_fn's scales."""
+    decoder, c = _micro_decoder(dtype=dtype)
+    zs = [torch.randn((1, c, 16, 32), generator=torch.Generator().manual_seed(seed))
+          for seed in (1, 2)]
+    return (zs, lambda z: _increment_per_call(decoder, z), cost_mod._increment_fn(decoder))
+
+
+def _resize_user(in_hw, out_hw, tile):
+    """ops/interp.py::resize_nearest's indices."""
+    g = torch.Generator().manual_seed(3)
+    xs = [torch.randn((3, *in_hw), generator=g) for _ in range(2)]
+    return (xs, lambda x: _resize_per_call(x, out_hw, tile),
+            lambda x: interp.resize_nearest(x, out_hw, tile))
+
+
+def _integrate_user(x_hw, model_hw, steps, interpolation):
+    """dynamics.make_integrate's normalisation, no grad."""
     from vaevar_tpu_torch.da.dynamics import make_integrate
 
     flow = _micro_flow()
@@ -255,15 +250,80 @@ def test_integrate_tables_bitwise_and_made_once(monkeypatch, x_hw, model_hw, ste
     mean = torch.as_tensor(channels.MEAN)[:, None, None]
     std = torch.as_tensor(channels.STD)[:, None, None]
     g = torch.Generator().manual_seed(7)
-    for k in range(2):
-        x = mean + std * torch.randn((69, *x_hw), generator=g)
-        with torch.no_grad():
-            want = _integrate_per_call(flow, model_hw, x, steps, interpolation)
-            with monkeypatch.context() as m:
-                if k:  # the tables were made at the first call
-                    m.setattr(torch, "as_tensor", _NoCopy(torch.as_tensor))
-                got = integrate(x, steps, interpolation)
-        assert torch.equal(got, want)
+    xs = [mean + std * torch.randn((69, *x_hw), generator=g) for _ in range(2)]
+    return (xs,
+            torch.no_grad()(lambda x: _integrate_per_call(flow, model_hw, x, steps,
+                                                          interpolation)),
+            torch.no_grad()(lambda x: integrate(x, steps, interpolation)))
+
+
+def _window_user(full_hw):
+    """The window cost's gathers: its value and gradient with every table
+    made at an earlier call against a fresh cost's, which makes them at
+    this call as every call made them before."""
+    decoder, c = _micro_decoder()
+    flow = _micro_flow()
+
+    def fresh():
+        return cost_mod.make_vae4dvar_cost_window_reduced(decoder, flow, da_win=3)[0]
+
+    cost = fresh()
+    bundle, _ = window_bundle(full_hw, (16, 32), 3, seed=4)
+    g = torch.Generator().manual_seed(8)
+    zs = [0.3 * torch.randn((1, c, 16, 32), generator=g) for _ in range(2)]
+    return (zs, lambda z: lbfgs.value_and_grad(lambda q: fresh()(q, bundle), z),
+            lambda z: lbfgs.value_and_grad(lambda q: cost(q, bundle), z))
+
+
+# (id, user, its arguments): every user of utils/capture.py::device_tables
+TABLE_USERS = [
+    ("increment-f32", _increment_user, (None,)),
+    ("increment-bf16", _increment_user, (torch.bfloat16,)),
+    # up, a non-integer ratio (721x1440 over 128x256); down; a mesh tile
+    ("resize-up", _resize_user, ((16, 32), (73, 144), None)),
+    ("resize-down", _resize_user, ((32, 64), (16, 32), None)),
+    ("resize-tile", _resize_user, ((16, 32), (72, 144), Tile(slice(36, 72), slice(0, 72), True))),
+    # the window's flow step, a spin-up, the advance through a resize
+    ("integrate-step", _integrate_user, ((16, 32), None, 1, False)),
+    ("integrate-spin-up", _integrate_user, ((16, 32), None, 2, False)),
+    ("integrate-resize", _integrate_user, ((32, 64), (16, 32), 1, True)),
+    # S the identity (the solver grid), an integer ratio, 47x93 over 16x32
+    ("window-identity", _window_user, ((16, 32),)),
+    ("window-ratio", _window_user, ((32, 64),)),
+    ("window-47x93", _window_user, ((47, 93),)),
+]
+
+
+def _equal(got, want):
+    if isinstance(want, tuple):
+        return all(_equal(a, b) for a, b in zip(got, want, strict=True))
+    return torch.equal(got, want) if isinstance(want, torch.Tensor) else got == want
+
+
+@pytest.mark.parametrize("user, args", [u[1:] for u in TABLE_USERS],
+                         ids=[u[0] for u in TABLE_USERS])
+def test_device_tables_bitwise_and_made_once(monkeypatch, user, args):
+    """Each user's result bitwise its per-call tables' at two calls, the
+    second copying nothing from the host."""
+    inputs, per_call, under_test = user(*args)
+    for k, x in enumerate(inputs):
+        want = per_call(x)
+        with monkeypatch.context() as m:
+            if k:  # the tables were made at the first call
+                m.setattr(torch, "as_tensor", _NoCopy(torch.as_tensor))
+            got = under_test(x)
+        assert _equal(got, want)
+
+
+def test_device_tables_made_inside_a_capture_raise():
+    """A table first asked for inside a capture would cross from the host
+    there: it raises; one made before is returned as made."""
+    made = capture.device_tables(lambda device, n: torch.arange(n, device=device))
+    first = made(torch.device("cpu"), 3)
+    with as_captured():
+        assert made(torch.device("cpu"), 3) is first
+        with pytest.raises(RuntimeError, match="inside a CUDA graph capture"):
+            made(torch.device("cpu"), 4)
 
 
 def window_bundle(full_hw, low_hw, da_win, seed):
@@ -281,31 +341,6 @@ def window_bundle(full_hw, low_hw, da_win, seed):
                          .astype(np.float32))
     full = cost_mod.ObsBundle(xb=torch.from_numpy(xb), yo=H * gt, H=H, R=R)
     return cost_mod.reduce_obs_window(full, low_hw), gt
-
-
-@pytest.mark.parametrize("full_hw", [(16, 32), (32, 64), (47, 93)])
-def test_window_gathers_bitwise_and_made_once(monkeypatch, full_hw):
-    """The window cost's value and gradient with every table made at an
-    earlier call against a fresh cost's, which makes them at this call as
-    every call made them before: S the identity (the solver grid), an
-    integer ratio, and 47x93 over 16x32."""
-    decoder, c = _micro_decoder()
-    flow = _micro_flow()
-
-    def fresh():
-        return cost_mod.make_vae4dvar_cost_window_reduced(decoder, flow, da_win=3)[0]
-
-    cost = fresh()
-    bundle, _ = window_bundle(full_hw, (16, 32), 3, seed=4)
-    g = torch.Generator().manual_seed(8)
-    for k in range(2):
-        z = 0.3 * torch.randn((1, c, 16, 32), generator=g)
-        want = lbfgs.value_and_grad(lambda q: fresh()(q, bundle), z)
-        with monkeypatch.context() as m:
-            if k:
-                m.setattr(torch, "as_tensor", _NoCopy(torch.as_tensor))
-            got = lbfgs.value_and_grad(lambda q: cost(q, bundle), z)
-        assert got[0] == want[0] and torch.equal(got[1], want[1])
 
 
 # --- the graphed solve with a stand-in replay on the CPU --------------------
@@ -396,7 +431,7 @@ def test_stand_in_replay_solves_bitwise_as_eager(monkeypatch, linesearch):
     eager = _solve_all(VariationalSolver(cost, to_state, parts, **kw), x0, bundles, 2)
     before = trace.counters()
     trace.enable()
-    graphed = _solve_all(VariationalSolver(cost, to_state, parts, graphs=SolveGraphs(
+    graphed = _solve_all(VariationalSolver(cost, to_state, parts, evaluations=SolveGraphs(
         cost, to_state, parts), **kw), x0, bundles, 2)
     recs = trace.records()
     trace.disable()
@@ -425,7 +460,7 @@ def test_stand_in_replay_without_truth_and_a_new_shape(monkeypatch):
     cost, to_state, parts = cost_mod.make_vae4dvar_cost_reduced(decoder)
     graphs = SolveGraphs(cost, to_state, parts)
     eager = VariationalSolver(cost, to_state, parts, lbfgs_iters=3, history=3)
-    graphed = VariationalSolver(cost, to_state, parts, lbfgs_iters=3, history=3, graphs=graphs)
+    graphed = VariationalSolver(cost, to_state, parts, lbfgs_iters=3, history=3, evaluations=graphs)
     x0 = torch.zeros((1, c, 16, 32))
     before = trace.counters().get("solve.graph_captures", 0)
     for full_hw in ((32, 64), (32, 64), (48, 96)):
@@ -480,7 +515,7 @@ def test_card_replayed_value_and_gradient(card):
     for _ in range(2):
         z = 0.3 * torch.randn(x0.shape, generator=g, device="cuda")
         v, grad = lbfgs.value_and_grad(lambda q: cost(q, bundle), z)
-        vg, gradg = graphs.value_and_grad(None, z)
+        vg, gradg = graphs.value_and_grad(z)
         print(f"value eager {v!r}, replayed {vg!r}")
         assert abs(vg - v) <= 1e-6 * abs(v)
         _agree(gradg, grad, "gradient")
@@ -508,7 +543,7 @@ def test_card_three_solves_one_capture(card):
     kw = dict(lbfgs_iters=10, history=10, linesearch="zoom")
     eager = _solve_all(VariationalSolver(cost, to_state, parts, **kw), x0, bundles, 2)
     before = trace.counters()
-    graphed = _solve_all(VariationalSolver(cost, to_state, parts, graphs=SolveGraphs(
+    graphed = _solve_all(VariationalSolver(cost, to_state, parts, evaluations=SolveGraphs(
         cost, to_state, parts), **kw), x0, bundles, 2)
     added = {k: v - before.get(k, 0) for k, v in trace.counters().items()}
     assert added["solve.graph_captures"] == 1
@@ -565,6 +600,6 @@ def test_card_capture_beside_a_worker_stream(card):
     z = 0.3 * torch.randn(x0.shape, generator=torch.Generator(device="cuda").manual_seed(6),
                           device="cuda")
     v, grad = lbfgs.value_and_grad(lambda q: cost(q, bundle), z)
-    vg, gradg = graphs.value_and_grad(None, z)
+    vg, gradg = graphs.value_and_grad(z)
     assert abs(vg - v) <= 1e-6 * abs(v)
     _agree(gradg, grad, "gradient after a capture beside a worker")

@@ -138,7 +138,7 @@ def test_stand_in_window_solves_bitwise_as_eager(monkeypatch, step_checkpoint, l
     kw = dict(lbfgs_iters=2, history=2, linesearch=linesearch)
     eager, de, re = _traced_solves(VariationalSolver(cost, to_state, parts, **kw), x0, bundles)
     graphed, dg, rg = _traced_solves(VariationalSolver(
-        cost, to_state, parts, graphs=SolveGraphs(cost, to_state, parts), **kw), x0, bundles)
+        cost, to_state, parts, evaluations=SolveGraphs(cost, to_state, parts), **kw), x0, bundles)
     for (ze, xe, diag_e), (zg, xg, diag_g) in zip(eager, graphed):
         assert torch.equal(ze, zg) and torch.equal(xe, xg)
         _same_diag(diag_e, diag_g)
@@ -232,7 +232,7 @@ def test_card_replayed_value_and_gradient(card):
         added_e = _added(before)
         before = trace.counters()
         trace.enable()
-        vg, gradg = graphs.value_and_grad(None, z)
+        vg, gradg = graphs.value_and_grad(z)
         replayed = trace.records()
         trace.disable()
         added_g = _added(before)
@@ -275,7 +275,7 @@ def test_card_three_solves_one_capture(card):
     eager = [VariationalSolver(cost, to_state, parts, **kw).solve(
         x0, b, nit=1, gt=gt, verbose=False) for b, gt in bundles]
     before = trace.counters()
-    solver = VariationalSolver(cost, to_state, parts, graphs=SolveGraphs(cost, to_state, parts),
+    solver = VariationalSolver(cost, to_state, parts, evaluations=SolveGraphs(cost, to_state, parts),
                                **kw)
     graphed = [solver.solve(x0, b, nit=1, gt=gt, verbose=False) for b, gt in bundles]
     added = _added(before)
@@ -338,6 +338,6 @@ def test_card_capture_beside_a_worker_stream(card):
     assert n_during >= 1
     z = _z(x0.shape, 7)
     v, grad = lbfgs.value_and_grad(lambda q: cost(q, bundle), z)
-    vg, gradg = graphs.value_and_grad(None, z)
+    vg, gradg = graphs.value_and_grad(z)
     assert abs(vg - v) <= 1e-6 * abs(v)
     _agree(gradg, grad, "gradient after a capture beside a worker")

@@ -65,6 +65,7 @@ from vaevar_tpu_torch.parallel.mesh import (
     tile_for,
 )
 from vaevar_tpu_torch.utils import trace
+from vaevar_tpu_torch.utils.capture import device_tables
 
 
 class ObsBundle(NamedTuple):
@@ -200,20 +201,14 @@ def _make_window_obs_reduced(increment: Callable, flow, da_win: int,
         step = traced_step(lambda s: integrate(s, 1))
         if step_checkpoint:
             step = checkpointed(step)
-    # (device, full grid, solver grid) -> S's index tables on the device, or
-    # None where S is the identity: made at the first call there, so a call
-    # copies nothing from the host (a CUDA graph captures it, da/graphs.py)
-    gathers = {}
-
+    @device_tables
     def gather(device, full_hw, low_hw):
-        key = (device, full_hw, low_hw)
-        if key not in gathers:
-            (Hf, Wf), (hl, wl) = full_hw, low_hw
-            gh, gw = _resample_gather(Hf, hl), _resample_gather(Wf, wl)
-            gathers[key] = (
-                None if np.array_equal(gh, np.arange(hl)) and np.array_equal(gw, np.arange(wl))
-                else (torch.as_tensor(gh, device=device), torch.as_tensor(gw, device=device)))
-        return gathers[key]
+        """S's index tables on the device, or None where S is the identity."""
+        (Hf, Wf), (hl, wl) = full_hw, low_hw
+        gh, gw = _resample_gather(Hf, hl), _resample_gather(Wf, wl)
+        if np.array_equal(gh, np.arange(hl)) and np.array_equal(gw, np.arange(wl)):
+            return None
+        return torch.as_tensor(gh, device=device), torch.as_tensor(gw, device=device)
 
     def window_obs(z, bundle: ReducedWindowObs):
         e = increment(z)  # (69, h, w) physical increment
@@ -245,19 +240,16 @@ def _make_window_obs_reduced(increment: Callable, flow, da_win: int,
 def _increment_fn(decoder, err_std=None):
     """z -> the decoder's physical low-res increment (69, h, w) in f32, the
     decoder's output scaled by err_std (default channels.ERR_STD, the
-    reference's stdTr table) and the model std. The two tables cross to a
-    device once, at its first call there: a call copies nothing from the
-    host (so a CUDA graph can capture it, da/graphs.py)."""
+    reference's stdTr table) and the model std."""
     err_std = channels.ERR_STD if err_std is None else np.asarray(err_std)
-    tables = {}
+
+    @device_tables
+    def scales(device):
+        return tuple(torch.as_tensor(t, dtype=torch.float32, device=device).reshape(-1, 1, 1)
+                     for t in (err_std, channels.STD))
 
     def increment(z):
-        scales = tables.get(z.device)
-        if scales is None:
-            scales = tables[z.device] = tuple(
-                torch.as_tensor(t, dtype=torch.float32, device=z.device).reshape(-1, 1, 1)
-                for t in (err_std, channels.STD))
-        err, mstd = scales
+        err, mstd = scales(z.device)
         return decoder(z)[0].float() * err * mstd
 
     return increment

@@ -22,10 +22,8 @@ field dumps and a multi-step forecast score, and a restartable on-disk state
 (`xb.npy` + `current_time.txt`). With `prefetch_obs` (the default) the next
 cycle's obs are prepared on one worker thread under the current solve, on a
 CUDA stream of its own; it changes no number. The forecast model runs under
-torch.no_grad(): no cost differentiates through the advance. On a CUDA
-device without a mesh or a tensor-parallel model, the reduced vae4dvar
-solve (3D-Var, or a window with its flow model) replays CUDA graphs of its
-cost's evaluations (da/graphs.py, `_graphed`).
+torch.no_grad(): no cost differentiates through the advance. How the
+solve evaluates its cost, eagerly or as CUDA graphs, is da/graphs.py's.
 
 With a `mesh` (parallel/mesh.py::SpatialMesh, run_da --mesh SHxSW) each rank
 prepares and holds only its tile of the full-resolution obs fields (yo, H,
@@ -68,11 +66,10 @@ from vaevar_tpu_torch.config import DAConfig
 from vaevar_tpu_torch.da import baselines
 from vaevar_tpu_torch.da import cost as cost_mod
 from vaevar_tpu_torch.da import obs as obs_mod
-from vaevar_tpu_torch.da.graphs import SolveGraphs
+from vaevar_tpu_torch.da.graphs import solve_evaluations
 from vaevar_tpu_torch.da.solver import SolveDiagnostics, VariationalSolver
 from vaevar_tpu_torch.ops.interp import augment_levels, obs_level_interp_matrix
 from vaevar_tpu_torch.parallel import mesh as pmesh
-from vaevar_tpu_torch.parallel.tensor_parallel import is_tensor_parallel
 from vaevar_tpu_torch.utils import metrics as M
 from vaevar_tpu_torch.utils import trace
 
@@ -231,30 +228,14 @@ class CycledDA:
     def _use_reduced_obs(self):
         return self._reducible and self.cfg.da_win == 1
 
-    @property
-    def _graphed(self):
-        """Whether the solve runs its evaluations as CUDA graphs
-        (da/graphs.py): a reduced vae4dvar cost, 3D-Var or a window with
-        its flow model, no mesh and no tensor-parallel decoder or flow
-        model, a CUDA device. The rest stays eager: the collectives (gloo,
-        nccl) of a mesh or of a placed model are not captured, the CPU has
-        no graphs, and sc4dvar (the CVT's FFTs) and the full-grid costs
-        (augment_levels' per-call copy) are not shown to capture; a jvp
-        probe is eager on every path."""
-        return (self.cfg.da_mode == "vae4dvar" and self._reducible
-                and self.mesh is None
-                and not any(m is not None and is_tensor_parallel(m)
-                            for m in (self.decoder, self.flow))
-                and torch.device(self.device).type == "cuda")
-
     def _build_solver(self):
         """The cost of the configuration (vaevar_tpu/da/cycler.py:182-257):
         the reduced 3D-Var cost, the reduced window cost or the full windowed
         cost of the mode, with the obs reduction it takes
         (`self._reduce_obs`). sc4dvar runs at most 5 L-BFGS iterations per
-        segment (da_4dvar.py:1119), with the eval budget derived from them.
-        Where `_graphed` holds, the solver runs the cost's CUDA graphs.
-        free_run and interpolation solve nothing (None)."""
+        segment (da_4dvar.py:1119), with the eval budget derived from them,
+        and the evaluations da/graphs.py picks for the cost. free_run and
+        interpolation solve nothing (None)."""
         cfg = self.cfg
         self._reduce_obs = None
         if cfg.da_mode not in ("vae4dvar", "sc4dvar"):
@@ -280,11 +261,14 @@ class CycledDA:
                 self.cvt if sc else self.decoder, self.flow, flow_hw=cfg.solver_hw,
                 da_win=cfg.da_win, obs_coeff=cfg.obs_coeff, interp_matrix=self._interp,
                 mesh=self.mesh)
+        form = "3dvar" if self._use_reduced_obs else "window" if self._reducible else "full"
         return VariationalSolver(
             c, to_state, parts, lbfgs_iters=min(cfg.lbfgs_iters, 5) if sc else cfg.lbfgs_iters,
             history=cfg.lbfgs_history, max_segment_evals=cfg.lbfgs_max_evals,
             linesearch=cfg.lbfgs_linesearch,
-            graphs=SolveGraphs(c, to_state, parts) if self._graphed else None)
+            evaluations=solve_evaluations(c, to_state, parts, mode=cfg.da_mode, form=form,
+                                          mesh=self.mesh, models=(self.decoder, self.flow),
+                                          device=self.device))
 
     @property
     def _tile(self):

@@ -10,10 +10,6 @@ jax.checkpoint, so a backward recomputes a step instead of storing it.
 A 4D-Var window cost runs its flow steps through `traced_step`: counter
 `window.flow_forwards` (every execution of the step, a checkpoint's
 recompute included) and device span `window.step` (utils/trace.py).
-
-The checkpoints are utils/capture.py's, and `integrate` copies nothing
-from the host at a call (its tables cross to a device once), so a CUDA
-graph can capture a window cost's rollout (da/graphs.py).
 """
 
 from __future__ import annotations
@@ -25,7 +21,7 @@ import torch
 from vaevar_tpu_torch import channels
 from vaevar_tpu_torch.ops.interp import resize_nearest
 from vaevar_tpu_torch.utils import trace
-from vaevar_tpu_torch.utils.capture import checkpoint
+from vaevar_tpu_torch.utils.capture import checkpoint, device_tables
 
 
 def checkpointed(fn: Callable) -> Callable:
@@ -61,15 +57,14 @@ def make_integrate(model: torch.nn.Module, model_hw=None):
         return model(z)[:, : channels.N_CHANNELS]
 
     remat_step = checkpointed(step)
-    tables = {}  # device -> (mean, std), made at the first call there
+
+    @device_tables
+    def norm(device):
+        return tuple(torch.as_tensor(t, dtype=torch.float32, device=device).reshape(-1, 1, 1)
+                     for t in (channels.MEAN, channels.STD))
 
     def integrate(x, steps: int, interpolation: bool = False):
-        norm = tables.get(x.device)
-        if norm is None:
-            norm = tables[x.device] = tuple(
-                torch.as_tensor(t, dtype=torch.float32, device=x.device).reshape(-1, 1, 1)
-                for t in (channels.MEAN, channels.STD))
-        mean, std = norm
+        mean, std = norm(x.device)
         hw = tuple(x.shape[-2:])
         z = ((x - mean) / std)[None]
         resize = interpolation and model_hw is not None and hw != tuple(model_hw)

@@ -26,16 +26,12 @@ calls.
 
 Spans (utils/trace.py): `lbfgs.probe` around each value and gradient, jvp
 or restore the minimisation runs, up to its host read of the value and
-slope (attr `kind`: "entry", "grad", "jvp" or "restore"); inside it
-`lbfgs.forward` and `lbfgs.backward` (value_and_grad), `lbfgs.replay` (a
-graphed value and gradient, da/graphs.py) or `lbfgs.jvp`; `lbfgs.direction`
-around the two-loop product; `host_sync` around every device-to-host read.
-Counters: `lbfgs.probes` (the probe spans), `lbfgs.jvp`, `lbfgs.restores`,
+slope (attr `kind`: "entry", "grad", "jvp" or "restore"); inside it the
+evaluation's own (`Eager`: `lbfgs.forward` and `lbfgs.backward`, or
+`lbfgs.jvp`; a solve's: da/graphs.py); `lbfgs.direction` around the
+two-loop product; `host_sync` around every device-to-host read. Counters:
+`lbfgs.probes` (the probe spans), `lbfgs.jvp`, `lbfgs.restores`,
 `host_syncs`.
-
-`lbfgs_minimize` and `zoom_linesearch` take the value and gradient as a
-callable, `value_and_grad(fun, x)` (default: this module's, eager); the
-3D-Var solve passes a CUDA graph's replay (da/graphs.py).
 """
 
 from __future__ import annotations
@@ -143,6 +139,19 @@ def value_and_slope(fun: Callable, x, u):
         return torch.func.jvp(fun, (x.detach(),), (u,))
 
 
+class Eager:
+    """The evaluations of `fun` that L-BFGS runs, op by op."""
+
+    def __init__(self, fun: Callable):
+        self.fun = fun
+
+    def value_and_grad(self, x):
+        return value_and_grad(self.fun, x)
+
+    def value_and_slope(self, x, u):
+        return value_and_slope(self.fun, x, u)
+
+
 def _lbfgs_direction(st: LBFGSState, x, g):
     """optax scale_by_lbfgs update (transform.py:1676-1751): refresh the
     memory with the newest pair, then the two-loop product P_k g."""
@@ -219,9 +228,8 @@ class LinesearchResult:
     n_restore: int = 0
 
 
-def zoom_linesearch(fun, params, updates, value, grad, max_steps: int = 25,
-                    jvp_probes: bool = False,
-                    value_and_grad: Callable = value_and_grad) -> LinesearchResult:
+def zoom_linesearch(evaluations, params, updates, value, grad, max_steps: int = 25,
+                    jvp_probes: bool = False) -> LinesearchResult:
     """optax's zoom linesearch (linesearch.py:815-1282) from stepsize 1, at
     the accepted point.
 
@@ -230,8 +238,8 @@ def zoom_linesearch(fun, params, updates, value, grad, max_steps: int = 25,
     store the pseudo-gradient (slope / |u|^2) u, whose dot with u gives the
     slope the decisions read; the true (value, grad) at the accepted point is
     the first probe's or the entry's when the stepsize is theirs, else one
-    uncharged value_and_grad. Every value and gradient goes through
-    `value_and_grad(fun, x)`."""
+    uncharged value_and_grad. `evaluations` (see Eager) runs every
+    evaluation."""
     slope = _host(_dot(updates, grad))
     s = dict(stepsize=f32(0.0), value=value, grad=grad, slope=slope,
              low=f32(0.0), value_low=value, slope_low=slope,
@@ -251,13 +259,13 @@ def zoom_linesearch(fun, params, updates, value, grad, max_steps: int = 25,
         with _probe("jvp" if jvp else "grad"):
             w = params + float(eta) * updates
             if jvp:
-                v, sl = value_and_slope(fun, w, updates)
+                v, sl = evaluations.value_and_slope(w, updates)
                 coef = torch.where(u_sq > 0.0, sl.float() / torch.clamp(u_sq, min=1e-38),
                                    torch.zeros_like(u_sq))
                 v, g = _host(v), coef * updates
                 n_jvp += 1
             else:
-                v, g = value_and_grad(fun, w)
+                v, g = evaluations.value_and_grad(w)
             return v, g, _host(_dot(g, updates))
 
     with np.errstate(all="ignore"):
@@ -334,7 +342,7 @@ def zoom_linesearch(fun, params, updates, value, grad, max_steps: int = 25,
             res.value, res.grad = first[1], first[2]
         else:
             with _probe("restore"):
-                res.value, res.grad = value_and_grad(fun, params + float(eta) * updates)
+                res.value, res.grad = evaluations.value_and_grad(params + float(eta) * updates)
             res.n_restore = 1
     return res
 
@@ -350,16 +358,17 @@ def lbfgs_minimize(
     max_evals: int | None = None,
     init_state: LBFGSState | None = None,
     linesearch: str = "zoom",
-    value_and_grad: Callable = value_and_grad,
+    evaluations: Eager | None = None,
 ) -> LBFGSResult:
     """Minimise `fun` (a scalar torch function of one tensor) from `x0` for
     up to `max_iters` more iterations; pass `init_state` (a previous
     result's `.state`, which this call updates) to continue a minimisation.
     `linesearch` is "zoom" or "jvp-zoom" (the cost must then be forward-mode
-    differentiable). `value_and_grad(fun, x)` gives every value and
-    gradient (entry, linesearch probes, restores). See
-    vaevar_tpu.da.lbfgs.lbfgs_minimize for the stopping rules."""
+    differentiable). `evaluations` evaluates `fun` (default Eager(fun)):
+    the entry's, the probes' and the restores' values and gradients and the
+    jvps. See vaevar_tpu.da.lbfgs.lbfgs_minimize for the stopping rules."""
     _check_linesearch(linesearch)
+    evaluations = Eager(fun) if evaluations is None else evaluations
     if max_evals is None:
         max_evals = max_iters * 5 // 4  # torch.optim.LBFGS default
     st = init_state if init_state is not None else lbfgs_init_state(x0, history)
@@ -381,12 +390,11 @@ def lbfgs_minimize(
             value, grad = st.value, st.grad
         else:
             with _probe("entry"):
-                value, grad = value_and_grad(fun, x)
+                value, grad = evaluations.value_and_grad(x)
         with trace.span("lbfgs.direction"):
             direction = -_lbfgs_direction(st, x, grad)
-        ls = zoom_linesearch(fun, x, direction, value, grad, max_linesearch_steps,
-                             jvp_probes=linesearch == "jvp-zoom",
-                             value_and_grad=value_and_grad)
+        ls = zoom_linesearch(evaluations, x, direction, value, grad, max_linesearch_steps,
+                             jvp_probes=linesearch == "jvp-zoom")
         step = float(ls.stepsize) * direction
         x = x + step
         st.value, st.grad = ls.value, ls.grad

@@ -10,14 +10,8 @@ TPxSHxSW) the bundle's obs fields are this rank's tiles (the cycler tiles
 them), and the cost, built on the mesh, sums over the spatial group every
 value L-BFGS and the diagnostics read (and a tensor-parallel model sums its
 slices over the tp group), so the ranks take the same steps with no solver
-change.
-
-With `graphs` (da/graphs.py::SolveGraphs, which the cycler hands the
-reduced vae4dvar solve, 3D-Var or window, on a CUDA device) each solve
-loads its bundle into the graphs' buffers, every value and gradient of
-the L-BFGS segments is a replay (a jvp probe stays eager), each
-diagnostics is one decode replay with the score arithmetic after it, and
-the analysis is a copy of the last decode's state. Without, everything runs eagerly.
+change. The solve evaluates its cost through `evaluations` (da/graphs.py;
+by default op by op).
 
 Spans (utils/trace.py): `solve` around a solve (a device span),
 `solve.segment` around each L-BFGS segment (attr `segment`),
@@ -35,12 +29,11 @@ import numpy as np
 import torch
 
 from vaevar_tpu_torch import channels
-from vaevar_tpu_torch.da.graphs import SolveGraphs
+from vaevar_tpu_torch.da.graphs import Evaluations
 from vaevar_tpu_torch.da.lbfgs import (
     LINESEARCHES,
     lbfgs_init_state,
     lbfgs_minimize,
-    value_and_grad,
     value_and_slope,
 )
 from vaevar_tpu_torch.ops.flash_attn import NoForwardADError
@@ -68,13 +61,11 @@ class VariationalSolver:
     def __init__(self, cost: Callable, to_state: Callable, cost_parts: Callable,
                  lbfgs_iters: int = 10, history: int = 10,
                  max_segment_evals: int | None = None, linesearch: str = "zoom",
-                 graphs: SolveGraphs | None = None):
+                 evaluations: Evaluations | None = None):
         if linesearch != "auto" and linesearch not in LINESEARCHES:
             raise ValueError(f"lbfgs_linesearch {linesearch!r}: expected 'auto', "
                              "'zoom' or 'jvp-zoom'")
         self.cost = cost
-        self.to_state = to_state
-        self.cost_parts = cost_parts
         self.lbfgs_iters = lbfgs_iters
         self.history = history
         # torch's per-.step() closure-eval budget (max_iter * 5 // 4)
@@ -82,7 +73,7 @@ class VariationalSolver:
                                   else lbfgs_iters * 5 // 4)
         self.linesearch = linesearch  # "auto" until the first solve
         self._jvp_checked = linesearch != "jvp-zoom"
-        self.graphs = graphs  # the same cost's CUDA graphs, or None: eager
+        self.evaluations = evaluations or Evaluations(cost, to_state, cost_parts)
 
     def _jvp_compatible(self, x0, bundle) -> bool:
         """Whether the cost runs under forward-mode AD: one jvp of the real
@@ -111,19 +102,6 @@ class VariationalSolver:
                     "N >= flash_min_seq). Use lbfgs_linesearch='zoom' or 'auto'.")
             self._jvp_checked = True
 
-    @torch.no_grad()
-    def diagnostics(self, x, bundle, gt0):
-        """(wrmse (69,), bias (69,), Jb, Jo) of the state decoded from x."""
-        wrmse, bias = _errors(self.to_state(x, bundle), gt0)
-        jb, jo = self.cost_parts(x, bundle)
-        return _read(wrmse, bias, jb, jo)
-
-    @torch.no_grad()
-    def _graph_diagnostics(self, x, gt0):
-        """`diagnostics` on the bundle the graphs hold, by one decode replay."""
-        state, jb, jo = self.graphs.decode(x)
-        return _read(*_errors(state, gt0), jb, jo)
-
     def solve(self, x0, bundle, nit: int = 4, gt=None, verbose: bool = True,
               name: str = "da"):
         """-> (x, analysis state, SolveDiagnostics)."""
@@ -135,39 +113,26 @@ class VariationalSolver:
         diag = SolveDiagnostics(linesearch=self.linesearch)
         t0 = time.perf_counter()
         x, state = x0, lbfgs_init_state(x0, self.history, self.linesearch)
-        graphs = self.graphs
-        if graphs is not None:
-            graphs.load(x0, bundle)
-
-        def fun(q):
-            return self.cost(q, bundle)
-
+        evals = self.evaluations
+        evals.load(x0, bundle)
         for kk in range(nit + 1):
             if gt is not None:
                 with trace.span("solve.diagnostics"):
-                    scores = (self.diagnostics(x, bundle, gt[0]) if graphs is None
-                              else self._graph_diagnostics(x, gt[0]))
-                    self._record_iter(diag, *scores, kk, verbose, name)
+                    decoded, jb, jo = evals.decode(x)
+                    self._record_iter(diag, *_read(*_errors(decoded, gt[0]), jb, jo), kk,
+                                      verbose, name)
             if kk < nit:
                 with trace.span("solve.segment", segment=kk):
-                    res = lbfgs_minimize(fun, x, max_iters=self.lbfgs_iters,
+                    res = lbfgs_minimize(evals.fun, x, max_iters=self.lbfgs_iters,
                                          history=self.history, init_state=state,
                                          max_evals=self.max_segment_evals,
-                                         linesearch=self.linesearch,
-                                         value_and_grad=(value_and_grad if graphs is None
-                                                         else graphs.value_and_grad))
+                                         linesearch=self.linesearch, evaluations=evals)
                 x, state = res.x, res.state
                 diag.n_iters.append(res.n_iters)
                 diag.n_evals.append(res.n_evals)
                 diag.n_jvp.append(res.n_jvp)
                 diag.n_restore.append(res.n_restore)
-        if graphs is None:
-            with torch.no_grad():
-                xa = self.to_state(x, bundle)
-        else:
-            if gt is None:  # else the last diagnostics decoded this x
-                graphs.decode(x)
-            xa = graphs.state.clone()
+        xa = evals.analysis(x)
         diag.seconds = time.perf_counter() - t0
         return x, xa, diag
 

@@ -18,23 +18,22 @@ reference's (tests/test_torch_import.py holds them equal).
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
 from vaevar_tpu_torch.channels import N_LEVELS, N_SINGLE, PRESSURE_LEVELS
+from vaevar_tpu_torch.utils.capture import device_tables
 
 
 def _nearest_idx(n_out: int, n_in: int) -> np.ndarray:
     return np.minimum((np.arange(n_out) * n_in) // n_out, n_in - 1).astype(np.int64)
 
 
-@functools.lru_cache(maxsize=64)
+@device_tables
 def _nearest_index_tensors(in_hw, out_hw, rows, cols, device):
-    """The row and column index tensors of `resize_nearest` on `device`,
-    made once per (grid sizes, tile, device): `rows` and `cols` are the
-    tile's (start, stop, step), or None for the whole output."""
+    """The row and column index tensors of `resize_nearest` on `device`:
+    `rows` and `cols` are the tile's (start, stop, step), or None for the
+    whole output."""
     hi, wi = _nearest_idx(out_hw[0], in_hw[0]), _nearest_idx(out_hw[1], in_hw[1])
     if rows is not None:
         hi, wi = hi[slice(*rows)], wi[slice(*cols)]
@@ -48,9 +47,7 @@ def _bounds(s: slice) -> tuple:
 def resize_nearest(x, out_hw, tile=None):
     """Nearest resize on the last two axes of x (..., H, W). With a `tile`
     of the output grid (parallel/mesh.py::tile_for), only the tile's rows
-    and columns of the output: the slice of the whole output, bit for bit.
-    The index tables cross to a device once (`_nearest_index_tensors`), so
-    a call copies nothing from the host."""
+    and columns of the output: the slice of the whole output, bit for bit."""
     H, W = x.shape[-2], x.shape[-1]
     oh, ow = out_hw
     if (oh, ow) == (H, W):

@@ -12,6 +12,10 @@
   capture does not allow, and no network of the port draws a random
   number in its forward (no dropout, no drop-path), so the recompute needs
   none.
+- `device_tables(make)`: the constant tables a call needs on a device,
+  made by `make` once per key (the device among it), so that no later call
+  copies from the host, which a capture cannot do: the graphs' warm-up
+  makes them, and one first asked for inside a capture raises.
 """
 
 from __future__ import annotations
@@ -31,3 +35,17 @@ def checkpoint(fn: Callable, *args):
         return _torch_checkpoint.checkpoint(fn, *args, use_reentrant=False,
                                             preserve_rng_state=False)
     return _torch_checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+
+def device_tables(make: Callable) -> Callable:
+    made = {}
+
+    def tables(*key):
+        if key not in made:
+            if capturing():
+                raise RuntimeError(f"{make.__qualname__}{key}: a table would cross "
+                                   "from the host inside a CUDA graph capture")
+            made[key] = make(*key)
+        return made[key]
+
+    return tables
