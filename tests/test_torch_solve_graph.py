@@ -21,14 +21,19 @@ On the CPU:
   replay recomputes the captured body eagerly into the graphs' buffers:
   three solves on three bundles give the eager solver's numbers bit for
   bit, with one capture, one replay per probe and an `lbfgs.replay` span in
-  each probe; a new shape captures again.
+  each probe; a new shape captures again; `load` remakes a reloaded
+  decoder's held weight copies (models/lgunet.py::held) in place without
+  capturing again, and captures again where one cannot be.
 
 On the card (`-m gpu`; `python -m pytest --noconftest -m gpu
 tests/test_torch_solve_graph.py`), the production VAE_DECODER in bf16 at
 its 128x256 latent with random weights: the replayed value and gradient
 against the eager ones, three solves against the eager solver, the decode
 graph's state against to_state, and a capture while a worker thread runs
-CUDA work on its own stream.
+CUDA work on its own stream; `lgunet.cast_held` per replay the eager
+probe's; after an in-place weight reload the replay bitwise the eager
+value and gradient at the new weights, with no new capture; a held copy
+first asked for inside a real capture raises.
 """
 
 import contextlib
@@ -39,9 +44,11 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_held_casts import _n_held
 from vaevar_tpu_torch import channels
 from vaevar_tpu_torch import config as cfgs
 from vaevar_tpu_torch.da import cost as cost_mod
+from vaevar_tpu_torch.da import graphs as graphs_mod
 from vaevar_tpu_torch.da import lbfgs
 from vaevar_tpu_torch.da import solver as solver_mod
 from vaevar_tpu_torch.da.graphs import Evaluations, SolveGraphs
@@ -473,21 +480,66 @@ def test_stand_in_replay_without_truth_and_a_new_shape(monkeypatch):
     assert trace.counters()["solve.graph_captures"] - before == 2
 
 
+def _scaled(state, factor):
+    return {k: t * factor if t.is_floating_point() else t for k, t in state.items()}
+
+
+def test_stand_in_load_keeps_held_copies_current(monkeypatch):
+    """After an in-place reload of the decoder's weights, `load` remakes its
+    held copies in place without capturing again, so the replay (which
+    would raise on a stale copy: it runs as captured) gives the eager
+    value and gradient at the new weights; where a copy cannot be remade in
+    place, `load` captures again."""
+    monkeypatch.setattr(SolveGraphs, "_capture", stand_in_capture)
+    decoder, c = _micro_decoder(dtype=torch.bfloat16)
+    cost, to_state, parts = cost_mod.make_vae4dvar_cost_reduced(decoder)
+    (bundle, _), = _bundles((32, 64), (16, 32), (5,))
+    x0 = torch.zeros((1, c, 16, 32))
+    z = 0.3 * torch.randn(x0.shape, generator=torch.Generator().manual_seed(9))
+    lbfgs.value_and_grad(lambda q: cost(q, bundle), z)  # the warm-up's eager run
+    graphs = SolveGraphs(cost, to_state, parts, models=[decoder, None])
+    graphs.load(x0, bundle)
+    v0, _ = graphs.value_and_grad(z)
+    copies = {id(e.copy) for m in decoder.modules() for e in m.__dict__.get("_held", {}).values()}
+    decoder.load_state_dict(_scaled(decoder.state_dict(), 1.5))
+    before = trace.counters()
+    graphs.load(x0, bundle)
+    added = {k: v - before.get(k, 0) for k, v in trace.counters().items()}
+    assert added.get("solve.graph_captures", 0) == 0
+    assert added["lgunet.cast_made"] == _n_held(decoder) == len(copies)
+    assert copies == {id(e.copy) for m in decoder.modules()
+                      for e in m.__dict__.get("_held", {}).values()}
+    v, g = lbfgs.value_and_grad(lambda q: cost(q, bundle), z)
+    vg, gg = graphs.value_and_grad(z)
+    assert vg == v != v0 and torch.equal(gg, g)
+    monkeypatch.setattr(graphs_mod, "refresh_held", lambda model: False)
+    before = trace.counters()["solve.graph_captures"]
+    graphs.load(x0, bundle)
+    assert trace.counters()["solve.graph_captures"] - before == 1
+
+
 # --- on the card --------------------------------------------------------------
 
 
 @pytest.fixture(scope="module")
-def card():
+def card_decoder():
     """The production decoder (VAE_DECODER, bf16 compute, f32 weights drawn
-    from torch's default initialisation) and its reduced cost on the card,
-    with seeded obs at 721x1440 reduced onto the 128x256 latent grid."""
+    from torch's default initialisation) on the card."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False  # as run_da
     torch.backends.cudnn.allow_tf32 = False
     torch.manual_seed(0)
     cfg = cfgs.VAE_DECODER.replace(dtype=torch.bfloat16)
-    decoder = LGUnet(cfg).to("cuda").eval().requires_grad_(False)
+    return LGUnet(cfg).to("cuda").eval().requires_grad_(False)
+
+
+@pytest.fixture(scope="module")
+def card(card_decoder):
+    """The production decoder's reduced cost on the card, with seeded obs at
+    721x1440 reduced onto the 128x256 latent grid."""
+    decoder = card_decoder
+    cfg = decoder.cfg
     cost, to_state, parts = cost_mod.make_vae4dvar_cost_reduced(decoder)
     bundles = _bundles((721, 1440), (128, 256), (21, 22, 23), device="cuda")
     x0 = torch.zeros((1, sum(cfg.inchans_list), 128, 256), device="cuda")
@@ -514,11 +566,16 @@ def test_card_replayed_value_and_gradient(card):
     g = torch.Generator(device="cuda").manual_seed(4)
     for _ in range(2):
         z = 0.3 * torch.randn(x0.shape, generator=g, device="cuda")
+        before = trace.counters().get("lgunet.cast_held", 0)
         v, grad = lbfgs.value_and_grad(lambda q: cost(q, bundle), z)
+        held_e = trace.counters()["lgunet.cast_held"] - before
         vg, gradg = graphs.value_and_grad(z)
-        print(f"value eager {v!r}, replayed {vg!r}")
+        held_g = trace.counters()["lgunet.cast_held"] - before - held_e
+        print(f"value eager {v!r}, replayed {vg!r}; lgunet.cast_held eager {held_e}, "
+              f"replayed {held_g}")
         assert abs(vg - v) <= 1e-6 * abs(v)
         _agree(gradg, grad, "gradient")
+        assert held_g == held_e > 0
 
 
 @pytest.mark.gpu
@@ -603,3 +660,47 @@ def test_card_capture_beside_a_worker_stream(card):
     vg, gradg = graphs.value_and_grad(z)
     assert abs(vg - v) <= 1e-6 * abs(v)
     _agree(gradg, grad, "gradient after a capture beside a worker")
+
+
+@pytest.mark.gpu
+def test_card_weights_reloaded_in_place(card, card_decoder):
+    """An in-place reload of the decoder's weights between solves: `load`
+    remakes the held copies where the graphs read them, with no new
+    capture, and the replay gives the eager value and gradient at the new
+    weights bitwise."""
+    cost, to_state, parts, bundles, x0 = card
+    decoder = card_decoder
+    bundle, _ = bundles[0]
+    z = 0.3 * torch.randn(x0.shape, generator=torch.Generator(device="cuda").manual_seed(7),
+                          device="cuda")
+    graphs = SolveGraphs(cost, to_state, parts, models=[decoder])
+    graphs.load(x0, bundle)
+    v0, _ = graphs.value_and_grad(z)
+    original = {k: t.clone() for k, t in decoder.state_dict().items()}
+    try:
+        decoder.load_state_dict(_scaled(original, 1.01))
+        before = trace.counters()
+        graphs.load(x0, bundle)
+        added = {k: v - before.get(k, 0) for k, v in trace.counters().items()}
+        print(f"reload: {added.get('lgunet.cast_made', 0)} copies remade of "
+              f"{_n_held(decoder)}, {added.get('solve.graph_captures', 0)} captures")
+        assert added.get("solve.graph_captures", 0) == 0
+        assert added["lgunet.cast_made"] == _n_held(decoder) > 0
+        v, grad = lbfgs.value_and_grad(lambda q: cost(q, bundle), z)
+        vg, gradg = graphs.value_and_grad(z)
+        print(f"value before the reload {v0!r}; eager {v!r}, replayed {vg!r}")
+        assert vg == v != v0
+        assert torch.equal(gradg, grad)
+    finally:
+        decoder.load_state_dict(original)
+
+
+@pytest.mark.gpu
+def test_card_first_held_copy_inside_a_capture_raises(card):
+    model, c = _micro_decoder(dtype=torch.bfloat16)
+    model = model.cuda()
+    x = torch.zeros((1, c, 16, 32), device="cuda")
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="inside a CUDA graph capture"):
+        with torch.cuda.graph(graph):
+            model(x)

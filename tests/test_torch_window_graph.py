@@ -23,7 +23,9 @@ at 721x1440: the replayed value and gradient and their counters against
 the eager ones and the replayed `window.step` device times; the decode
 graph against to_state and cost_parts; three solves with one capture
 against the eager solver; a capture while a worker thread runs CUDA work on
-its own stream.
+its own stream; `lgunet.cast_held` per replay the eager probe's; after an
+in-place reload of both models' weights the replay bitwise the eager value
+and gradient at the new weights, with no new capture.
 """
 
 import threading
@@ -37,7 +39,9 @@ from test_torch_solve_graph import (
     _agree,
     _micro_decoder,
     _micro_flow,
+    _n_held,
     _same_diag,
+    _scaled,
     stand_in_capture,
     window_bundle,
 )
@@ -54,7 +58,8 @@ from vaevar_tpu_torch.utils import capture, trace
 torch.set_num_threads(1)
 WIN = 6
 KEYS = ("window.rollout_steps", "window.flow_forwards", "solve.graph_captures",
-        "lbfgs.graph_replays", "lbfgs.probes", "lbfgs.jvp")
+        "lbfgs.graph_replays", "lbfgs.probes", "lbfgs.jvp", "lgunet.cast_held",
+        "lgunet.cast_made")
 
 
 @pytest.fixture(autouse=True)
@@ -193,18 +198,24 @@ def _card_bundles(seeds, full_hw=(721, 1440), low_hw=(128, 256)):
 
 
 @pytest.fixture(scope="module")
-def card():
+def card_models():
     """VAE_DECODER and FLOW_140 (bf16 compute, block remat, f32 weights from
-    torch's default initialisation) and their reduced window cost with the
-    step checkpoint on the card, with seeded window obs at 721x1440 reduced
-    onto the 128x256 solver grid."""
+    torch's default initialisation) on the card."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False  # as run_da
     torch.backends.cudnn.allow_tf32 = False
     torch.manual_seed(0)
-    models = [LGUnet(cfg.replace(dtype=torch.bfloat16, remat=True)).to("cuda").eval()
-              .requires_grad_(False) for cfg in (cfgs.VAE_DECODER, cfgs.FLOW_140)]
+    return [LGUnet(cfg.replace(dtype=torch.bfloat16, remat=True)).to("cuda").eval()
+            .requires_grad_(False) for cfg in (cfgs.VAE_DECODER, cfgs.FLOW_140)]
+
+
+@pytest.fixture(scope="module")
+def card(card_models):
+    """The models' reduced window cost with the step checkpoint on the card,
+    with seeded window obs at 721x1440 reduced onto the 128x256 solver
+    grid."""
+    models = card_models
     cost, to_state, parts = cost_mod.make_vae4dvar_cost_window_reduced(
         *models, da_win=WIN, step_checkpoint=True)
     bundles = _card_bundles((41, 42, 43))
@@ -236,11 +247,13 @@ def test_card_replayed_value_and_gradient(card):
         replayed = trace.records()
         trace.disable()
         added_g = _added(before)
-        print(f"value eager {v!r}, replayed {vg!r}")
+        print(f"value eager {v!r}, replayed {vg!r}; lgunet.cast_held eager "
+              f"{added_e['lgunet.cast_held']}, replayed {added_g['lgunet.cast_held']}")
         assert abs(vg - v) <= 1e-6 * abs(v)
         _agree(gradg, grad, "gradient")
-        for k in ("window.rollout_steps", "window.flow_forwards"):
+        for k in ("window.rollout_steps", "window.flow_forwards", "lgunet.cast_held"):
             assert added_g[k] == added_e[k], k
+        assert added_g["lgunet.cast_held"] > 0 and added_g["lgunet.cast_made"] == 0
         assert added_e["window.flow_forwards"] == 10 and added_g["lbfgs.graph_replays"] == 1
         ms_e = [r["device_ms"] for r in eager if r["name"] == "window.step"]
         ms_g = [r["device_ms"] for r in replayed if r["name"] == "window.step"]
@@ -341,3 +354,36 @@ def test_card_capture_beside_a_worker_stream(card):
     vg, gradg = graphs.value_and_grad(z)
     assert abs(vg - v) <= 1e-6 * abs(v)
     _agree(gradg, grad, "gradient after a capture beside a worker")
+
+
+@pytest.mark.gpu
+def test_card_weights_reloaded_in_place(card, card_models):
+    """An in-place reload of the decoder's and FLOW_140's weights between
+    solves: `load` remakes their held copies where the graphs read them,
+    with no new capture, and the replay gives the eager value and gradient
+    at the new weights bitwise."""
+    cost, to_state, parts, bundles, x0 = card
+    bundle, _ = bundles[0]
+    z = _z(x0.shape, 8)
+    graphs = SolveGraphs(cost, to_state, parts, models=card_models)
+    graphs.load(x0, bundle)
+    v0, _ = graphs.value_and_grad(z)
+    originals = [{k: t.clone() for k, t in m.state_dict().items()} for m in card_models]
+    try:
+        for m, original in zip(card_models, originals):
+            m.load_state_dict(_scaled(original, 1.01))
+        before = trace.counters()
+        graphs.load(x0, bundle)
+        added = _added(before)
+        n = sum(_n_held(m) for m in card_models)
+        print(f"reload: {added['lgunet.cast_made']} copies remade of {n}, "
+              f"{added['solve.graph_captures']} captures")
+        assert added["solve.graph_captures"] == 0 and added["lgunet.cast_made"] == n > 0
+        v, grad = lbfgs.value_and_grad(lambda q: cost(q, bundle), z)
+        vg, gradg = graphs.value_and_grad(z)
+        print(f"value before the reload {v0!r}; eager {v!r}, replayed {vg!r}")
+        assert vg == v != v0
+        assert torch.equal(gradg, grad)
+    finally:
+        for m, original in zip(card_models, originals):
+            m.load_state_dict(original)

@@ -14,7 +14,13 @@ so eagerly the host takes ~150 ms (window: ~2.9 s) a probe to launch ~25 ms
 (~0.25 s) of device work. Every input of those launches has a fixed shape
 for the life of a solver (the control z, the bundle's fields), and the
 models' weights are frozen, so on a CUDA device `SolveGraphs` captures two
-CUDA graphs once and replays them:
+CUDA graphs once and replays them. A frozen LGUnet casts its weights to
+bf16 once and holds the copies (models/lgunet.py::held), so the graphs read
+the held copies and cast no weight; a replay runs no Python, so `load`
+re-checks them before each solve (lgunet.refresh_held): one whose weights
+changed (a reload, an in-place write) is remade in place, where the graphs
+read it, and one that cannot be (a model moved to another device or
+reshaped) makes `load` capture again. The graphs:
 
 - the value and gradient, `v = cost(x, bundle)`, `g = dv/dx`: one replay per
   probe, the gradient copied out of the graph's buffer;
@@ -32,9 +38,10 @@ never replay at the same time. The capture runs with
 its own stream meanwhile (the cycler's obs prefetch) does not break it.
 Nothing inside the captured region copies between host and device or
 waits for the device: the cost's tables cross to a device once
-(utils/capture.py::device_tables), and the activation checkpoints (LGUnet's
-block remat, the window's step checkpoint) keep no RNG state under a
-capture (utils/capture.py::checkpoint).
+(utils/capture.py::device_tables), the held weight copies are made by the
+warm-up (one first asked for inside the capture raises), and the
+activation checkpoints (LGUnet's block remat, the window's step
+checkpoint) keep no RNG state under a capture (utils/capture.py::checkpoint).
 
 The rest stays eager: the collectives (gloo, nccl) of a mesh or a
 tensor-parallel model are not captured, the CPU has no graphs, and sc4dvar
@@ -44,9 +51,10 @@ per-call copy; a window without a flow model) are not shown to capture.
 Counters (utils/trace.py, always on): `lbfgs.graph_replays`, one per
 replayed probe; `solve.graph_captures`, one per capture. The counters the
 captured bodies count (`window.rollout_steps`, `window.flow_forwards`,
-`flash.*`) are tallied at the capture (trace.tallied) and added at each
-replay, so they read what the eager solve reads; the capture itself counts
-nothing, and the warm-up runs count as the eager runs they are. Spans:
+`flash.*`, `lgunet.cast_held`) are tallied at the capture (trace.tallied)
+and added at each replay, so they read what the eager solve reads; the
+capture itself counts nothing, and the warm-up runs count as the eager runs
+they are. Spans:
 `lbfgs.replay` around a replayed probe's copy in, replay and copy out
 (inside `lbfgs.probe`, where an eager probe has `lbfgs.forward` and
 `lbfgs.backward`); a body's device spans (the window's `window.step`, a
@@ -61,6 +69,7 @@ from typing import Callable
 import torch
 
 from vaevar_tpu_torch.da.lbfgs import Eager, _host
+from vaevar_tpu_torch.models.lgunet import refresh_held
 from vaevar_tpu_torch.parallel.tensor_parallel import is_tensor_parallel
 from vaevar_tpu_torch.utils import trace
 
@@ -75,7 +84,9 @@ def solve_evaluations(cost: Callable, to_state: Callable, cost_parts: Callable, 
     graphed = (mode == "vae4dvar" and form in ("3dvar", "window") and mesh is None
                and not any(m is not None and is_tensor_parallel(m) for m in models)
                and torch.device(device).type == "cuda")
-    return (SolveGraphs if graphed else Evaluations)(cost, to_state, cost_parts)
+    if graphed:
+        return SolveGraphs(cost, to_state, cost_parts, models=models)
+    return Evaluations(cost, to_state, cost_parts)
 
 
 class Evaluations(Eager):
@@ -104,16 +115,26 @@ class Evaluations(Eager):
 
 class SolveGraphs(Evaluations):
     """The value-and-gradient and decode graphs of one reduced vae4dvar cost
-    on one CUDA device, on static copies of the bundle."""
+    on one CUDA device, on static copies of the bundle; `models` are the
+    networks the cost runs (None entries skipped), whose held weight copies
+    the graphs read."""
 
     _signature = None  # of the captured (x0, bundle)
 
+    def __init__(self, cost: Callable, to_state: Callable, cost_parts: Callable,
+                 models=()):
+        super().__init__(cost, to_state, cost_parts)
+        self.models = [m for m in models if m is not None]
+
     def load(self, x0, bundle):
-        """Copy a solve's bundle into the static buffers; capture both
-        graphs at the first load and at one of other shapes, dtypes or device."""
+        """Bring the models' held weight copies up to date and copy a solve's
+        bundle into the static buffers; capture both graphs at the first
+        load, at one of other shapes, dtypes or device, and where a held
+        copy could not be remade in place."""
         self._decoded = None  # the x whose decode the graph's buffers hold
         sig = tuple((tuple(t.shape), t.dtype, t.device) for t in (x0, *bundle))
-        if sig == self._signature:
+        in_place = all([refresh_held(m) for m in self.models])
+        if sig == self._signature and in_place:
             with torch.no_grad():
                 for static, t in zip(self.bundle, bundle):
                     static.copy_(t)

@@ -22,6 +22,23 @@ with a compute dtype cast input and weights to it; `x + pos_embed` promotes
 the encoder and LG residual streams to f32; PatchMerging/PatchExpand and the
 last LayerNorm before a head run in f32; the output is cast to f32.
 
+A frozen parameter is cast once, not at every call (`held`): where `dense`,
+the patch embed or a conv-transpose head cast a parameter that does not
+require grad, and where a relbias block gathers its bias table, the call
+takes a copy that its module holds, made by the same cast or gather, so
+every product reads the same bits. A parameter that requires grad is cast
+at every call, as flax does, so autograd routes its gradient into the f32
+master: training runs the per-call casts. A held copy is remade when its
+parameter's data changes (`load_state_dict`, `.to(...)`, an in-place
+write), in place where it can be, so that a CUDA graph that read it reads
+the new weights (da/graphs.py re-checks them with `refresh_held` before a
+solve's replays); it is neither a parameter nor a buffer, and a deep copy
+or a pickle of the module starts without it. The activations' casts, the
+tensor-parallel row layer's own casts (parallel/tensor_parallel.py) and
+models/zoo.py's casts of its own stay per call. Counters (utils/trace.py):
+`lgunet.cast_held`, one per held copy a call takes (a cast or gather not
+launched), and `lgunet.cast_made`, one per copy made or remade.
+
 `LGUnet.partition(tiling)` (parallel/spatial.py, docs/SPATIAL_TRAINING.md)
 puts the model in its spatially partitioned mode: the input, the output and
 every activation are this rank's (lat, lon) tile of the whole (at a level
@@ -47,6 +64,7 @@ from vaevar_tpu_torch.ops import rope as rope_ops
 from vaevar_tpu_torch.ops import windows as win_ops
 from vaevar_tpu_torch.ops.attention import window_attention_core
 from vaevar_tpu_torch.ops.posenc import relative_position_index
+from vaevar_tpu_torch.utils import capture, trace
 from vaevar_tpu_torch.utils.capture import checkpoint
 
 
@@ -59,12 +77,98 @@ def torch_dtype(dt):
             "float16": torch.float16}[np.dtype(dt).name]
 
 
+class _Held(dict):
+    """A module's held copies, {(parameter name, key): _HeldCopy}. Not
+    state: a deep copy or a pickle of the module starts empty."""
+
+    def __deepcopy__(self, memo):
+        return _Held()
+
+    def __reduce__(self):
+        return _Held, ()
+
+
+class _HeldCopy:
+    """make(p), and the data it was made from: p's storage (kept, so that
+    no other tensor takes its address while this copy is held) and version."""
+
+    __slots__ = ("source", "version", "copy", "make")
+
+    def __init__(self, p, make, old=None):
+        """Made by make(p); into `old`'s copy where shape, dtype and device
+        agree, so that a CUDA graph that read it reads the new one. Made
+        outside any torch.func transform the call runs under (a jvp probe),
+        so that the copy outlives it as a plain tensor."""
+        with torch._C._DisableFuncTorch(), torch.no_grad():
+            copy = make(p)
+            if old is not None and (old.copy.shape, old.copy.dtype, old.copy.device) == (
+                    copy.shape, copy.dtype, copy.device):
+                copy = old.copy.copy_(copy)
+            self.source = p.detach()
+        self.version, self.copy, self.make = p._version, copy, make
+        trace.count("lgunet.cast_made")
+
+    def current(self, p) -> bool:
+        s = self.source
+        return (p._version == self.version and p.data_ptr() == s.data_ptr()
+                and p.device == s.device and p.dtype == s.dtype and p.shape == s.shape
+                and p.stride() == s.stride())
+
+
+def held(module: nn.Module, name: str, key, make):
+    """make(p) for the parameter p = module.<name>: made at every call where
+    p requires grad; else the copy that `module` holds under `key`, made by
+    make and remade only when p's data is no longer the data it was made
+    from (the module docstring). Making one inside a CUDA graph capture
+    raises: the graphs' warm-up makes them."""
+    p = getattr(module, name)
+    if p.requires_grad:
+        return make(p)
+    copies = module.__dict__.setdefault("_held", _Held())
+    entry = copies.get((name, key))
+    if entry is None or not entry.current(p):
+        if capture.capturing():
+            raise RuntimeError(f"{type(module).__name__}.{name}: a held copy would be made "
+                               "inside a CUDA graph capture")
+        copies[(name, key)] = entry = _HeldCopy(p, make, entry)
+    trace.count("lgunet.cast_held")
+    return entry.copy
+
+
+def refresh_held(model: nn.Module) -> bool:
+    """Remake, in place, each held copy of `model`'s modules whose parameter's
+    data changed since it was made. False where one could not be remade in
+    place (its parameter changed shape or device): that one is dropped, and
+    the next call makes it anew."""
+    in_place = True
+    for m in model.modules():
+        copies = m.__dict__.get("_held", {})
+        for (name, key), entry in list(copies.items()):
+            p = getattr(m, name)
+            if entry.current(p):
+                continue
+            if (p.shape, p.device) != (entry.source.shape, entry.source.device):
+                del copies[(name, key)]
+                in_place = False
+            else:
+                copies[(name, key)] = _HeldCopy(p, entry.make, entry)
+    return in_place
+
+
+def cast_param(module: nn.Module, name: str, dt):
+    """module.<name> (None passes) in the compute dtype `dt`: as it is where
+    it has that dtype, else cast, once where it is frozen (`held`)."""
+    p = getattr(module, name)
+    if p is None or p.dtype == dt:
+        return p
+    return held(module, name, dt, lambda t: t.to(dt))
+
+
 def dense(x, lin: nn.Linear, dtype=None):
     """flax nn.Dense semantics: cast input and params to `dtype` (or to
     their promoted type when None) and compute in it."""
     dt = dtype or torch.promote_types(x.dtype, lin.weight.dtype)
-    b = None if lin.bias is None else lin.bias.to(dt)
-    return F.linear(x.to(dt), lin.weight.to(dt), b)
+    return F.linear(x.to(dt), cast_param(lin, "weight", dt), cast_param(lin, "bias", dt))
 
 
 def layer_norm(x, ln: nn.LayerNorm, dtype=None):
@@ -188,8 +292,10 @@ class WindowAttention(nn.Module):
         else:
             q = q * self.scale
             logits = q.float() @ k.float().transpose(-1, -2)
-            bias = self.relative_position_bias_table.float()[self.rel_index]
-            logits = logits + bias.reshape(N, N, h).permute(2, 0, 1)[None]
+            index = self.rel_index
+            logits = logits + held(
+                self, "relative_position_bias_table", "gathered",
+                lambda t: t.float()[index].reshape(N, N, h).permute(2, 0, 1)[None])
             if self.mask is not None:
                 nW = self.mask.shape[0]
                 logits = (logits.reshape(B_ // nW, nW, h, N, N)
@@ -386,8 +492,8 @@ class _PatchEmbed(nn.Module):
 
     def forward(self, x):  # (B, H, W, c) -> (B, h, w, C), VALID padding
         dt = self.dtype or torch.promote_types(x.dtype, self.proj.weight.dtype)
-        y = F.conv2d(x.permute(0, 3, 1, 2).to(dt), self.proj.weight.to(dt),
-                     self.proj.bias.to(dt), self.proj.stride)
+        y = F.conv2d(x.permute(0, 3, 1, 2).to(dt), cast_param(self.proj, "weight", dt),
+                     cast_param(self.proj, "bias", dt), self.proj.stride)
         return y.permute(0, 2, 3, 1)
 
 
@@ -467,8 +573,8 @@ def conv_transpose_valid(x, ct: nn.ConvTranspose2d, dtype=None):
     in*stride + max(k - stride, 0) per axis, which torch's transposed
     convolution gives for k >= stride (721 rows from 360 at k=3, s=2)."""
     dt = dtype or torch.promote_types(x.dtype, ct.weight.dtype)
-    y = F.conv_transpose2d(x.permute(0, 3, 1, 2).to(dt), ct.weight.to(dt),
-                           ct.bias.to(dt), ct.stride)
+    y = F.conv_transpose2d(x.permute(0, 3, 1, 2).to(dt), cast_param(ct, "weight", dt),
+                           cast_param(ct, "bias", dt), ct.stride)
     return y.permute(0, 2, 3, 1)
 
 

@@ -13,7 +13,9 @@ torch profiler trace.
   entry and at exit; `records()` resolves the pair to `device_ms`, the
   device time between them, so nothing waits while the span runs.
 - `count(name, n=1)`: adds to a counter. Counters are always on; they count
-  at eval, probe, sync or step granularity, never per kernel.
+  at eval, probe, sync or step granularity, never per kernel, but for the
+  LGUnet's held weight copies (models/lgunet.py): `lgunet.cast_held`, one
+  per cast a call spares, and `lgunet.cast_made`, one per copy made.
 - `tallied()`: the work a CUDA graph captures (da/graphs.py) runs its
   Python once, at the capture, and never at a replay. Inside the block,
   what counts on a capturing stream (utils/capture.py::capturing, on any
